@@ -1,0 +1,64 @@
+"""Framework configuration and the device / precision policy.
+
+``SolverConfig`` and ``FitConfig`` hold the fields of the JAX package's
+dataclasses (``microstructure_fingerprinting_tpu/config.py``) that the
+2-fascicle + CSF slice reads, with the same defaults; the other knobs
+come with the code that reads them. Two of the JAX package's values live
+elsewhere, as they do there: the re-scan's 8 segments per column block
+are ``ops/rescan._SEGMENTS``, and the fit's voxel chunk is
+``MFModel.fit(batch_size=)``, 512 by default as on the JAX package's
+one-device path (its ``FitConfig.batch`` is the step of the multi-device
+path, which is not ported).
+
+The policy below is set once, when the package is imported:
+
+  * production arithmetic is float32 (``DTYPE``);
+  * TF32 is off for every matmul and convolution — the rotation is a
+    lerp-weight matmul that the JAX package runs at Precision.HIGHEST,
+    and TF32 would keep only ~3 decimal digits of it;
+  * ``MFModel`` takes ``device="cuda"`` by default and raises when CUDA
+    is absent; the CPU runs only when a caller asks for it.
+"""
+
+import dataclasses
+
+import torch
+
+DTYPE = torch.float32
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device):
+    """torch.device for ``device``; raises when CUDA is asked for and
+    absent (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device %r requested but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU" % (device,))
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Exhaustive-NNLS solver knobs."""
+    # two-pass scan row budget: the f32 interval row pass bounds hold the
+    # winner's row inside the top-R in-band rows; R covers the measured
+    # band tails with <1% overflow for the 2-fascicle+CSF grid
+    twopass_rows: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """MFModel.fit defaults."""
+    max_fasc: int = 2              # max fascicles per voxel
+    max_prog_lines: int = 100      # progress-print budget
+    dft_disp_itvl: int = 5         # default progress interval
+    gtol: float = 1e-3             # bval->G snapping tolerance [T/m]
+
+
+DEFAULTS = {
+    "solver": SolverConfig(),
+    "fit": FitConfig(),
+}

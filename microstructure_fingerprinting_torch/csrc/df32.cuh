@@ -1,0 +1,118 @@
+// Error-free float32 transforms for the kernels of this package.
+//
+// Device mirror of ops/df32.py. Every operation is an explicitly rounded
+// intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), which nvcc never
+// contracts into a fused multiply-add; the library is also built with
+// --fmad=false. A contracted a*b + c would make the Dekker split and the
+// two_prod error terms wrong, and the double-float residuals with them.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mf {
+
+constexpr float kEps = 1.1920929e-07f;
+constexpr float kInf = __builtin_huge_valf();
+
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float dv(float a, float b) { return __fdiv_rn(a, b); }
+
+// NaN-propagating minimum (jnp.minimum / torch.minimum semantics)
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float nan_to_inf(float x) { return x != x ? kInf : x; }
+
+// (main, error) partial pair
+struct P2 {
+  float p, e;
+};
+
+// presplit double-float: (hi, lo, hi_h, hi_l)
+struct PS {
+  float hi, lo, hh, hl;
+};
+
+__device__ __forceinline__ P2 two_sum(float a, float b) {
+  float s = add(a, b);
+  float bb = sub(s, a);
+  float e = add(sub(a, sub(s, bb)), sub(b, bb));
+  return {s, e};
+}
+
+__device__ __forceinline__ P2 fast_two_sum(float a, float b) {
+  float s = add(a, b);
+  return {s, sub(b, sub(s, a))};
+}
+
+__device__ __forceinline__ P2 split(float a) {
+  float c = mul(4097.0f, a);
+  float ah = sub(c, sub(c, a));
+  return {ah, sub(a, ah)};
+}
+
+__device__ __forceinline__ PS presplit(P2 x) {
+  P2 h = split(x.p);
+  return {x.p, x.e, h.p, h.e};
+}
+
+__device__ __forceinline__ PS load_ps(const float* v, int stride) {
+  return {v[0], v[stride], v[2 * stride], v[3 * stride]};
+}
+
+// product of two presplit df values -> (main, err)
+__device__ __forceinline__ P2 mul_ps(const PS& x, const PS& y) {
+  float p = mul(x.hi, y.hi);
+  float e = add(add(add(sub(mul(x.hh, y.hh), p), mul(x.hh, y.hl)),
+                    mul(x.hl, y.hh)),
+                mul(x.hl, y.hl));
+  e = add(e, add(mul(x.hi, y.lo), mul(x.lo, y.hi)));
+  return {p, e};
+}
+
+__device__ __forceinline__ P2 neg(P2 x) { return {-x.p, -x.e}; }
+
+// compensated sum of (main, err) partials -> f32 value
+template <int N>
+__device__ __forceinline__ float acc(const P2 (&parts)[N]) {
+  float hi = parts[0].p, lo = parts[0].e;
+  #pragma unroll
+  for (int k = 1; k < N; ++k) {
+    P2 t = two_sum(hi, parts[k].p);
+    hi = t.p;
+    lo = add(lo, add(t.e, parts[k].e));
+  }
+  return add(hi, lo);
+}
+
+// exact (hi, lo) sum of a few f32 values via a two_sum cascade
+template <int N>
+__device__ __forceinline__ P2 df_from_sum(const float (&v)[N]) {
+  float hi = v[0], lo = 0.0f;
+  #pragma unroll
+  for (int k = 1; k < N; ++k) {
+    P2 t = two_sum(hi, v[k]);
+    hi = t.p;
+    lo = add(lo, t.e);
+  }
+  return {hi, lo};
+}
+
+__device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four int8 values p[0], p[stride], p[2*stride], p[3*stride] packed into
+// one int32 for __dp4a (lowest byte first); entries at u >= n are 0.
+__device__ __forceinline__ int pack4(const int8_t* p, size_t stride, int n) {
+  unsigned v = 0;
+  #pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (u < n) v |= (unsigned)(uint8_t)p[u * stride] << (8 * u);
+  }
+  return (int)v;
+}
+
+}  // namespace mf

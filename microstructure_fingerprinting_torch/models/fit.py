@@ -1,0 +1,205 @@
+"""Bucket fit steps: rotation -> two-pass exact scan -> double-float
+finalize, for the 2-fascicle + CSF configuration; closed-form host solve
+for fascicle-free (CSF-only) voxels.
+
+PyTorch counterpart of ``_r_squared``, ``_finalize_top1``,
+``_twopass_step3``, ``run_bucket_fast`` (the K=2 + CSF branches) and
+``run_bucket_trivial`` in ``microstructure_fingerprinting_tpu/models/fit.py``.
+The winner's weights and metrics are always computed on the device
+(double-float finalize); the float64 host refine is not part of this
+package yet (see ROADMAP.md).
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops import dfscan
+from ..ops import f32scan as f32
+from ..ops import interp as mfi
+from ..ops import rescan
+from ..utils.profiling import stage
+
+
+def _r_squared(y, y_rec):
+    """Pearson correlation squared between measured and predicted signal,
+    with the reference's guards (num_seq > 1, non-zero stds)."""
+    n = y.shape[-1]
+    yc = y - y.mean(dim=-1, keepdim=True)
+    rc = y_rec - y_rec.mean(dim=-1, keepdim=True)
+    num = (yc * rc).sum(dim=-1)
+    den = torch.sqrt((yc * yc).sum(dim=-1) * (rc * rc).sum(dim=-1))
+    ok = (den > 0) & (n > 1)
+    r = torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                    torch.zeros_like(den))
+    return r * r
+
+
+def _finalize_top1(D, sig_csf, y, cand):
+    """Double-float finalize of the scan winner.
+
+    D (B, 2, S, N) rotated fascicle blocks (raw scale); sig_csf (S,);
+    y (B, S) raw; cand (B, 2) winning atom pair. Returns (w (B, 3),
+    obj (B,), r2 (B,)) for the columns (fascicle 1, fascicle 2, CSF)."""
+    B, S = y.shape
+    cols = [torch.gather(D[:, k], 2,
+                         cand[:, None, k:k + 1].expand(B, S, 1))
+            for k in range(2)]
+    cols.append(sig_csf[None, :, None].expand(B, S, 1))
+    cols = torch.cat(cols, dim=2)                          # (B, S, 3)
+    w, res = dfscan.df_nnls_cols(cols, y)
+    # R^2 of a near-perfect fit is 1 - O(1e-7) and float32 sums would
+    # round it by a few ulp: evaluate it in float64 (B x S work)
+    y_rec = (cols.double() * w.double()[:, None, :]).sum(dim=2)
+    return w, res, _r_squared(y.double(), y_rec)
+
+
+def _twopass_step3(D, csf_d, y, R):
+    """One chunk of the production path: interval row pass -> row
+    selection -> df re-scan -> winner finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    cand, _vals, _ysq, ok = f32.df3_twopass(D[:, 0], D[:, 1], csf_blk, y,
+                                            R=R)
+    with stage("finalize", y.device):
+        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0])
+    return cand[:, 0], w, obj, r2, ok
+
+
+def _onepass_step3(D, csf_d, y):
+    """Full-grid df scan (dictionaries with N <= 2R) + finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    with stage("re-scan", y.device):
+        rr, ri, _ysq = rescan.row_scan_df3(D[:, 0], D[:, 1], csf_blk, y)
+        cand, _v = rescan.candidates_from_rows(
+            rr, ri, segments=rescan.n_segments(D.shape[3]))
+    with stage("finalize", y.device):
+        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0])
+    return (cand[:, 0], w, obj, r2,
+            torch.ones(B, dtype=torch.bool, device=y.device))
+
+
+def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
+                    K, csf_on, batch=128, rotator=None, sig_ear=None,
+                    ear_on=False):
+    """2-fascicle + CSF bucket: rotation, two-pass exact scan (or the
+    full-grid re-scan for N <= 2R) and the double-float finalize, in
+    ``batch``-voxel chunks on ``tables_ys.device``.
+
+    ``tables_ys`` (S_shells, Kmax, N) float32 knot tables; peaks (n, 6);
+    y (n, S); sig_csf (S,). Voxels whose row band overflows R are
+    re-solved at 2R (batch ``min(batch, 64)``), then at R = N, so exact
+    selection is unconditional. Returns NumPy (w (n, 3), ind (n, 3)
+    [i1, i2, csf=0], min_obj, mse, r2).
+    """
+    if K != 2 or not csf_on or ear_on:
+        raise NotImplementedError(
+            "the port covers the 2-fascicle + CSF bucket; K=1, K=2 without "
+            "CSF and EAR buckets are queued in ROADMAP.md (Queue 1, "
+            "items 8-9)")
+    del sig_ear
+    rows_R = config.DEFAULTS["solver"].twopass_rows
+    n_atom = tables_ys.shape[2]
+    twopass = n_atom > 2 * rows_R
+    if rotator is None:
+        rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
+    rotate, perm = rotator
+    dev, dt = tables_ys.device, tables_ys.dtype
+    n, S = y.shape
+    # the rotation emits sequences in group order: permute the signal and
+    # the CSF column alike (every result is permutation-invariant)
+    csf_d = torch.as_tensor(np.asarray(sig_csf)[perm], dtype=dt, device=dev)
+
+    n_pad = int(math.ceil(n / batch) * batch)
+    pk = np.zeros((n_pad, K, 3))
+    pk[:n] = np.asarray(peaks).reshape(n, K, 3)
+    y_all = np.zeros((n_pad, S))
+    y_all[:n] = np.asarray(y)[:, perm]
+    if n_pad > n:  # pad rows replicate voxel 0 to keep the kernels finite
+        pk[n:] = pk[0]
+        y_all[n:] = y_all[0]
+    pk_d = torch.as_tensor(pk, dtype=dt, device=dev)
+    y_d = torch.as_tensor(y_all, dtype=dt, device=dev)
+
+    def rotated(pk_c):
+        with stage("rotation", dev):
+            return rotate(tables_ys, pk_c)
+
+    outs = []
+    for st in range(0, n_pad, batch):
+        D = rotated(pk_d[st:st + batch])
+        yy = y_d[st:st + batch]
+        if twopass:
+            outs.append(_twopass_step3(D, csf_d, yy, rows_R))
+        else:
+            outs.append(_onepass_step3(D, csf_d, yy))
+    cand, w, obj, r2, ok = (torch.cat(x)[:n] for x in zip(*outs))
+
+    bad = torch.nonzero(~ok).flatten().cpu().numpy()
+    if bad.size:
+        # row-budget overflow (heavily tied voxels): re-solve at 2R, then
+        # with every row and column (R = N), where ok cannot fail
+        fb = min(batch, 64)
+        tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
+        for R in tiers:
+            still = []
+            for st in range(0, bad.size, fb):
+                sel = bad[st:st + fb]
+                idx = np.concatenate([sel, np.full(fb - sel.size, sel[0])])
+                idx_d = torch.as_tensor(idx, device=dev)
+                D = rotated(pk_d[idx_d])
+                c_f, w_f, o_f, r_f, ok_f = _twopass_step3(D, csf_d,
+                                                          y_d[idx_d], R)
+                m = sel.size
+                good = ok_f[:m].cpu().numpy() | (R == n_atom)
+                done = torch.as_tensor(sel[good], device=dev)
+                keep = torch.as_tensor(np.flatnonzero(good), device=dev)
+                cand[done], w[done] = c_f[keep], w_f[keep]
+                obj[done], r2[done] = o_f[keep], r_f[keep]
+                still.extend(sel[~good])
+            bad = np.asarray(still, dtype=np.int64)
+            if not bad.size:
+                break
+
+    # the df quadratic form can round a noiseless voxel's residual a few
+    # ulp below zero; a reported objective is never negative
+    obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
+    ind = np.clip(cand.cpu().numpy(), 0, n_atom - 1).astype(np.int32)
+    ind = np.concatenate([ind, np.zeros((n, 1), np.int32)], axis=1)
+    return (w.double().cpu().numpy(), ind, obj_b, obj_b / S,
+            r2.double().cpu().numpy())
+
+
+def run_bucket_trivial(y, sig_csf, sig_ear, csf_on, ear_on):
+    """Closed-form float64 host solve for fascicle-free CSF-only voxels:
+    w = max(a'y, 0) / a'a. Returns NumPy (w, ind, min_obj, mse, r2)."""
+    if ear_on or not csf_on:
+        raise NotImplementedError(
+            "fascicle-free buckets with an EAR block are queued in "
+            "ROADMAP.md (Queue 1, item 8)")
+    del sig_ear
+    y64 = np.asarray(y, dtype=np.float64)
+    n, S = y64.shape
+    csf64 = np.asarray(sig_csf, dtype=np.float64)
+    y_sq = np.einsum("ns,ns->n", y64, y64)
+    a_y = y64 @ csf64
+    pos = a_y >= 0
+    w = np.where(pos, a_y / float(csf64 @ csf64), 0.0)
+    obj = np.maximum(np.where(pos, y_sq - w * a_y, y_sq), 0.0)
+    w_b = w[:, None]
+    y_rec = w_b * csf64[None, :]
+    return w_b, np.zeros((n, 1), np.int32), obj, obj / S, _r2_np(y64, y_rec)
+
+
+def _r2_np(y, y_rec):
+    n = y.shape[-1]
+    yc = y - y.mean(axis=-1, keepdims=True)
+    rc = y_rec - y_rec.mean(axis=-1, keepdims=True)
+    num = np.sum(yc * rc, axis=-1)
+    den = np.sqrt(np.sum(yc * yc, axis=-1) * np.sum(rc * rc, axis=-1))
+    ok = (den > 0) & (n > 1)
+    r = np.where(ok, num / np.where(ok, den, 1.0), 0.0)
+    return r * r

@@ -1,0 +1,150 @@
+"""Build, load and launch the hand-written Hopper kernels (``csrc/*.cu``).
+
+The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers: the build takes seconds). The library's file name
+carries a hash of the sources, the headers and the flags, so a later
+process reuses it and an edit rebuilds it; nvcc writes to a temporary
+name that is renamed into place, so processes that build at once never
+load a half-written file. Each C entry point takes
+device pointers, sizes and the CUDA stream, launches on that stream and
+returns ``cudaGetLastError()``; ``launch`` raises when it is not 0.
+
+Floating-point flags are part of the numerics, not tuning:
+``--fmad=false`` (a contracted ``a*b + c`` breaks the Dekker transforms),
+``-prec-div=true -prec-sqrt=true -ftz=false`` (the guards compare against
+``EPS*d`` and 1e-12; flushed denormals or approximate divides move them),
+and no ``--use_fast_math``.
+
+``LAUNCHES`` counts, per kernel, the launches made through ``launch``;
+nothing else touches it. Importing this module needs neither ``nvcc`` nor
+a GPU.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+#: build output: ``build/`` of the checkout that holds the package
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
+                         "build", "mf_torch_kernels")
+SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-ftz=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+# C entry point -> argument kinds: "p" device pointer (None -> NULL),
+# "i" int, "f" float; every entry point takes the stream last
+_SIGNATURES = {
+    "prep_block": ("mf_prep_block", "ppppppppp" + "iiiii"),
+    "rowmin3": ("mf_rowmin3", "ppppppppppp" + "iiiiiiii"),
+    "rescan3": ("mf_rescan3", "ppppppppppppp" + "iiiii" + "f"),
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+BUILD_INFO = {}
+_lib = None
+
+
+def reset_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found (CUDA_HOME unset): "
+                           "cannot build the port's kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _source_key():
+    """Hash of the flags and every ``.cu``/``.cuh`` file under csrc/."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(_CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(_CSRC, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Path of the shared library; compiles it unless a library built
+    from the same sources and flags is already there."""
+    out = os.path.join(BUILD_DIR, "libmfkernels-%s.so" % _source_key())
+    if os.path.exists(out):
+        BUILD_INFO.update(seconds=0.0, cached=True, cmd=out, log="")
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ([_nvcc()] + list(NVCC_FLAGS) + ["-I", _CSRC, "-o", tmp]
+           + [os.path.join(_CSRC, s) for s in SOURCES])
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_INFO.update(seconds=time.time() - t0, cached=False,
+                          cmd=" ".join(cmd), log=proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s"
+                               % (proc.returncode, proc.stdout + proc.stderr))
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def library():
+    """The loaded kernel library, built on first use in this process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, (cname, kinds) in _SIGNATURES.items():
+            fn = getattr(lib, cname)
+            fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(t, dtype, shape, name):
+    """Validate a kernel operand: CUDA, dtype, shape, contiguity."""
+    if not t.is_cuda:
+        raise ValueError("%s must be a CUDA tensor" % name)
+    if t.dtype != dtype:
+        raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s must have shape %s, got %s"
+                         % (name, tuple(shape), tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+
+
+def launch(name, *args):
+    """Launch kernel ``name`` on the current stream; raises on a launch
+    error and counts the launch."""
+    cname, kinds = _SIGNATURES[name]
+    if len(args) != len(kinds):
+        raise TypeError("%s takes %d arguments" % (name, len(kinds)))
+    conv = []
+    for kind, a in zip(kinds, args):
+        if kind == "p":
+            conv.append(None if a is None else a.data_ptr())
+        else:
+            conv.append(int(a) if kind == "i" else float(a))
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), cname)(*conv, stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
+    LAUNCHES[name] += 1
