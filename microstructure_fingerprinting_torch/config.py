@@ -2,7 +2,7 @@
 
 ``SolverConfig`` and ``FitConfig`` hold the fields of the JAX package's
 dataclasses (``microstructure_fingerprinting_tpu/config.py``) that the
-2-fascicle + CSF slice reads, with the same defaults; the other knobs
+ported buckets read, with the same defaults; the other knobs
 come with the code that reads them. Two of the JAX package's values live
 elsewhere, as they do there: the re-scan's 8 segments per column block
 are ``ops/rescan._SEGMENTS``, and the fit's voxel chunk is
@@ -42,11 +42,19 @@ def resolve_device(device):
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Exhaustive-NNLS solver knobs."""
-    # two-pass scan row budget: the f32 interval row pass bounds hold the
+    """Exhaustive-NNLS solver knobs.
+
+    The EAR bucket always takes its two-pass scan (at ``twopass_rows_ear``)
+    when the dictionary has more than ``2 * twopass_rows`` atoms, on every
+    device: that is the JAX package's TPU production choice. Its
+    ``twopass_ear_mode`` knob, which chooses between that and a one-pass
+    scan per backend, is not carried."""
+    # two-pass scan row budgets: the f32 interval row pass bounds hold the
     # winner's row inside the top-R in-band rows; R covers the measured
-    # band tails with <1% overflow for the 2-fascicle+CSF grid
+    # band tails with <1% overflow for the 2-fascicle+CSF grid and a few %
+    # for the EAR grid, whose ear-dominant voxels tie more rows
     twopass_rows: int = 128
+    twopass_rows_ear: int = 256
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,6 +76,20 @@ __device__ __forceinline__ P2 mul_ps(const PS& x, const PS& y) {
 
 __device__ __forceinline__ P2 neg(P2 x) { return {-x.p, -x.e}; }
 
+// exact product of two floats: p + e == a * b (Dekker, both split here)
+__device__ __forceinline__ P2 two_prod(float a, float b) {
+  const P2 x = split(a), y = split(b);
+  const float p = mul(a, b);
+  float e = add(add(sub(mul(x.p, y.p), p), mul(x.p, y.e)), mul(x.e, y.p));
+  return {p, add(e, mul(x.e, y.e))};
+}
+
+// double-float sum (Dekker add): ops/df32.df_add
+__device__ __forceinline__ P2 df_add(P2 x, P2 y) {
+  const P2 t = two_sum(x.p, y.p);
+  return fast_two_sum(t.p, add(t.e, add(x.e, y.e)));
+}
+
 // compensated sum of (main, err) partials -> f32 value
 template <int N>
 __device__ __forceinline__ float acc(const P2 (&parts)[N]) {

@@ -16,8 +16,8 @@
 // (never contracted). The Gram is small by comparison (4 int8 products,
 // one __dp4a per 4 samples each, and 2 float64 products per sequence
 // sample). The design: a 256-thread block owns 32 rows x 64 columns, each
-// thread accumulates the Grams of its 2 x 4 points from 16-sequence chunks
-// staged in shared memory (int8 levels packed 4 samples per int32), then
+// thread accumulates the Grams of its 2 x 4 points with the tile of
+// gram_df.cuh (shared with kernel 5), then
 // runs the chain point by point with the hoisted row / column factors read
 // from shared memory, and the block reduces its residual tile per chunk. The
 // cross products are exact float64 products accumulated in float64 and
@@ -26,10 +26,11 @@
 #include <stdint.h>
 
 #include "df32.cuh"
+#include "gram_df.cuh"
 
 namespace {
 
-constexpr int TM = 32, TN = 64, SK = 16, CH = 16, kThreads = 256;
+constexpr int TM = mf::kDfTM, TN = 64, CH = 16, kThreads = mf::kDfThreads;
 
 using mf::P2;
 using mf::PS;
@@ -66,10 +67,7 @@ rescan3_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
                const float* __restrict__ vox, float* __restrict__ cmin,
                int* __restrict__ cidx, int S, int N1p, int N2pb, int n2,
                float tol_det) {
-  // int8 levels packed 4 sequence samples per int32 (the __dp4a operand)
-  __shared__ int sq1a[SK / 4][TM], sq2a[SK / 4][TM];
-  __shared__ int sq1b[SK / 4][TN], sq2b[SK / 4][TN];
-  __shared__ float sa1h[SK][TM], sra[SK][TM], srb[SK][TN], sab[SK][TN];
+  __shared__ mf::GramDfSmem<TN> gsm;
   __shared__ float srow[38][TM];
   __shared__ float scol[58][TN];
   __shared__ float svox[24];
@@ -87,89 +85,9 @@ rescan3_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
   }
   if (tid < 24) svox[tid] = vox[(size_t)b * 24 + tid];
 
-  int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {};
-  double c1[2][4] = {}, c2[2][4] = {};
-  const size_t abase = (size_t)b * S * N1p + row0;
-  const size_t bbase = (size_t)b * S * N2pb + col0;
-  constexpr int G = SK / 4;                       // dp4a groups per chunk
-  for (int s0 = 0; s0 < S; s0 += SK) {
-    __syncthreads();
-    for (int k = tid; k < G * TM; k += kThreads) {
-      const int g = k / TM, i = k % TM, s = s0 + 4 * g;
-      const size_t o = abase + (size_t)s * N1p + i;
-      sq1a[g][i] = mf::pack4(q1a + o, (size_t)N1p, S - s);
-      sq2a[g][i] = mf::pack4(q2a + o, (size_t)N1p, S - s);
-    }
-    for (int k = tid; k < G * TN; k += kThreads) {
-      const int g = k / TN, j = k % TN, s = s0 + 4 * g;
-      const size_t o = bbase + (size_t)s * N2pb + j;
-      sq1b[g][j] = mf::pack4(q1b + o, (size_t)N2pb, S - s);
-      sq2b[g][j] = mf::pack4(q2b + o, (size_t)N2pb, S - s);
-    }
-    for (int k = tid; k < SK * TM; k += kThreads) {
-      const int sl = k / TM, i = k % TM, s = s0 + sl;
-      const bool in = s < S;
-      const size_t o = abase + (size_t)s * N1p + i;
-      sa1h[sl][i] = in ? a1h[o] : 0.0f;
-      sra[sl][i] = in ? ra[o] : 0.0f;
-    }
-    for (int k = tid; k < SK * TN; k += kThreads) {
-      const int sl = k / TN, j = k % TN, s = s0 + sl;
-      const bool in = s < S;
-      const size_t o = bbase + (size_t)s * N2pb + j;
-      srb[sl][j] = in ? rb[o] : 0.0f;
-      sab[sl][j] = in ? ab[o] : 0.0f;
-    }
-    __syncthreads();
-    #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      int qa1[2], qa2[2], qb1[4], qb2[4];
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        qa1[r] = sq1a[g][ty * 2 + r];
-        qa2[r] = sq2a[g][ty * 2 + r];
-      }
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        qb1[c] = sq1b[g][tx + 16 * c];
-        qb2[c] = sq2b[g][tx + 16 * c];
-      }
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          t11[r][c] = __dp4a(qa1[r], qb1[c], t11[r][c]);
-          t12[r][c] = __dp4a(qa2[r], qb1[c],
-                             __dp4a(qa1[r], qb2[c], t12[r][c]));
-          t22[r][c] = __dp4a(qa2[r], qb2[c], t22[r][c]);
-        }
-      }
-      #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int sl = 4 * g + u;
-        double xa[2], xr[2], xb[4], xab[4];
-        #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          xa[r] = (double)sa1h[sl][ty * 2 + r];
-          xr[r] = (double)sra[sl][ty * 2 + r];
-        }
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          xb[c] = (double)srb[sl][tx + 16 * c];
-          xab[c] = (double)sab[sl][tx + 16 * c];
-        }
-        #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            // f32 x f32 products are exact in double: fma == mul + add
-            c1[r][c] = fma(xa[r], xb[c], c1[r][c]);
-            c2[r][c] = fma(xr[r], xab[c], c2[r][c]);
-          }
-        }
-      }
-    }
-  }
+  PS g[2][4];
+  mf::gram_df_tile<TN>(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, b, S, N1p, N2pb,
+                       row0, col0, gsm, g);
 
   const PS C2v = {svox[0], svox[1], svox[2], svox[3]};
   const PS wv = {svox[4], svox[5], svox[6], svox[7]};
@@ -201,13 +119,7 @@ rescan3_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
       const PS colB = colps(11), colC = colps(12), colH = colps(13);
       const float res2_col = scol[56][j], res23_col = scol[57][j];
 
-      // double-float Gram entry, presplit
-      const float gv[5] = {
-          mf::mul((float)t11[r][c], 6.103515625e-05f),
-          mf::mul((float)t12[r][c], 2.384185791015625e-07f),
-          mf::mul((float)t22[r][c], 9.313225746154785e-10f),
-          __double2float_rn(c1[r][c]), __double2float_rn(c2[r][c])};
-      const PS a_ps = mf::presplit(mf::df_from_sum(gv));
+      const PS a_ps = g[r][c];
 
       // support {1,2,3}: compensated bordered 4x4
       const P2 m1 = mul_ps(b_p, V1), m2 = mul_ps(p_p, V2);

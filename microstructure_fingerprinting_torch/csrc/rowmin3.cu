@@ -16,22 +16,22 @@
 // What bounds it on an H100: the Gram's arithmetic on CUDA cores. It is
 // 9 * S * N1p * N2pb int8 products per voxel (~4.5 G at N1 = N2 = 782,
 // S = 552) plus 2 * S * N1p * N2pb float64 correction products. The design
-// is a register-blocked tile: a 256-thread block owns 32 rows x 64 columns,
-// each thread 2 x 4 points; 16-sequence chunks of both operands are staged
-// in shared memory, the int8 levels packed 4 samples per int32, so one
-// __dp4a does 4 exact products, and every loaded value feeds 2-4 points.
-// The bf16 corrections are exact products accumulated in float64 and
-// rounded once (order-independent, equal to the plain PyTorch version).
-// Tensor cores (mma.sync / wgmma s8) are later work.
+// is the register-blocked tile of gram_hi.cuh (shared with kernel 4): a
+// 256-thread block owns 32 rows x 64 columns, each thread 2 x 4 points;
+// one __dp4a does 4 exact int8 products and every loaded value feeds 2-4
+// points. The bf16 corrections are exact products accumulated in float64
+// and rounded once (order-independent, equal to the plain PyTorch
+// version). Tensor cores (mma.sync / wgmma s8) are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "df32.cuh"
+#include "gram_hi.cuh"
 
 namespace {
 
-constexpr int TM = 32, TN = 64, SK = 16, kThreads = 256;
+constexpr int TM = mf::kHiTM, TN = mf::kHiTN, kThreads = mf::kHiThreads;
 constexpr float kKerr = 8.0f * 1.1920929e-07f;
 constexpr float kTol = 100.0f * 1.1920929e-07f;
 
@@ -47,11 +47,7 @@ rowmin3_kernel(const int8_t* __restrict__ q123,
                const float* __restrict__ vox, float* __restrict__ part_row,
                float* __restrict__ part_col, int S, int N1p, int T, int NB,
                int N2B, int n1, int n2) {
-  // int8 levels packed 4 sequence samples per int32 (the __dp4a operand)
-  __shared__ int sqa[3][SK / 4][TM];
-  __shared__ int sqb[3][SK / 4][TN];
-  __shared__ double sxa[SK][TM], sra[SK][TM];
-  __shared__ double srb[SK][TN], sab[SK][TN];
+  __shared__ mf::GramHiSmem gsm;
   __shared__ float srow[12][TM];
   __shared__ float scol[6][TN];
   __shared__ float red_lo[TM][17], red_up[TM][17], red_c[16][TN + 1];
@@ -60,8 +56,6 @@ rowmin3_kernel(const int8_t* __restrict__ q123,
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
   const int N2pb = NB * N2B, nt = N1p / T;
-  const int ta = row0 / T, ia = row0 % T;         // row tile of the packs
-  const int cb = col0 / N2B, jb = col0 % N2B;     // column block
 
   for (int k = tid; k < 12 * TM; k += kThreads) {
     srow[k / TM][k % TM] = row_pack[((size_t)b * 16 + k / TM) * N1p + row0 + k % TM];
@@ -70,95 +64,9 @@ rowmin3_kernel(const int8_t* __restrict__ q123,
     scol[k / TN][k % TN] = col_pack[((size_t)b * 8 + k / TN) * N2pb + col0 + k % TN];
   }
 
-  int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
-      t33[2][4] = {};
-  double c1[2][4] = {}, c2[2][4] = {};
-
-  const size_t abase = ((size_t)b * nt + ta) * S;
-  const size_t bbase = ((size_t)b * NB + cb) * S;
-  constexpr int G = SK / 4;                       // dp4a groups per chunk
-  for (int s0 = 0; s0 < S; s0 += SK) {
-    __syncthreads();
-    for (int k = tid; k < 3 * G * TM; k += kThreads) {
-      const int l = k / (G * TM), g = (k / TM) % G, i = k % TM;
-      const int s = s0 + 4 * g;
-      sqa[l][g][i] = mf::pack4(q123 + (abase + s) * 3 * T + l * T + ia + i,
-                               (size_t)3 * T, S - s);
-    }
-    for (int k = tid; k < 3 * G * TN; k += kThreads) {
-      const int l = k / (G * TN), g = (k / TN) % G, j = k % TN;
-      const int s = s0 + 4 * g;
-      sqb[l][g][j] = mf::pack4(qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
-                               (size_t)3 * N2B, S - s);
-    }
-    for (int k = tid; k < SK * TM; k += kThreads) {
-      const int sl = k / TM, i = k % TM, s = s0 + sl;
-      const bool in = s < S;
-      sxa[sl][i] = in ? (double)mf::bf(a1bf[(abase + s) * T + ia + i]) : 0.0;
-      sra[sl][i] = in ? (double)mf::bf(rabf[(abase + s) * T + ia + i]) : 0.0;
-    }
-    for (int k = tid; k < SK * TN; k += kThreads) {
-      const int sl = k / TN, j = k % TN, s = s0 + sl;
-      const bool in = s < S;
-      srb[sl][j] = in ? (double)mf::bf(rbbf[(bbase + s) * N2B + jb + j]) : 0.0;
-      sab[sl][j] = in ? (double)mf::bf(abbf[(bbase + s) * N2B + jb + j]) : 0.0;
-    }
-    __syncthreads();
-    #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      int qa[2][3], qb[4][3];
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        #pragma unroll
-        for (int l = 0; l < 3; ++l) qa[r][l] = sqa[l][g][ty * 2 + r];
-      }
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        #pragma unroll
-        for (int l = 0; l < 3; ++l) qb[c][l] = sqb[l][g][tx + 16 * c];
-      }
-      // the nine level products, 4 samples per __dp4a (exact in int32),
-      // grouped by scale as the TPU kernel's int32 sums
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int* a = qa[r];
-          const int* q = qb[c];
-          t11[r][c] = __dp4a(a[0], q[0], t11[r][c]);
-          t12[r][c] = __dp4a(a[1], q[0], __dp4a(a[0], q[1], t12[r][c]));
-          t22[r][c] = __dp4a(a[2], q[0], __dp4a(a[0], q[2],
-                              __dp4a(a[1], q[1], t22[r][c])));
-          t23[r][c] = __dp4a(a[2], q[1], __dp4a(a[1], q[2], t23[r][c]));
-          t33[r][c] = __dp4a(a[2], q[2], t33[r][c]);
-        }
-      }
-      #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int sl = 4 * g + u;
-        double xa[2], ra[2], rb[4], ab[4];
-        #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          xa[r] = sxa[sl][ty * 2 + r];
-          ra[r] = sra[sl][ty * 2 + r];
-        }
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          rb[c] = srb[sl][tx + 16 * c];
-          ab[c] = sab[sl][tx + 16 * c];
-        }
-        #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            // bf16 x bf16 products are exact in double: fma == mul + add
-            c1[r][c] = fma(xa[r], rb[c], c1[r][c]);
-            c2[r][c] = fma(ra[r], ab[c], c2[r][c]);
-          }
-        }
-      }
-    }
-  }
+  float g[2][4];
+  mf::gram_hi_tile(q123, a1bf, rabf, qb3, rbbf, abbf, b, S, nt, T, NB, N2B,
+                   row0, col0, gsm, g);
 
   const float u3v = vox[(size_t)b * 8 + 0];
   const float invd3v = vox[(size_t)b * 8 + 1];
@@ -177,15 +85,7 @@ rowmin3_kernel(const int8_t* __restrict__ q123,
       const int j = tx + 16 * c;
       const float d2c = scol[0][j], qc = scol[1][j], cc = scol[2][j];
       const float d2pc = scol[3][j], q2pc = scol[4][j], kapcc = scol[5][j];
-      const float v_a = mf::mul((float)t11[r][c], 6.103515625e-05f);
-      const float v_b = mf::mul((float)t12[r][c], 2.384185791015625e-07f);
-      const float v_c = mf::mul((float)t22[r][c], 9.313225746154785e-10f);
-      const float v_d = mf::mul((float)t23[r][c], 3.637978807091713e-12f);
-      const float v_e = mf::mul((float)t33[r][c], 1.4210854715202004e-14f);
-      const float cf1 = __double2float_rn(c1[r][c]);
-      const float cf2 = __double2float_rn(c2[r][c]);
-      const float a = mf::add(v_a, mf::add(v_b, mf::add(v_c, mf::add(cf1,
-                      mf::add(cf2, mf::add(v_d, v_e))))));
+      const float a = g[r][c];
 
       // support {1,2}
       const float pivA = mf::sub(d2c, mf::mul(mf::mul(a, a), invd1t));

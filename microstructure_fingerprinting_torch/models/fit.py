@@ -1,10 +1,11 @@
 """Bucket fit steps: rotation -> two-pass exact scan -> double-float
-finalize, for the 2-fascicle + CSF configuration; closed-form host solve
-for fascicle-free (CSF-only) voxels.
+finalize, for the 2-fascicle + CSF configuration with or without the EAR
+block; closed-form host solve for fascicle-free (CSF and/or EAR) voxels.
 
 PyTorch counterpart of ``_r_squared``, ``_finalize_top1``,
-``_twopass_step3``, ``run_bucket_fast`` (the K=2 + CSF branches) and
-``run_bucket_trivial`` in ``microstructure_fingerprinting_tpu/models/fit.py``.
+``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast`` (the K=2 +
+CSF branches, with and without EAR) and ``run_bucket_trivial`` in
+``microstructure_fingerprinting_tpu/models/fit.py``.
 The winner's weights and metrics are always computed on the device
 (double-float finalize); the float64 host refine is not part of this
 package yet (see ROADMAP.md).
@@ -19,6 +20,7 @@ from .. import config
 from ..ops import dfscan
 from ..ops import f32scan as f32
 from ..ops import interp as mfi
+from ..ops import nnls as mfn
 from ..ops import rescan
 from ..utils.profiling import stage
 
@@ -37,18 +39,22 @@ def _r_squared(y, y_rec):
     return r * r
 
 
-def _finalize_top1(D, sig_csf, y, cand):
+def _finalize_top1(D, sig_csf, y, cand, sig_ear=None):
     """Double-float finalize of the scan winner.
 
     D (B, 2, S, N) rotated fascicle blocks (raw scale); sig_csf (S,);
-    y (B, S) raw; cand (B, 2) winning atom pair. Returns (w (B, 3),
-    obj (B,), r2 (B,)) for the columns (fascicle 1, fascicle 2, CSF)."""
+    y (B, S) raw; cand (B, C') winner, the fascicle indices first and,
+    with ``sig_ear`` (S, E), the EAR atom last. Returns (w (B, C),
+    obj (B,), r2 (B,)) for the columns (fascicle 1, fascicle 2, CSF[,
+    EAR])."""
     B, S = y.shape
     cols = [torch.gather(D[:, k], 2,
                          cand[:, None, k:k + 1].expand(B, S, 1))
             for k in range(2)]
     cols.append(sig_csf[None, :, None].expand(B, S, 1))
-    cols = torch.cat(cols, dim=2)                          # (B, S, 3)
+    if sig_ear is not None:
+        cols.append(sig_ear.t()[cand[:, -1]][:, :, None])
+    cols = torch.cat(cols, dim=2)                          # (B, S, C)
     w, res = dfscan.df_nnls_cols(cols, y)
     # R^2 of a near-perfect fit is 1 - O(1e-7) and float32 sums would
     # round it by a few ulp: evaluate it in float64 (B x S work)
@@ -82,36 +88,83 @@ def _onepass_step3(D, csf_d, y):
             torch.ones(B, dtype=torch.bool, device=y.device))
 
 
+def _twopass_step4(D, csf_d, ear_d, y, R):
+    """One chunk of the EAR production path: 4-block interval row pass ->
+    row/column selection -> df4 re-scan -> winner finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    ear_blk = ear_d[None].expand(B, S, ear_d.shape[1])
+    cand, _vals, _ysq, ok = f32.df4_twopass(D[:, 0], D[:, 1], csf_blk,
+                                            ear_blk, y, R=R)
+    with stage("finalize", y.device):
+        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0], ear_d)
+    return cand[:, 0], w, obj, r2, ok
+
+
+def _onepass_step4(D, csf_d, ear_d, y):
+    """Full-grid df4 scan (dictionaries with N <= 2R) + finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    ear_blk = ear_d[None].expand(B, S, ear_d.shape[1])
+    N2, E = D.shape[3], ear_d.shape[1]
+    with stage("re-scan", y.device):
+        rr, rf, _ysq = rescan.row_scan_df4(D[:, 0], D[:, 1], csf_blk,
+                                           ear_blk, y)
+        cand, _v = rescan.candidates_from_rows_df4(
+            rr, rf, E, E, N2, segments_total=rescan.n_segments_df4(N2))
+    with stage("finalize", y.device):
+        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0], ear_d)
+    return (cand[:, 0], w, obj, r2,
+            torch.ones(B, dtype=torch.bool, device=y.device))
+
+
 def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                     K, csf_on, batch=128, rotator=None, sig_ear=None,
                     ear_on=False):
-    """2-fascicle + CSF bucket: rotation, two-pass exact scan (or the
-    full-grid re-scan for N <= 2R) and the double-float finalize, in
-    ``batch``-voxel chunks on ``tables_ys.device``.
+    """2-fascicle + CSF bucket, with or without the EAR block: rotation,
+    two-pass exact scan (or the full-grid re-scan for N <= 2R) and the
+    double-float finalize, in ``batch``-voxel chunks on
+    ``tables_ys.device``.
 
     ``tables_ys`` (S_shells, Kmax, N) float32 knot tables; peaks (n, 6);
-    y (n, S); sig_csf (S,). Voxels whose row band overflows R are
-    re-solved at 2R (batch ``min(batch, 64)``), then at R = N, so exact
-    selection is unconditional. Returns NumPy (w (n, 3), ind (n, 3)
-    [i1, i2, csf=0], min_obj, mse, r2).
+    y (n, S); sig_csf (S,); sig_ear (S, E) with ``ear_on``. The EAR
+    two-pass runs at R = ``twopass_rows_ear``. Voxels whose row band
+    overflows R are re-solved at 2R (batch ``min(batch, 64)``), then at
+    R = N, so exact selection is unconditional. Returns NumPy (w (n, C),
+    ind (n, C), min_obj, mse, r2) with C = 3 [i1, i2, csf=0] or, with EAR,
+    C = 4 [i1, i2, csf=0, ie].
     """
-    if K != 2 or not csf_on or ear_on:
+    if K != 2 or not csf_on:
         raise NotImplementedError(
-            "the port covers the 2-fascicle + CSF bucket; K=1, K=2 without "
-            "CSF and EAR buckets are queued in ROADMAP.md (Queue 1, "
-            "items 8-9)")
-    del sig_ear
-    rows_R = config.DEFAULTS["solver"].twopass_rows
+            "the port covers the 2-fascicle + CSF bucket (with or without "
+            "EAR); K=1 and K=2 without CSF are queued in ROADMAP.md "
+            "(Queue 1, item 9)")
+    cfg = config.DEFAULTS["solver"]
+    rows_R = cfg.twopass_rows_ear if ear_on else cfg.twopass_rows
     n_atom = tables_ys.shape[2]
-    twopass = n_atom > 2 * rows_R
+    twopass = n_atom > 2 * cfg.twopass_rows
     if rotator is None:
         rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
     rotate, perm = rotator
     dev, dt = tables_ys.device, tables_ys.dtype
     n, S = y.shape
     # the rotation emits sequences in group order: permute the signal and
-    # the CSF column alike (every result is permutation-invariant)
+    # the fixed columns alike (every result is permutation-invariant)
     csf_d = torch.as_tensor(np.asarray(sig_csf)[perm], dtype=dt, device=dev)
+    ear_d = E = None
+    if ear_on:
+        ear_d = torch.as_tensor(np.asarray(sig_ear)[perm], dtype=dt,
+                                device=dev)
+        E = ear_d.shape[1]
+
+    def step(D, yy, R):
+        if ear_on:
+            if R is None:
+                return _onepass_step4(D, csf_d, ear_d, yy)
+            return _twopass_step4(D, csf_d, ear_d, yy, R)
+        if R is None:
+            return _onepass_step3(D, csf_d, yy)
+        return _twopass_step3(D, csf_d, yy, R)
 
     n_pad = int(math.ceil(n / batch) * batch)
     pk = np.zeros((n_pad, K, 3))
@@ -130,12 +183,8 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
 
     outs = []
     for st in range(0, n_pad, batch):
-        D = rotated(pk_d[st:st + batch])
-        yy = y_d[st:st + batch]
-        if twopass:
-            outs.append(_twopass_step3(D, csf_d, yy, rows_R))
-        else:
-            outs.append(_onepass_step3(D, csf_d, yy))
+        outs.append(step(rotated(pk_d[st:st + batch]),
+                         y_d[st:st + batch], rows_R if twopass else None))
     cand, w, obj, r2, ok = (torch.cat(x)[:n] for x in zip(*outs))
 
     bad = torch.nonzero(~ok).flatten().cpu().numpy()
@@ -150,9 +199,8 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                 sel = bad[st:st + fb]
                 idx = np.concatenate([sel, np.full(fb - sel.size, sel[0])])
                 idx_d = torch.as_tensor(idx, device=dev)
-                D = rotated(pk_d[idx_d])
-                c_f, w_f, o_f, r_f, ok_f = _twopass_step3(D, csf_d,
-                                                          y_d[idx_d], R)
+                c_f, w_f, o_f, r_f, ok_f = step(rotated(pk_d[idx_d]),
+                                                y_d[idx_d], R)
                 m = sel.size
                 good = ok_f[:m].cpu().numpy() | (R == n_atom)
                 done = torch.as_tensor(sel[good], device=dev)
@@ -167,31 +215,71 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     # the df quadratic form can round a noiseless voxel's residual a few
     # ulp below zero; a reported objective is never negative
     obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
-    ind = np.clip(cand.cpu().numpy(), 0, n_atom - 1).astype(np.int32)
-    ind = np.concatenate([ind, np.zeros((n, 1), np.int32)], axis=1)
-    return (w.double().cpu().numpy(), ind, obj_b, obj_b / S,
-            r2.double().cpu().numpy())
+    w_b = w.double().cpu().numpy()
+    ind = cand.cpu().numpy().astype(np.int32)
+    # clip the fascicle (and CSF) columns to the atom range and the EAR
+    # column to its own
+    n_fix = ind.shape[1] - int(ear_on)
+    ind[:, :n_fix] = np.clip(ind[:, :n_fix], 0, n_atom - 1)
+    if ear_on:
+        ind[:, -1] = np.clip(ind[:, -1], 0, E - 1)
+        # an unused EAR block leaves the residual independent of the ear
+        # atom: report the first index, as the reference's first-minimum
+        # enumeration does
+        ind[w_b[:, -1] <= 0, -1] = 0
+    else:
+        ind = np.concatenate([ind, np.zeros((n, 1), np.int32)], axis=1)
+    return w_b, ind, obj_b, obj_b / S, r2.double().cpu().numpy()
 
 
 def run_bucket_trivial(y, sig_csf, sig_ear, csf_on, ear_on):
-    """Closed-form float64 host solve for fascicle-free CSF-only voxels:
-    w = max(a'y, 0) / a'a. Returns NumPy (w, ind, min_obj, mse, r2)."""
-    if ear_on or not csf_on:
-        raise NotImplementedError(
-            "fascicle-free buckets with an EAR block are queued in "
-            "ROADMAP.md (Queue 1, item 8)")
-    del sig_ear
+    """Closed-form float64 host solve for fascicle-free voxels: the CSF
+    column and/or the EAR block, by the 1- and 2-variable NNLS case
+    analysis vectorized over voxels (the first minimum over EAR atoms
+    wins). Returns NumPy (w, ind, min_obj, mse, r2) with
+    C = csf_on + ear_on columns."""
+    if not (csf_on or ear_on):
+        raise ValueError("Empty configuration: no compartments to fit.")
     y64 = np.asarray(y, dtype=np.float64)
     n, S = y64.shape
-    csf64 = np.asarray(sig_csf, dtype=np.float64)
     y_sq = np.einsum("ns,ns->n", y64, y64)
-    a_y = y64 @ csf64
-    pos = a_y >= 0
-    w = np.where(pos, a_y / float(csf64 @ csf64), 0.0)
-    obj = np.maximum(np.where(pos, y_sq - w * a_y, y_sq), 0.0)
-    w_b = w[:, None]
-    y_rec = w_b * csf64[None, :]
-    return w_b, np.zeros((n, 1), np.int32), obj, obj / S, _r2_np(y64, y_rec)
+    if csf_on:
+        csf64 = np.asarray(sig_csf, dtype=np.float64)
+    if ear_on:
+        ear64 = np.asarray(sig_ear, dtype=np.float64)
+    rows = np.arange(n)
+    if csf_on and ear_on:
+        A11 = float(csf64 @ csf64)
+        A22 = np.einsum("se,se->e", ear64, ear64)          # (E,)
+        A12 = csf64 @ ear64                                # (E,)
+        Y1 = y64 @ csf64                                   # (n,)
+        Y2 = y64 @ ear64                                   # (n, E)
+        w1, w2, res = mfn.lsqnonneg_2var(
+            y_sq[:, None], A11, A12[None, :], A22[None, :], Y1[:, None],
+            Y2)                                            # (n, E)
+        ie = np.argmin(res, axis=1)
+        w_b = np.stack([w1[rows, ie], w2[rows, ie]], axis=1)
+        ind_b = np.stack([np.zeros(n, np.int32), ie.astype(np.int32)],
+                         axis=1)
+        obj_b = res[rows, ie]
+        y_rec = w_b[:, :1] * csf64[None, :] + w_b[:, 1:] * ear64[:, ie].T
+    elif csf_on:
+        w, res = mfn.lsqnonneg_1var(y_sq, float(csf64 @ csf64), y64 @ csf64)
+        w_b = w[:, None]
+        ind_b = np.zeros((n, 1), np.int32)
+        obj_b = res
+        y_rec = w_b * csf64[None, :]
+    else:  # EAR only
+        a_sq = np.einsum("se,se->e", ear64, ear64)
+        w, res = mfn.lsqnonneg_1var(y_sq[:, None], a_sq[None, :],
+                                    y64 @ ear64)           # (n, E)
+        ie = np.argmin(res, axis=1)
+        w_b = w[rows, ie][:, None]
+        ind_b = ie.astype(np.int32)[:, None]
+        obj_b = res[rows, ie]
+        y_rec = w_b * ear64[:, ie].T
+    obj_b = np.maximum(obj_b, 0.0)
+    return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
 
 
 def _r2_np(y, y_rec):

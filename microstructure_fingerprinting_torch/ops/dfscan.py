@@ -1,17 +1,19 @@
 """Double-float Gram primitives and the exact small NNLS finalize.
 
 PyTorch counterpart of the parts of
-``microstructure_fingerprinting_tpu/ops/dfscan.py`` that the
-2-fascicle + CSF slice runs:
+``microstructure_fingerprinting_tpu/ops/dfscan.py`` that the ported
+buckets run:
 
   * ``quantize2`` / ``quantize3``: exact int8 level decompositions of
     normalized columns (X = s1*Q1 + s2*Q2 [+ s3*Q3] + R);
   * ``df_gram`` / ``df_gram_tile``: exact-product Grams combined
     error-free into (hi, lo) pairs;
-  * the df helpers and ``_two_var_cases`` shared with the re-scan
-    (``ops/rescan.py``);
+  * the df helpers and ``_two_var_cases`` shared with the re-scans
+    (``ops/rescan.py``), and the 4-block sub-support residuals
+    ``_sub1_df``/``_sub2_df``/``_sub3_df`` of the EAR re-scan's hoists;
   * ``df_nnls_cols``: the winner's weights, objective and residual with
-    double-float values and f32 decision booleans (the device finalize).
+    double-float values and f32 decision booleans (the device finalize),
+    for 1 to 4 columns.
 
 Sums over the sequence axis: integer level products are exact in any
 order and are computed as float64 matmuls (exact below 2^53; int8
@@ -23,6 +25,7 @@ package accumulates them in float32; the two differ by ~1 ulp of the
 ~1e-4-sized cross terms, far below the scans' resolution.)
 """
 
+import numpy as np
 import torch
 
 from . import df32
@@ -34,6 +37,8 @@ _S3 = 2.0 ** -23
 #: normalized Grams: the one value the re-scan's plain version and its
 #: CUDA kernel (which receives it as an argument) both use
 _TOL_DET = 1e-12
+#: relative determinant / pivot guard of the 4-block family: 100 float32 eps
+_TOL = float(np.float32(100 * 1.1920929e-07))
 #: Cramer sign tolerance of the 3-variable solver: 100 float64 eps, as
 #: the reference's (mf_utils.py:480-482) and the JAX package's
 #: ops/nnls._TOL3
@@ -144,6 +149,81 @@ def _where(c, x, y):
     return torch.where(c, x, y)
 
 
+def _dfm(*dfs):
+    out = dfs[0]
+    for d in dfs[1:]:
+        out = _mul(out, d)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4-block (2 fascicles + CSF + EAR) sub-supports, double-float values and
+# float32 feasibility booleans (support enumeration)
+# ---------------------------------------------------------------------------
+
+def _sub1_df(d, p, w):
+    """Support {a}: res = (d*w - p^2)/d, feasible iff p >= 0."""
+    num = _val(_add(_mul(d, w), _neg(_mul(p, p))))
+    res = num / _val(d)
+    return _where(_val(p) >= 0, res, float("inf"))
+
+
+def _sub2_df(dA, dB, g, pA, pB, w):
+    """Support {a, b}: bordered 3x3 det / det2 with df-accurate
+    determinant and weight-sign numerators, guarded at _TOL * dA * dB."""
+    det2 = _val(_add(_mul(dA, dB), _neg(_mul(g, g))))
+    num = _accumulate([
+        _dfm(dA, dB, w), _neg(_dfm(g, g, w)),
+        _scale(_dfm(g, pA, pB), 2.0),
+        _neg(_dfm(dA, pB, pB)), _neg(_dfm(dB, pA, pA))])
+    n1 = _accumulate([_mul(dB, pA), _neg(_mul(g, pB))])
+    n2 = _accumulate([_mul(dA, pB), _neg(_mul(g, pA))])
+    feas = ((det2 > _TOL * _val(dA) * _val(dB))
+            & (n1 >= 0) & (n2 >= 0))
+    return _where(feas, num / _where(feas, det2, 1.0), float("inf"))
+
+
+def _sub3_df(dA, dB, dC, gAB, gAC, gBC, pA, pB, pC, w):
+    """Support {a, b, c}: bordered 4x4 det / det3 through the
+    quadratic-in-gAB expansion, float32 feasibility."""
+    U1 = _add(_mul(pB, pB), _neg(_mul(dB, w)))
+    U2 = _scale(_add(_mul(dB, pC), _neg(_mul(gBC, pB))), 2.0)
+    U3 = _add(_mul(dB, _add(_mul(dC, w), _neg(_mul(pC, pC)))),
+              _neg(_mul(dC, _mul(pB, pB))),
+              _scale(_dfm(gBC, pB, pC), 2.0),
+              _neg(_mul(_mul(gBC, gBC), w)))
+    U4 = _add(_mul(gBC, gBC), _neg(_mul(dB, dC)))
+    V1 = _scale(_add(_mul(gBC, w), _neg(_mul(pB, pC))), 2.0)
+    V2 = _scale(_add(_mul(dC, pB), _neg(_mul(gBC, pC))), 2.0)
+    C2 = _add(_mul(pC, pC), _neg(_mul(dC, w)))
+    det4 = _accumulate([
+        _dfm(gAC, gAC, U1), _dfm(gAC, pA, U2), _mul(dA, U3),
+        _dfm(pA, pA, U4),
+        _mul(gAB, _add(_mul(gAC, V1), _mul(pA, V2))),
+        _mul(_mul(gAB, gAB), C2)])
+    det3, D1, D2, D3 = _det3_cramer_df(gAB, dA, dB, dC, gAC, gBC,
+                                       pA, pB, pC)
+    feas = ((det3 > _TOL * _val(dA) * _val(dB) * _val(dC))
+            & (D1 >= 0) & (D2 >= 0) & (D3 >= 0))
+    return _where(feas, det4 / _where(feas, det3, 1.0), float("inf"))
+
+
+def _det3_cramer_df(gAB, dA, dB, dC, gAC, gBC, pA, pB, pC):
+    """3x3 Gram determinant and the three Cramer numerators, each a
+    compensated sum of df products collapsed to float32."""
+    X = _add(_mul(dB, dC), _neg(_mul(gBC, gBC)))
+    Z = _add(_mul(gAB, dC), _neg(_mul(gBC, gAC)))
+    W = _add(_mul(gAB, gBC), _neg(_mul(dB, gAC)))
+    Y = _add(_mul(dA, dC), _neg(_mul(gAC, gAC)))
+    V = _add(_mul(dA, gBC), _neg(_mul(gAC, gAB)))
+    T = _add(_mul(dA, dB), _neg(_mul(gAB, gAB)))
+    det3 = _accumulate([_mul(dA, X), _neg(_mul(gAB, Z)), _mul(gAC, W)])
+    D1 = _accumulate([_mul(pA, X), _neg(_mul(pB, Z)), _mul(pC, W)])
+    D2 = _accumulate([_neg(_mul(pA, Z)), _mul(pB, Y), _neg(_mul(pC, V))])
+    D3 = _accumulate([_mul(pA, W), _neg(_mul(pB, V)), _mul(pC, T)])
+    return det3, D1, D2, D3
+
+
 def _two_var_cases(res_full, w1D, w2D, Y1, Y2, res1, res2, y_sq):
     """Reference 2-variable NNLS case selection with externally supplied
     (compensated) residual values; decision booleans in f32."""
@@ -184,6 +264,41 @@ def _df_det3(m):
     t3 = _mul(m[0][2], _add(_mul(m[1][0], m[2][1]),
                             _neg(_mul(m[1][1], m[2][0]))))
     return _add(t1, _neg(t2), t3)
+
+
+def _df_det4(m):
+    """df determinant of a 4x4 nested df tuple list (cofactor row 0)."""
+    out = None
+    for c in range(4):
+        minor = [[m[r][cc] for cc in range(4) if cc != c]
+                 for r in range(1, 4)]
+        term = _mul(m[0][c], _df_det3(minor))
+        if c % 2 == 1:
+            term = _neg(term)
+        out = term if out is None else _add(out, term)
+    return out
+
+
+def _df_cramer(G_S, Y_S):
+    """df Cramer solve of a k x k symmetric system (k <= 4), unguarded
+    like the reference; callers reject non-finite weights. Returns
+    (w list of df, det df)."""
+    k = len(Y_S)
+    if k == 1:
+        return [_df_div(Y_S[0], G_S[0][0])], G_S[0][0]
+    if k == 2:
+        det = _df_det2(G_S[0][0], G_S[1][1], G_S[0][1])
+        n1 = _add(_mul(Y_S[0], G_S[1][1]), _neg(_mul(G_S[0][1], Y_S[1])))
+        n2 = _add(_mul(G_S[0][0], Y_S[1]), _neg(_mul(Y_S[0], G_S[0][1])))
+        return [_df_div(n1, det), _df_div(n2, det)], det
+    detf = _df_det3 if k == 3 else _df_det4
+    det = detf(G_S)
+    ws = []
+    for j in range(k):
+        mj = [[(Y_S[r] if c == j else G_S[r][c]) for c in range(k)]
+              for r in range(k)]
+        ws.append(_df_div(detf(mj), det))
+    return ws, det
 
 
 def _df_quadres(w_y, G_S, Y_S, w_S):
@@ -279,21 +394,47 @@ def _df_nnls3(w_y, G, p):
     return w, _df_where(full, res_f, fb_r)
 
 
-def df_nnls_cols(cols, y):
-    """Exact small NNLS across gathered columns (C = 3: two fascicle
-    atoms and the CSF column).
+def _df_nnls4(w_y, G, p):
+    """df mirror of the 4-variable NNLS: exhaustive support enumeration
+    in ascending mask order with strict-improvement updates.
+    Returns (w list of 4 df, res df)."""
+    zero = (torch.zeros_like(w_y[0]), torch.zeros_like(w_y[1]))
+    best_w = [zero, zero, zero, zero]
+    best_r = w_y
+    for mask in range(1, 16):
+        S = [i for i in range(4) if mask >> i & 1]
+        G_S = tuple(tuple(G[r][c] for c in S) for r in S)
+        Y_S = tuple(p[i] for i in S)
+        w_S, _det = _df_cramer(G_S, Y_S)
+        feas = torch.ones_like(w_y[0], dtype=torch.bool)
+        for wa in w_S:
+            va = _val(wa)
+            feas = feas & (va >= 0) & torch.isfinite(va)
+        res = _df_quadres(w_y, G_S, Y_S, w_S)
+        rv = _where(feas & ~torch.isnan(res[0]), res[0], float("inf"))
+        res = (rv, _where(torch.isfinite(rv), res[1], 0.0))
+        better = _df_lt(res, best_r)
+        new_w = [zero] * 4
+        for wi, i in zip(w_S, S):
+            new_w[i] = wi
+        best_w = [_df_where(better, x, y) for x, y in zip(new_w, best_w)]
+        best_r = _df_where(better, res, best_r)
+    return best_w, best_r
 
-    cols (B, S, 3) f32 raw-scale columns; y (B, S) raw. Returns
-    (w (B, 3) f32 raw-scale weights, res (B,) f32 raw residual).
+
+def df_nnls_cols(cols, y):
+    """Exact small NNLS across gathered columns (C <= 4: the fascicle
+    atoms, then the CSF and EAR columns where present).
+
+    cols (B, S, C) f32 raw-scale columns; y (B, S) raw. Returns
+    (w (B, C) f32 raw-scale weights, res (B,) f32 raw residual).
     Columns and signal are scaled by per-column powers of two (exact),
     one packed df Gram of [cols | y] gives G, A'y and y'y, and the
     closed-form solver runs with double-float values.
     """
     B, S, C = cols.shape
-    if C != 3:
-        raise NotImplementedError(
-            "df_nnls_cols covers the 3-column (2 fascicles + CSF) support; "
-            "other column counts are queued in ROADMAP.md")
+    if not 1 <= C <= 4:
+        raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)
     cols = cols.float()
     y = y.float()
 
@@ -310,7 +451,19 @@ def df_nnls_cols(cols, y):
     G = [[(Mh[:, i, j], Ml[:, i, j]) for j in range(C)] for i in range(C)]
     p = [(Mh[:, i, C], Ml[:, i, C]) for i in range(C)]
     w_y = (Mh[:, C, C], Ml[:, C, C])
-    w_list, res = _df_nnls3(w_y, G, p)
+    if C == 1:
+        w0 = _df_div(p[0], G[0][0])
+        pos = _val(p[0]) >= 0
+        res = _df_quadres(w_y, ((G[0][0],),), (p[0],), (w0,))
+        w_list = [(_where(pos, w0[0], 0.0), _where(pos, w0[1], 0.0))]
+        res = _df_where(pos, res, w_y)
+    elif C == 2:
+        w1, w2, res = _df_nnls2(w_y, G[0][0], G[1][1], G[0][1], p[0], p[1])
+        w_list = [w1, w2]
+    elif C == 3:
+        w_list, res = _df_nnls3(w_y, G, p)
+    else:
+        w_list, res = _df_nnls4(w_y, G, p)
     # undo the power-of-two scalings (exact)
     w = torch.stack([_val(wi) for wi in w_list], dim=1)
     w = w * (sy[:, None] / sc)

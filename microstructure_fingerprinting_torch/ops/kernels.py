@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written Hopper kernels (``csrc/*.cu``).
 
 The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers: the build takes seconds). The library's file name
-carries a hash of the sources, the headers and the flags, so a later
-process reuses it and an edit rebuilds it; nvcc writes to a temporary
-name that is renamed into place, so processes that build at once never
-load a half-written file. Each C entry point takes
+(one nvcc per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers: the build takes seconds). The library's file name carries a
+hash of the sources, the headers and the flags, so a later process
+reuses it and an edit rebuilds it; the library is linked under a
+temporary name and renamed into place, so processes that build at once
+never load a half-written file. Each C entry point takes
 device pointers, sizes and the CUDA stream, launches on that stream and
 returns ``cudaGetLastError()``; ``launch`` raises when it is not 0.
 
@@ -35,11 +36,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 #: build output: ``build/`` of the checkout that holds the package
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
                          "build", "mf_torch_kernels")
-SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu")
+SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
+           "rescan4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-ftz=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-ftz=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # C entry point -> argument kinds: "p" device pointer (None -> NULL),
 # "i" int, "f" float; every entry point takes the stream last
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "prep_block": ("mf_prep_block", "ppppppppp" + "iiiii"),
     "rowmin3": ("mf_rowmin3", "ppppppppppp" + "iiiiiiii"),
     "rescan3": ("mf_rescan3", "ppppppppppppp" + "iiiii" + "f"),
+    "rowmin4": ("mf_rowmin4", "ppppppppppp" + "iiiiiiiiiiiiii"),
+    "rescan4": ("mf_rescan4", "ppppppppppppp" + "iiiiiiiiii" + "f"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -78,30 +81,45 @@ def _source_key():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns [(returncode, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
+
+
 def build():
     """Path of the shared library; compiles it unless a library built
-    from the same sources and flags is already there."""
+    from the same sources and flags is already there. Each source is
+    compiled by its own nvcc, all at once, then the objects are linked."""
     out = os.path.join(BUILD_DIR, "libmfkernels-%s.so" % _source_key())
     if os.path.exists(out):
         BUILD_INFO.update(seconds=0.0, cached=True, cmd=out, log="")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ([_nvcc()] + list(NVCC_FLAGS) + ["-I", _CSRC, "-o", tmp]
-           + [os.path.join(_CSRC, s) for s in SOURCES])
+    nvcc = _nvcc()
     t0 = time.time()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        cmds = [[nvcc] + list(NVCC_FLAGS) + ["-I", _CSRC, "-c", "-o", o,
+                                             os.path.join(_CSRC, src)]
+                for src, o in zip(SOURCES, objs)]
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", lib] + objs
+        results = _run_all(cmds)
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link])
+        log = "".join(o for _, o in results)
         BUILD_INFO.update(seconds=time.time() - t0, cached=False,
-                          cmd=" ".join(cmd), log=proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (exit %d):\n%s"
-                               % (proc.returncode, proc.stdout + proc.stderr))
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+                          cmd=" && ".join(" ".join(c) for c in cmds + [link]),
+                          log=log)
+        bad = [rc for rc, _ in results if rc != 0]
+        if bad:
+            raise RuntimeError("nvcc failed (exit %d):\n%s" % (bad[0], log))
+        os.replace(lib, out)
     return out
 
 

@@ -1,7 +1,10 @@
-"""Column normalization helpers of the exhaustive-NNLS scans.
+"""Column normalization helpers of the exhaustive-NNLS scans, and the
+closed-form float64 host solvers of the fascicle-free buckets.
 
-PyTorch counterpart of ``_pad_cols``, ``_normalize_block`` and
-``_normalize_y`` in ``microstructure_fingerprinting_tpu/ops/nnls.py``.
+PyTorch counterpart of ``_pad_cols``, ``_normalize_block``,
+``_normalize_y``, ``lsqnonneg_1var`` and ``lsqnonneg_2var`` in
+``microstructure_fingerprinting_tpu/ops/nnls.py`` (the two solvers in
+their NumPy form, bit for bit).
 
 On unit-normalized atoms and signal every Gram entry is an O(1)
 correlation with a unit diagonal, so the float32 scans work at eps-level
@@ -14,6 +17,7 @@ by ~1 ulp of the norm).
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,3 +59,48 @@ def _normalize_y(y):
     yn = sqrt_f32(sumsq_f32(y, 1))
     yn_safe = torch.where(yn > 0, yn, torch.ones_like(yn))
     return y / yn_safe[:, None], yn, yn_safe
+
+
+# ---------------------------------------------------------------------------
+# Closed-form float64 host solvers (NumPy; the fascicle-free buckets)
+# ---------------------------------------------------------------------------
+
+def lsqnonneg_1var(y_sq, a_sq, a_y):
+    """1-variable NNLS from precomputed scalars: w = max(a'y, 0) / a'a.
+    Returns (w, res); every argument broadcasts elementwise."""
+    pos = a_y >= 0
+    w = np.where(pos, a_y / a_sq, 0.0)
+    res = np.where(pos, y_sq - w * a_y, y_sq)
+    return w, res
+
+
+def lsqnonneg_2var(y_sq, A11, A12, A22, Y1, Y2):
+    """2-variable NNLS from precomputed Gram scalars: the reference's
+    sign-case analysis with its ``elif`` priority, branchless. Returns
+    (w1, w2, res) with NaN residuals (degenerate Grams) set to +inf."""
+    w1D = np.asarray(A22 * Y1 - A12 * Y2)
+    w2D = np.asarray(A11 * Y2 - A12 * Y1)
+    Det = A11 * A22 - A12 * A12
+    w1_full = w1D / Det
+    w2_full = w2D / Det
+    res_full = (y_sq + w1_full * w1_full * A11 + w2_full * w2_full * A22
+                + 2 * (w1_full * w2_full * A12 - w1_full * Y1
+                       - w2_full * Y2))
+    w1_only = Y1 / A11
+    res1_only = y_sq - Y1 * w1_only
+    w2_only = Y2 / A22
+    res2_only = y_sq - Y2 * w2_only
+
+    case1 = (w1D > 0) & (w2D > 0)
+    case2 = ~case1 & (w1D >= 0) & (w2D <= 0)
+    case3 = ~case1 & ~case2 & (w1D <= 0) & (w2D >= 0)
+    case4 = ~case1 & ~case2 & ~case3 & (w1D < 0) & (w2D < 0)
+    take1 = (case2 & (Y1 >= 0)) | (case4 & (Y1 > 0))
+    take2 = (case3 & (Y2 >= 0)) | (case4 & (Y1 <= 0) & (Y2 > 0))
+
+    w1 = np.where(case1, w1_full, np.where(take1, w1_only, 0.0))
+    w2 = np.where(case1, w2_full, np.where(take2, w2_only, 0.0))
+    res = np.where(case1, res_full,
+                   np.where(take1, res1_only,
+                            np.where(take2, res2_only, y_sq)))
+    return w1, w2, np.where(np.isnan(res), np.inf, res)

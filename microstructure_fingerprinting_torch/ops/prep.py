@@ -34,8 +34,8 @@ from . import kernels
 from .nnls import sqrt_f32, sumsq_f32
 
 _LANE = 128
-#: rhs columns the CUDA kernel accumulates (signal + fixed compartments)
-MAX_RHS = 4
+#: rhs columns (signal + fixed compartments): gram rows 1..15
+MAX_RHS = 15
 
 
 def pack_rhs(cols):

@@ -38,12 +38,15 @@ def _round_up(x, m):
     return int(math.ceil(x / m) * m)
 
 
-def col_blocks(N2):
-    """(NB, N2B): column blocks of at most ~512 columns, 128-aligned, NB
-    dividing the segment count (the row pass and the re-scan share it)."""
+def col_blocks(N2, cap=512, nb_max=_SEGMENTS):
+    """(NB, N2B): NB column blocks (a power of two below ``nb_max``,
+    doubled while a block would exceed ``cap`` columns) of N2B columns,
+    128-aligned. The defaults are the [N1, N2, 1] scans' (NB divides the
+    re-scan's segment count); the EAR row pass takes (colcap, 16) and the
+    EAR re-scan (256, 16), as in the JAX package."""
     N2p = _round_up(N2, _LANE)
     NB = 1
-    while N2p // NB > 512 and NB < _SEGMENTS:
+    while N2p // NB > cap and NB < nb_max:
         NB *= 2
     return NB, _round_up(int(math.ceil(N2p / NB)), _LANE)
 
@@ -164,6 +167,15 @@ def _hoists(A1h, A2h, A3h, yh):
     return qA1, qA2, row_pack, col_pack, vox
 
 
+def _acc(parts):
+    """Compensated sum of (main, err) partials -> f32 value."""
+    hi, lo = parts[0]
+    for p, e_ in parts[1:]:
+        hi, s = df32.two_sum(hi, p)
+        lo = lo + (s + e_)
+    return hi + lo
+
+
 def rescan3_twin(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,
                  vox, n2, segw):
     """Plain PyTorch version of the re-scan kernel: per-(row, segment)
@@ -203,13 +215,7 @@ def rescan3_twin(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,
                               df32.presplit)
     nps = lambda t: (-t[0], -t[1])
     tol = dfscan._TOL_DET
-
-    def acc(parts):
-        hi, lo = parts[0]
-        for p, e_ in parts[1:]:
-            hi, s = two_sum(hi, p)
-            lo = lo + (s + e_)
-        return hi + lo
+    acc = _acc
 
     # support {1,2,3}: compensated bordered 4x4
     m1 = mps(b_p, V1)
@@ -346,6 +352,476 @@ def row_scan_df3(A1, A2, a3, y, segments=_SEGMENTS):
     N1, N2 = A1.shape[2], A2.shape[2]
     ops, segw, yn = row_scan_df3_operands(A1, A2, a3, y, segments)
     res, idx = rescan3_rows(*ops, n2=N2, segw=segw)
+    B, n_seg, N1p = res.shape
+    row = torch.arange(N1p, device=res.device)[None, None, :]
+    res = torch.where(row < N1, res, _INF)
+    return (res.reshape(B, n_seg * N1p), idx.reshape(B, n_seg * N1p),
+            yn * yn)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: the double-float 4-block (EAR) re-scan
+# ---------------------------------------------------------------------------
+
+#: column tile of csrc/rescan4.cu: one partial (minimum, first flat index)
+#: per row and TN4 columns; every EAR column block (N2B, a multiple of 128)
+#: is a multiple of it
+TN4 = 32
+
+
+def n_segments_df4(N2, segments=1):
+    """Total per-row segment count of ``row_scan_df4``'s output."""
+    return col_blocks(N2, 256, 16)[0] * segments
+
+
+def candidates_from_rows_df4(row_res, row_flat, NS, N4, N2, segments_total):
+    """Top-1 from ``row_scan_df4``'s per-(row, segment) minima in the
+    reference's (i1, i2, i3, i4) first-minimum product order: the
+    smallest value, then among the entries equal to it the smallest
+    global flat rank i1 * (N2 * NS) + i2 * NS + s. Returns
+    (cand (B, 1, 4) int64 [i1, i2, i3, i4], vals (B, 1))."""
+    B, L = row_res.shape
+    n1p = L // segments_total
+    pos_i1 = (torch.arange(L, device=row_res.device) % n1p)[None, :]
+    gflat = pos_i1 * (N2 * NS) + row_flat.long()
+    vals = row_res.amin(dim=1, keepdim=True)
+    g = torch.where(row_res == vals, gflat, 2 ** 62).amin(dim=1,
+                                                           keepdim=True)
+    i1, rest = g // (N2 * NS), g % (N2 * NS)
+    i2, s = rest // NS, rest % NS
+    return torch.stack([i1, i2, s // N4, s % N4], dim=2), vals
+
+
+def _df4_hoists(A1h, A2h, A3h, A4h, yh):
+    """Normalized blocks -> (qA1, qA2, row_pack rows, col_pack rows,
+    vox entries): the voxel/row/column LDL' factors, the hoisted
+    sub-support minima and the presplit products of the 4-block
+    re-scan, in the pack layout of the JAX package's ``row_scan_df4``."""
+    B = A1h.shape[0]
+    N1p, N2 = A1h.shape[2], A2h.shape[2]
+    N3, N4 = A3h.shape[2], A4h.shape[2]
+    NS, nx = N3 * N4, N3 + N4
+    qA1, qA2, qA3, qA4, qy = (dfscan.quantize2(x)
+                              for x in (A1h, A2h, A3h, A4h, yh))
+    diag, vec, cross = "bsn,bsn->bn", "bsn,bs->bn", "bsn,bsm->bnm"
+    dfg = dfscan.df_gram
+    d1 = dfg(qA1, qA1, diag)
+    d2 = dfg(qA2, qA2, diag)
+    d3 = dfg(qA3, qA3, diag)                      # (B, N3)
+    d4 = dfg(qA4, qA4, diag)                      # (B, N4)
+    p_ = dfg(qA1, qy, vec)
+    q_ = dfg(qA2, qy, vec)
+    r3 = dfg(qA3, qy, vec)
+    r4 = dfg(qA4, qy, vec)
+    b3 = dfg(qA1, qA3, cross)                     # (B, N1p, N3)
+    b4 = dfg(qA1, qA4, cross)
+    c3 = dfg(qA2, qA3, cross)                     # (B, N2, N3)
+    c4 = dfg(qA2, qA4, cross)
+    g34 = dfg(qA3, qA4, cross)                    # (B, N3, N4)
+    w0 = dfg(qy, qy, "bs,bs->b")
+    w_ = (w0[0][:, None], w0[1][:, None])         # (B, 1)
+
+    mul, add, neg, sc = (dfscan._mul, dfscan._add, dfscan._neg,
+                         dfscan._scale)
+    val, dfm = dfscan._val, dfscan._dfm
+    tol = dfscan._TOL
+    one_df = lambda x: (torch.ones_like(x[0]), torch.zeros_like(x[0]))
+    safe_recip = lambda x, ok: dfscan._df_div(
+        one_df(x), dfscan._df_where(ok, x, one_df(x)))
+    ax = lambda x, sh: (x[0].reshape(sh), x[1].reshape(sh))
+    cut = lambda x, *ix: (x[0][ix], x[1][ix])
+
+    # ---- voxel/row/col LDL' hoists (order csf, ear, fasc1, fasc2) ----
+    d3e, r3e = ax(d3, (B, 1, N3, 1)), ax(r3, (B, 1, N3, 1))
+    d4e, r4e = ax(d4, (B, 1, 1, N4)), ax(r4, (B, 1, 1, N4))
+    ge = ax(g34, (B, 1, N3, N4))
+    w4 = ax(w0, (B, 1, 1, 1))
+    invd3 = dfscan._df_div(one_df(d3e), d3e)
+    L43 = mul(ge, invd3)
+    D4h = add(d4e, neg(mul(ge, L43)))
+    ok34 = val(D4h) > tol * val(d4e)
+    invD4h = safe_recip(D4h, ok34)
+    t4 = add(r4e, neg(mul(L43, r3e)))
+    rho34 = add(w4, neg(mul(mul(r3e, r3e), invd3)),
+                neg(mul(mul(t4, t4), invD4h)))
+
+    d1e, p1e = ax(d1, (B, N1p, 1, 1)), ax(p_, (B, N1p, 1, 1))
+    b3e = ax(b3, (B, N1p, N3, 1))
+    b4e = (b4[0][:, :, None, :], b4[1][:, :, None, :])
+    d2e, q2e = ax(d2, (B, N2, 1, 1)), ax(q_, (B, N2, 1, 1))
+    c3e = ax(c3, (B, N2, N3, 1))
+    c4e = (c4[0][:, :, None, :], c4[1][:, :, None, :])
+
+    L13 = mul(b3e, invd3)
+    e4r = add(b4e, neg(mul(L43, b3e)))
+    L14 = mul(e4r, invD4h)
+    D1h = add(d1e, neg(mul(b3e, L13)), neg(mul(e4r, L14)))
+    rowok = val(D1h) > tol * val(d1e)
+    invD1h = safe_recip(D1h, rowok)
+    pi1 = add(p1e, neg(mul(L13, r3e)), neg(mul(L14, t4)))
+    kap1 = mul(pi1, invD1h)
+    rho1 = add(rho34, neg(mul(pi1, kap1)))        # (B, N1p, N3, N4)
+
+    L23 = mul(c3e, invd3)
+    e4c = add(c4e, neg(mul(L43, c3e)))
+    L24 = mul(e4c, invD4h)
+    d2r = add(d2e, neg(mul(c3e, L23)), neg(mul(e4c, L24)))
+    q2r = add(q2e, neg(mul(L23, r3e)), neg(mul(L24, t4)))
+
+    u3f = val(mul(r3e, invd3))                    # (B, 1, N3, 1)
+    u4f = val(mul(t4, invD4h))                    # (B, 1, N3, N4)
+    L43f = val(L43)
+
+    # hoisted sub-support minima (folded into every sweep)
+    S1, S2, S3 = dfscan._sub1_df, dfscan._sub2_df, dfscan._sub3_df
+    r_fix = torch.minimum(S1(d3e, r3e, w4), S1(d4e, r4e, w4))
+    r_fix = torch.minimum(r_fix, S2(d3e, d4e, ge, r3e, r4e, w4))
+    r_fix = torch.broadcast_to(r_fix[:, 0], (B, N3, N4))
+    r_row = torch.minimum(S2(d1e, d3e, b3e, p1e, r3e, w4),
+                          S2(d1e, d4e, b4e, p1e, r4e, w4))
+    r_row = torch.minimum(r_row, S3(d1e, d3e, d4e, b3e, b4e, ge, p1e, r3e,
+                                    r4e, w4))
+    r_row = torch.broadcast_to(r_row, (B, N1p, N3, N4))
+    r_col = torch.minimum(S2(d2e, d3e, c3e, q2e, r3e, w4),
+                          S2(d2e, d4e, c4e, q2e, r4e, w4))
+    r_col = torch.minimum(r_col, S3(d2e, d3e, d4e, c3e, c4e, ge, q2e, r3e,
+                                    r4e, w4))
+    r_col = torch.broadcast_to(r_col, (B, N2, N3, N4))
+    res1_row = S1(d1, p_, w_)                     # (B, N1p)
+    res2_col = S1(d2, q_, w_)                     # (B, N2)
+
+    # ---- presplit packing (layout read by the kernel and the twin) ----
+    ps = df32.presplit
+    p2 = mul(p_, p_)
+    q2sq = mul(q_, q_)
+    d2w = mul(d2, w_)
+    xs_d = ([cut(d3, slice(None), slice(i, i + 1)) for i in range(N3)]
+            + [cut(d4, slice(None), slice(i, i + 1)) for i in range(N4)])
+    xs_r = ([cut(r3, slice(None), slice(i, i + 1)) for i in range(N3)]
+            + [cut(r4, slice(None), slice(i, i + 1)) for i in range(N4)])
+    xs_b = ([cut(b3, slice(None), slice(None), i) for i in range(N3)]
+            + [cut(b4, slice(None), slice(None), i) for i in range(N4)])
+    xs_c = ([cut(c3, slice(None), slice(None), i) for i in range(N3)]
+            + [cut(c4, slice(None), slice(None), i) for i in range(N4)])
+    sw = lambda z, i3, i4: cut(z, slice(None), slice(None), i3, i4)
+
+    rows = list(ps(d1)) + list(ps(p_)) + list(ps(p2))
+    for x in range(nx):
+        bX = xs_b[x]
+        rows += list(ps(bX)) + list(ps(mul(bX, bX))) + list(ps(mul(bX, p_)))
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        for z in (e4r, kap1, invD1h, rho1):
+            rows += list(ps(sw(z, i3, i4)))
+    rows.append(res1_row)
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        rows += [rowok[:, :, i3, i4].float(), val(L13)[:, :, i3, 0],
+                 val(L14)[:, :, i3, i4]]
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        rows.append(r_row[:, :, i3, i4])
+
+    cols = list(ps(d2)) + list(ps(q_)) + list(ps(q2sq)) + list(ps(d2w))
+    for x in range(nx):
+        dX, rX, cX = xs_d[x], xs_r[x], xs_c[x]
+        U2X = sc(add(mul(d2, rX), neg(mul(cX, q_))), 2.0)
+        U3X = add(mul(d2, add(mul(dX, w_), neg(mul(rX, rX)))),
+                  neg(mul(dX, q2sq)), sc(dfm(cX, q_, rX), 2.0),
+                  neg(mul(mul(cX, cX), w_)))
+        U4X = add(mul(cX, cX), neg(mul(d2, dX)))
+        V1X = sc(add(mul(cX, w_), neg(mul(q_, rX))), 2.0)
+        V2X = sc(add(mul(dX, q_), neg(mul(cX, rX))), 2.0)
+        for z in (U2X, U3X, U4X, V1X, V2X, cX):
+            cols += list(ps(z))
+    for i3 in range(N3):
+        cols += list(ps(sw(L23, i3, 0)))
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        for z in (L24, d2r, q2r):
+            cols += list(ps(sw(z, i3, i4)))
+    cols.append(res2_col)
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        cols.append(r_col[:, :, i3, i4])
+
+    vox = [v[:, 0] for v in ps(w_)]
+    for x in range(nx):
+        dX, rX = xs_d[x], xs_r[x]
+        C2X = add(mul(rX, rX), neg(mul(dX, w_)))
+        vox += [v[:, 0] for v in ps(C2X)]
+        vox += [val(dX)[:, 0], val(rX)[:, 0]]
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        vox += [ok34[:, 0, i3, i4].float(), u3f[:, 0, i3, 0],
+                u4f[:, 0, i3, i4], L43f[:, 0, i3, i4]]
+    for s in range(NS):
+        i3, i4 = divmod(s, N4)
+        vox.append(r_fix[:, i3, i4])
+    return qA1, qA2, rows, cols, vox
+
+
+def rescan4_twin(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,
+                 vox, n2, n3, n4, segw):
+    """Plain PyTorch version of the 4-block re-scan kernel (the JAX
+    package's ``_df4_kernel``): per point the {1,2} base with the
+    hoisted row/column/empty minima, the {1,2,X} bordered determinants,
+    and the NS {1,2,3,4} LDL' sweeps, the first strictly smaller sweep
+    winning; per (row, segment) the minimum and its first flat index
+    i2 * NS + s (0 where the minimum is +inf).
+    Returns (res (B, n_seg, N1p) f32, flat (B, n_seg, N1p) int32)."""
+    NS, nx = n3 * n4, n3 + n4
+    INF = _INF
+    mps, two_sum, fts, pre = (df32.mul_ps, df32.two_sum,
+                              df32.fast_two_sum, df32.presplit)
+    tol = dfscan._TOL
+    sanit = dfscan._sanit
+    e = "bsi,bsj->bij"
+    t11 = dfscan.idot(e, q1a, q1b)
+    t12 = dfscan.idot(e, q1a, q2b) + dfscan.idot(e, q2a, q1b)
+    t22 = dfscan.idot(e, q2a, q2b)
+    g_hi, g_lo = df32.df_from_sum(
+        t11.float() * 2.0 ** -14, t12.float() * 2.0 ** -22,
+        t22.float() * 2.0 ** -30, dfscan.fdot(e, a1h, rb),
+        dfscan.fdot(e, ra, ab))
+    a_ps = pre((g_hi, g_lo))                              # (B, N1p, N2pb)
+
+    rp = lambda i: tuple(row_pack[:, i + k][:, :, None] for k in range(4))
+    rf = lambda i: row_pack[:, i][:, :, None]
+    cp = lambda i: tuple(col_pack[:, i + k][:, None, :] for k in range(4))
+    cf = lambda i: col_pack[:, i][:, None, :]
+    vp = lambda i: tuple(vox[:, i + k][:, None, None] for k in range(4))
+    vf = lambda i: vox[:, i][:, None, None]
+    r_ldl = 12 + 12 * nx
+    r_res1 = r_ldl + 16 * NS
+    r_ok = r_res1 + 1
+    r_row0 = r_ok + 3 * NS
+    c_x0 = 16
+    c_l23 = c_x0 + 24 * nx
+    c_ldl = c_l23 + 4 * n3
+    c_res2 = c_ldl + 12 * NS
+    c_col0 = c_res2 + 1
+    v_x0 = 4
+    v_s0 = v_x0 + 6 * nx
+    v_fix0 = v_s0 + 4 * NS
+
+    d1, p_, p2 = rp(0), rp(4), rp(8)
+    d2, q_, q2, d2w = cp(0), cp(4), cp(8), cp(12)
+    w_ = vp(0)
+    d1f, pf = d1[0], p_[0]
+    d2f, qf = d2[0], q_[0]
+    wf = w_[0]
+    af = a_ps[0]
+
+    a2 = mps(a_ps, a_ps)
+    a2_ps = pre(fts(a2[0], a2[1]))
+    pq = mps(p_, q_)
+    pq_ps = pre(fts(pq[0], pq[1]))
+
+    # ---- base: {1,2} (unconstrained-sign feasibility), row/col/empty ----
+    apq = mps(a_ps, pq_ps)
+    t_a2w = mps(a2_ps, w_)
+    t_d1q2 = mps(d1, q2)
+    t_p2d2 = mps(p2, d2)
+    num12 = _acc([mps(d1, d2w), (-t_a2w[0], -t_a2w[1]),
+                  (2.0 * apq[0], 2.0 * apq[1]),
+                  (-t_d1q2[0], -t_d1q2[1]), (-t_p2d2[0], -t_p2d2[1])])
+    det2 = d1f * d2f - af * af
+    n1w = d2f * pf - af * qf
+    n2w = d1f * qf - af * pf
+    feas12 = (det2 > tol * d1f * d2f) & (n1w >= 0) & (n2w >= 0)
+    r12 = torch.where(feas12, num12 / torch.where(feas12, det2, 1.0), INF)
+    base = torch.minimum(sanit(r12), rf(r_res1))
+    base = torch.minimum(base, cf(c_res2))
+    base = torch.minimum(base, wf)
+
+    U1_ps = pre(df32.df_add((q2[0], q2[1]), (-d2w[0], -d2w[1])))
+
+    # ---- supports {1,2,X} per extra column X (i3's first, then i4's) ----
+    r1x = []
+    for x in range(nx):
+        bX, bX2, bXp = rp(12 + 12 * x), rp(16 + 12 * x), rp(20 + 12 * x)
+        U2X, U3X, U4X = (cp(c_x0 + 24 * x + 4 * j) for j in range(3))
+        V1X, V2X, cX = (cp(c_x0 + 24 * x + 4 * j) for j in range(3, 6))
+        C2X = vp(v_x0 + 6 * x)
+        dXf = vf(v_x0 + 6 * x + 4)
+        rXf = vf(v_x0 + 6 * x + 5)
+        m1 = mps(bX, V1X)
+        m2 = mps(p_, V2X)
+        s_hi, s_e = two_sum(m1[0], m2[0])
+        s_ps = pre(fts(s_hi, s_e + m1[1] + m2[1]))
+        det4 = _acc([mps(bX2, U1_ps), mps(bXp, U2X), mps(d1, U3X),
+                     mps(p2, U4X), mps(a_ps, s_ps), mps(a2_ps, C2X)])
+        bf, cfX = bX[0], cX[0]
+        det3 = (d1f * (d2f * dXf - cfX * cfX) - af * (af * dXf - cfX * bf)
+                + bf * (af * cfX - d2f * bf))
+        D1 = (pf * (d2f * dXf - cfX * cfX) - qf * (af * dXf - cfX * bf)
+              + rXf * (af * cfX - d2f * bf))
+        D2 = (-pf * (af * dXf - bf * cfX) + qf * (d1f * dXf - bf * bf)
+              - rXf * (d1f * cfX - af * bf))
+        D3 = (pf * (af * cfX - bf * d2f) - qf * (d1f * cfX - bf * af)
+              + rXf * (d1f * d2f - af * af))
+        feas = ((det3 > tol * d1f * d2f * dXf)
+                & (D1 >= 0) & (D2 >= 0) & (D3 >= 0))
+        r1x.append(sanit(torch.where(
+            feas, det4 / torch.where(feas, det3, 1.0), INF)))
+
+    # ---- sweeps: {1,2,3,4} LDL' finish + per-sweep folds ----
+    best = torch.full_like(af, INF)
+    best_s = torch.zeros(af.shape, dtype=torch.int64, device=af.device)
+    for s in range(NS):
+        i3, i4 = divmod(s, n4)
+        b3ps = rp(12 + 12 * i3)
+        L23 = cp(c_l23 + 4 * i3)
+        e4r, kap1, invD1h, rho1 = (rp(r_ldl + 16 * s + 4 * j)
+                                   for j in range(4))
+        L24, d2r, q2r = (cp(c_ldl + 12 * s + 4 * j) for j in range(3))
+        ok34s, u3fs, u4fs, L43fs = (vf(v_s0 + 4 * s + j) for j in range(4))
+        rowoks = rf(r_ok + 3 * s)
+        L13fs = rf(r_ok + 3 * s + 1)
+        L14fs = rf(r_ok + 3 * s + 2)
+
+        m1 = mps(b3ps, L23)
+        m2 = mps(e4r, L24)
+        hi, er = two_sum(af, -m1[0])
+        lo = a_ps[1] + er - m1[1]
+        hi, er = two_sum(hi, -m2[0])
+        NUM = fts(hi, lo + er - m2[1])
+        NUM_ps = pre(NUM)
+        n2d = mps(NUM_ps, NUM_ps)
+        n2_ps = pre(fts(n2d[0], n2d[1]))
+        tD = mps(n2_ps, invD1h)
+        hi, er = two_sum(d2r[0], -tD[0])
+        D2h = fts(hi, d2r[1] + er - tD[1])
+        pointok = D2h[0] > tol * d2f
+        D2hs = (torch.where(pointok, D2h[0], 1.0),
+                torch.where(pointok, D2h[1], 0.0))
+        uK = mps(NUM_ps, kap1)
+        hi, er = two_sum(q2r[0], -uK[0])
+        pi2 = fts(hi, q2r[1] + er - uK[1])
+        pi2_ps = pre(pi2)
+        p2q = mps(pi2_ps, pi2_ps)
+        p2q_df = fts(p2q[0], p2q[1])
+        # double-float division (dfscan._df_div, inlined)
+        q0 = p2q_df[0] / D2hs[0]
+        pdiv, ediv = df32.two_prod(q0, D2hs[0])
+        r_hi = (p2q_df[0] - pdiv) - ediv + p2q_df[1] - q0 * D2hs[1]
+        div = fts(q0, r_hi / D2hs[0])
+        hi, er = two_sum(rho1[0], -div[0])
+        res1234 = hi + (rho1[1] + er - div[1])
+        pi2f = pi2[0]
+        wb2 = pi2f / D2hs[0]
+        L21f = NUM[0] * invD1h[0]
+        wb1 = kap1[0] - L21f * wb2
+        we4 = u4fs - L14fs * wb1 - L24[0] * wb2
+        we3 = u3fs - L43fs * we4 - L13fs * wb1 - L23[0] * wb2
+        feasF = ((ok34s > 0.5) & (rowoks > 0.5) & pointok
+                 & (pi2f >= 0) & (wb1 >= 0) & (we4 >= 0) & (we3 >= 0))
+        r1234 = torch.where(feasF, sanit(res1234), INF)
+
+        res_s = torch.minimum(base, r1x[i3])
+        res_s = torch.minimum(res_s, r1x[n3 + i4])
+        res_s = torch.minimum(res_s, r1234)
+        res_s = torch.minimum(res_s, rf(r_row0 + s))
+        res_s = torch.minimum(res_s, cf(c_col0 + s))
+        res_s = torch.minimum(res_s, vf(v_fix0 + s))
+        res_s = sanit(res_s)
+        upd = res_s < best
+        best = torch.where(upd, res_s, best)
+        best_s = torch.where(upd, s, best_s)
+
+    # ---- per-(row, segment) minima and first flat index ----
+    B, N1p, N2pb = best.shape
+    col = torch.arange(N2pb, device=best.device)
+    best = torch.where(col[None, None, :] < n2, best, INF)
+    gflat = col[None, None, :] * NS + best_s
+    best = best.reshape(B, N1p, N2pb // segw, segw)
+    rmin = best.amin(dim=3)
+    idx = torch.where(best == rmin[..., None],
+                      gflat.reshape(B, N1p, N2pb // segw, segw),
+                      2 ** 30).amin(dim=3)
+    idx = torch.where(torch.isfinite(rmin), idx, 0)
+    return (rmin.transpose(1, 2).contiguous(),
+            idx.transpose(1, 2).to(torch.int32).contiguous())
+
+
+def _rescan4_cuda(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,
+                  vox, n2, n3, n4, segw):
+    B, S, N1p = q1a.shape
+    N2pb = q1b.shape[2]
+    NR, NC, NV = row_pack.shape[1], col_pack.shape[1], vox.shape[1]
+    c = kernels.check
+    for t, n in ((q1a, "q1a"), (q2a, "q2a")):
+        c(t, torch.int8, (B, S, N1p), n)
+    for t, n in ((a1h, "a1h"), (ra, "ra")):
+        c(t, torch.float32, (B, S, N1p), n)
+    for t, n in ((q1b, "q1b"), (q2b, "q2b")):
+        c(t, torch.int8, (B, S, N2pb), n)
+    for t, n in ((rb, "rb"), (ab, "ab")):
+        c(t, torch.float32, (B, S, N2pb), n)
+    c(row_pack, torch.float32, (B, NR, N1p), "row_pack")
+    c(col_pack, torch.float32, (B, NC, N2pb), "col_pack")
+    c(vox, torch.float32, (B, NV), "vox")
+    if segw % TN4 or N1p % 32 or N2pb % TN4:
+        raise ValueError("unsupported re-scan tiling (segment width %d, "
+                         "N1p %d, N2pb %d)" % (segw, N1p, N2pb))
+    nch = N2pb // TN4
+    cmin = torch.empty(B, N1p, nch, dtype=torch.float32, device=q1a.device)
+    cidx = torch.empty(B, N1p, nch, dtype=torch.int32, device=q1a.device)
+    kernels.launch("rescan4", q1a, q2a, a1h, ra, q1b, q2b, rb, ab,
+                   row_pack, col_pack, vox, cmin, cidx,
+                   B, S, N1p, N2pb, n2, n3, n4, NR, NC, NV, dfscan._TOL)
+    # fold the column tiles into segments: the first tile holding the
+    # segment minimum holds its first flat index
+    k = segw // TN4
+    cmin = cmin.reshape(B, N1p, nch // k, k)
+    cidx = cidx.reshape(B, N1p, nch // k, k)
+    rmin = cmin.amin(dim=3)
+    idx = torch.where(cmin == rmin[..., None], cidx, 2 ** 30).amin(dim=3)
+    idx = torch.where(torch.isfinite(rmin), idx, 0)
+    return (rmin.transpose(1, 2).contiguous(),
+            idx.transpose(1, 2).to(torch.int32).contiguous())
+
+
+def rescan4_rows(*ops, n2, n3, n4, segw):
+    """Kernel 5 dispatch on the device of the operands."""
+    fn = _rescan4_cuda if ops[0].is_cuda else rescan4_twin
+    return fn(*ops, n2=n2, n3=n3, n4=n4, segw=segw)
+
+
+def row_scan_df4_operands(A1, A2, a3, a4, y, segments=1):
+    """Normalize, quantize and hoist for the 4-block re-scan. Returns
+    (kernel operands tuple, segment width, y norm)."""
+    N2 = A2.shape[2]
+    A1p, _ = mfn._pad_cols(A1.float(), _LANE)
+    A1h, _ = mfn._normalize_block(A1p)
+    A2h, _ = mfn._normalize_block(A2.float())
+    A3h, _ = mfn._normalize_block(a3.float())
+    A4h, _ = mfn._normalize_block(a4.float())
+    yh, yn, _ = mfn._normalize_y(y.float())
+    qA1, qA2, rows, cols, vox = _df4_hoists(A1h, A2h, A3h, A4h, yh)
+    NB, N2B = col_blocks(N2, 256, 16)
+    pack = lambda xs: F.pad(torch.stack(xs, dim=1).float(),
+                            (0, 0, 0, -len(xs) % 8))
+    padc = lambda x: F.pad(x, (0, NB * N2B - N2)).contiguous()
+    vox = torch.stack(vox, dim=1).float()
+    ops = (qA1[0].contiguous(), qA1[1].contiguous(), A1h.contiguous(),
+           qA1[2].contiguous(), padc(qA2[0]), padc(qA2[1]), padc(qA2[2]),
+           padc(qA2[3]), pack(rows).contiguous(), padc(pack(cols)),
+           F.pad(vox, (0, -vox.shape[1] % 8)).contiguous())
+    return ops, N2B // segments, yn
+
+
+def row_scan_df4(A1, A2, a3, a4, y, segments=1):
+    """Per-(row, segment) best candidate for [N1, N2, N3, N4] with
+    double-float selection. Returns (row_res (B, n_seg*N1p),
+    row_flat (B, n_seg*N1p) [= i2 * NS + s], y_sq (B,)); consume with
+    ``candidates_from_rows_df4`` (segments_total =
+    ``n_segments_df4(N2, segments)``)."""
+    N1, N2 = A1.shape[2], A2.shape[2]
+    N3, N4 = a3.shape[2], a4.shape[2]
+    ops, segw, yn = row_scan_df4_operands(A1, A2, a3, a4, y, segments)
+    res, idx = rescan4_rows(*ops, n2=N2, n3=N3, n4=N4, segw=segw)
     B, n_seg, N1p = res.shape
     row = torch.arange(N1p, device=res.device)[None, None, :]
     res = torch.where(row < N1, res, _INF)

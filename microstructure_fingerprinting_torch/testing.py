@@ -5,7 +5,8 @@ Same generators as ``microstructure_fingerprinting_tpu/testing.py``: an
 HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
 fingerprint dictionary (zeppelins with per-atom diffusivities), and the
 flagship 2-fascicle + CSF fit workload, whose noiseless signals are
-synthesized through this package's grouped rotation. The random draws
+synthesized through this package's grouped rotation, and its EAR
+(UK-Biobank) variant. The random draws
 are the JAX package's, in the same order, for the same seed.
 """
 
@@ -145,3 +146,17 @@ def make_fit_workload(num_atom=782, n_vox=64, seed=0,
     return {"sch_mat": sch, "msinterp": ms, "plan": plan, "peaks": peaks,
             "y": y, "sig_csf": sig_csf, "gt_ids": gt_ids, "gt_nu": gt_nu,
             "dictionary": sig}
+
+
+def make_ear(wl, n_ear=10):
+    """The EAR block of the UK-Biobank configuration (dicsizes
+    [N, N, 1, n_ear]) for a ``make_fit_workload`` workload, as the JAX
+    package's benchmark builds it: n_ear diffusivities linspace(0.8e-9,
+    2.6e-9) at T2 = 0.8, and the signals with 35 times EAR atom 4 added.
+    Returns (sig_ear (S, n_ear), y_ear (n_vox, S))."""
+    sch = wl["sch_mat"]
+    TE, b = sch[:, 6], b_values(sch)
+    Dear = np.linspace(0.8e-9, 2.6e-9, n_ear)
+    sig_ear = np.exp(-TE / 0.8)[:, None] * np.exp(-b[:, None] * Dear[None])
+    y_ear = wl["y"] + 35 * sig_ear[:, 4][None, :]
+    return sig_ear, y_ear

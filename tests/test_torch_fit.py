@@ -177,15 +177,22 @@ def test_model_fit_matches_jax(rows, tmp_path):
 
 
 def test_model_fit_unported_buckets_raise():
-    """Configurations outside the slice raise NotImplementedError naming
-    their ROADMAP item; CUDA asked for without a card raises."""
+    """Configurations outside the ported buckets raise
+    NotImplementedError naming their ROADMAP item (one fascicle, an EAR
+    block of more than 16 atoms, EAR without CSF, multi-GPU); CUDA asked
+    for without a card raises."""
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit(data, mask, np.minimum(numfasc, 1), csf_mask=1, **kw)
+    ear = mft.MFModel(dict(dic, T2_ear=0.8,
+                           DIFF_ear=np.linspace(0.8e-9, 2.6e-9, 17)),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(data, mask, numfasc, csf_mask=1, ear_mask=1, **kw)
+        ear.fit(data, mask, numfasc, csf_mask=1, ear_mask=1, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ear.fit(data, mask, numfasc, ear_mask=1, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit(data, mask, numfasc, csf_mask=1, parallel=True, **kw)
     if not torch.cuda.is_available():

@@ -253,8 +253,12 @@ def test_cpu_tensors_run_the_twins(rng):
     tf32scan.rowmin_3(A1, A2, a3, y, colmin=True)     # prep + row pass
     trescan.row_scan_df3(A1, A2, a3, y)               # re-scan
     tf32scan.df3_twopass(A1, A2, a3, y, R=8)
+    a4 = _t(np.float32(np.abs(rng.randn(2, 24, 3)) + 0.05))
+    tf32scan.rowmin_4(A1, A2, a3, a4, y, colmin=True)  # prep + EAR row pass
+    trescan.row_scan_df4(A1, A2, a3, a4, y)            # EAR re-scan
+    tf32scan.df4_twopass(A1, A2, a3, a4, y, R=8)
     assert kernels.LAUNCHES == {"prep_block": 0, "rowmin3": 0,
-                                "rescan3": 0}
+                                "rescan3": 0, "rowmin4": 0, "rescan4": 0}
 
 
 def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
