@@ -2,14 +2,30 @@
 //
 // Device counterpart of microstructure_fingerprinting_tpu/ops/f32scan.py
 // _gram_hi. A 256-thread block owns a 32-row x 64-column tile of the
-// (i1, i2) grid of one voxel; thread (ty, tx) = (tid / 16, tid % 16) owns the
-// 2 x 4 points at rows ty * 2 + r and columns tx + 16 c. Per point: the nine
-// int8 level products of the three-level packs of kernel 1, grouped by scale
-// (exact in int32, 4 samples per __dp4a), and the two bf16 corrections
-// (exact products, float64 sums rounded once), summed in the TPU kernel's
-// fixed order v_a + (v_b + (v_c + (c1 + (c2 + (v_d + v_e))))), the order
-// KERR and KERR4 were calibrated on. 16-sequence chunks of both operands are
-// staged in shared memory; every loaded value feeds 2-4 points.
+// (i1, i2) grid of one voxel. Per point: the nine int8 level products of
+// the three-level packs of kernel 1, grouped by scale (exact in int32), and
+// the two bf16 corrections (exact products, float64 sums rounded once),
+// summed in the TPU kernel's fixed order
+// v_a + (v_b + (v_c + (c1 + (c2 + (v_d + v_e))))), the order KERR and KERR4
+// were calibrated on.
+//
+// What bounds it on an H100: the two float64 correction products per sample
+// and point (1.04 TFLOP per 512-voxel chunk at 782 x 782, S = 552); on CUDA
+// cores, fed by 8-byte shared-memory loads, they took most of the tile's
+// time. The design: the corrections run on the float64 tensor cores
+// (mma.sync m8n8k4). The 8 warps tile the block 2 x 4, a warp owns 16 x 16
+// points as 2 x 2 mma tiles per correction. 32-sequence chunks of the
+// operands are staged in shared memory: the bf16 planes as they lie in
+// device memory (2 bytes an element, copied 16 bytes at a time, zeros beyond
+// S), widened at the fragment load (bf16 -> float is a shift, float ->
+// double is exact). A lane's two rows (columns) of a plane are neighbours,
+// rows 2g + mt of the warp's 16, so one 4-byte load feeds both mma tiles;
+// the plane rows are padded (+16 elements) so that the four samples of a
+// fragment load fall on distinct banks. The level products still run on
+// CUDA cores (__dp4a, 4 samples each) in the callers' ownership (thread
+// (ty, tx) = (tid / 16, tid % 16) owns the 2 x 4 points at rows ty * 2 + r
+// and columns tx + 16 c); the rounded corrections reach those owners through
+// shared memory (two 32 x 64 float tiles over the staging planes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,20 +35,64 @@
 
 namespace mf {
 
-constexpr int kHiTM = 32, kHiTN = 64, kHiSK = 16, kHiThreads = 256;
+constexpr int kHiTM = 32, kHiTN = 64, kHiSK = 32, kHiThreads = 256;
+// padded rows of the staged planes: int8 groups (words) and bf16 samples
+// (elements), and of the float tiles handed to the callers' ownership
+constexpr int kHiQA = kHiTM + 8, kHiQB = kHiTN + 8;
+constexpr int kHiFA = kHiTM + 16, kHiFB = kHiTN + 16;
+constexpr int kHiEX = kHiTN + 8;
 
-struct GramHiSmem {
-  // int8 levels packed 4 sequence samples per int32 (the __dp4a operand)
-  int sqa[3][kHiSK / 4][kHiTM];
-  int sqb[3][kHiSK / 4][kHiTN];
-  double sxa[kHiSK][kHiTM], sra[kHiSK][kHiTM];
-  double srb[kHiSK][kHiTN], sab[kHiSK][kHiTN];
+struct alignas(16) GramHiSmem {
+  union {
+    struct {
+      // int8 levels packed 4 sequence samples per int32 (the __dp4a operand)
+      int sqa[3][kHiSK / 4][kHiQA];
+      int sqb[3][kHiSK / 4][kHiQB];
+      // bf16 bit patterns of the correction planes, [sample][point]
+      uint16_t sxa[kHiSK][kHiFA], sra[kHiSK][kHiFA];
+      uint16_t srb[kHiSK][kHiFB], sab[kHiSK][kHiFB];
+    } st;
+    // the rounded corrections c1, c2 of the tile, after the last chunk
+    float ex[2][kHiTM][kHiEX];
+  };
 };
+
+// D (8 x 8) += A (8 x 4, row-major) * B (4 x 8, column-major) in float64.
+// Lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and D[l / 4][2 (l % 4) + e].
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// the two bf16 values of a 4-byte word (lower address first), as doubles
+__device__ __forceinline__ void widen2(uint32_t p, double (&v)[2]) {
+  v[0] = (double)__uint_as_float(p << 16);
+  v[1] = (double)__uint_as_float(p & 0xffff0000u);
+}
+
+// 8 bf16 values of sample row s (zeros at s >= S) -> a staged plane row
+__device__ __forceinline__ void stage8(uint16_t* dst,
+                                       const __nv_bfloat16* src, bool in) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (in) v = __ldg(reinterpret_cast<const uint4*>(src));
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+// The tile stages its bf16 planes 16 bytes at a time: the launchers refuse
+// planes that are not so aligned (rows are, T and N2B being multiples of 32).
+inline bool gram_hi_aligned(const void* a1bf, const void* rabf,
+                            const void* rbbf, const void* abbf) {
+  return (((uintptr_t)a1bf | (uintptr_t)rabf | (uintptr_t)rbbf |
+           (uintptr_t)abbf) & 15) == 0;
+}
 
 // a[r][c]: the rounded Gram entry of the thread's point (row0 + ty*2 + r,
 // col0 + tx + 16c) of voxel b. Operands are kernel 1's packs: q123/a1bf/rabf
 // (B, nt, S, 3T | T) of the row block, qb3/rbbf/abbf (B, NB, S, 3N2B | N2B)
-// of the column block. Begins and ends with a block barrier.
+// of the column block; the bf16 planes must be 16-byte aligned. Begins and
+// ends with a block barrier.
 __device__ __forceinline__ void gram_hi_tile(
     const int8_t* __restrict__ q123, const __nv_bfloat16* __restrict__ a1bf,
     const __nv_bfloat16* __restrict__ rabf, const int8_t* __restrict__ qb3,
@@ -43,52 +103,62 @@ __device__ __forceinline__ void gram_hi_tile(
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int ta = row0 / T, ia = row0 % T;         // row tile of the packs
   const int cb = col0 / N2B, jb = col0 % N2B;     // column block
+  // the warp's 16 x 16 points; lane (g, kq) loads rows ra0 + mt and
+  // columns cb0 + nt of sample 4 ks + kq, and holds the mma results at
+  // rows ra0 + mt, columns wc * 16 + 2 (2 kq + e) + nt
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, kq = lane % 4;
+  const int ra0 = (warp / 4) * 16 + 2 * g, cb0 = (warp % 4) * 16 + 2 * g;
 
   int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
       t33[2][4] = {};
-  double c1[2][4] = {}, c2[2][4] = {};
+  double c1[2][2][2] = {}, c2[2][2][2] = {};      // [mt][nt][e]
 
   const size_t abase = ((size_t)b * nt + ta) * S;
   const size_t bbase = ((size_t)b * NB + cb) * S;
   for (int s0 = 0; s0 < S; s0 += SK) {
     __syncthreads();
     for (int k = tid; k < 3 * G * TM; k += kHiThreads) {
-      const int l = k / (G * TM), g = (k / TM) % G, i = k % TM;
-      const int s = s0 + 4 * g;
-      sm.sqa[l][g][i] = pack4(q123 + (abase + s) * 3 * T + l * T + ia + i,
-                              (size_t)3 * T, S - s);
+      const int l = k / (G * TM), gq = (k / TM) % G, i = k % TM;
+      const int s = s0 + 4 * gq;
+      sm.st.sqa[l][gq][i] = pack4(
+          q123 + (abase + s) * 3 * T + l * T + ia + i, (size_t)3 * T, S - s);
     }
     for (int k = tid; k < 3 * G * TN; k += kHiThreads) {
-      const int l = k / (G * TN), g = (k / TN) % G, j = k % TN;
-      const int s = s0 + 4 * g;
-      sm.sqb[l][g][j] = pack4(qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
-                              (size_t)3 * N2B, S - s);
+      const int l = k / (G * TN), gq = (k / TN) % G, j = k % TN;
+      const int s = s0 + 4 * gq;
+      sm.st.sqb[l][gq][j] = pack4(
+          qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j, (size_t)3 * N2B,
+          S - s);
     }
-    for (int k = tid; k < SK * TM; k += kHiThreads) {
-      const int sl = k / TM, i = k % TM, s = s0 + sl;
-      const bool in = s < S;
-      sm.sxa[sl][i] = in ? (double)bf(a1bf[(abase + s) * T + ia + i]) : 0.0;
-      sm.sra[sl][i] = in ? (double)bf(rabf[(abase + s) * T + ia + i]) : 0.0;
+    for (int k = tid; k < SK * (TM / 8); k += kHiThreads) {
+      const int sl = k / (TM / 8), i = 8 * (k % (TM / 8)), s = s0 + sl;
+      const size_t off = (abase + s) * T + ia + i;
+      stage8(&sm.st.sxa[sl][i], a1bf + off, s < S);
+      stage8(&sm.st.sra[sl][i], rabf + off, s < S);
     }
-    for (int k = tid; k < SK * TN; k += kHiThreads) {
-      const int sl = k / TN, j = k % TN, s = s0 + sl;
-      const bool in = s < S;
-      sm.srb[sl][j] = in ? (double)bf(rbbf[(bbase + s) * N2B + jb + j]) : 0.0;
-      sm.sab[sl][j] = in ? (double)bf(abbf[(bbase + s) * N2B + jb + j]) : 0.0;
+    for (int k = tid; k < SK * (TN / 8); k += kHiThreads) {
+      const int sl = k / (TN / 8), j = 8 * (k % (TN / 8)), s = s0 + sl;
+      const size_t off = (bbase + s) * N2B + jb + j;
+      stage8(&sm.st.srb[sl][j], rbbf + off, s < S);
+      stage8(&sm.st.sab[sl][j], abbf + off, s < S);
     }
     __syncthreads();
+    // groups of 4 samples that hold any sample below S (block-uniform)
+    const int ng = min(G, (S - s0 + 3) / 4);
     #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int gq = 0; gq < G; ++gq) {
+      if (gq >= ng) break;
       int qa[2][3], qb[4][3];
       #pragma unroll
       for (int r = 0; r < 2; ++r) {
         #pragma unroll
-        for (int l = 0; l < 3; ++l) qa[r][l] = sm.sqa[l][g][ty * 2 + r];
+        for (int l = 0; l < 3; ++l) qa[r][l] = sm.st.sqa[l][gq][ty * 2 + r];
       }
       #pragma unroll
       for (int c = 0; c < 4; ++c) {
         #pragma unroll
-        for (int l = 0; l < 3; ++l) qb[c][l] = sm.sqb[l][g][tx + 16 * c];
+        for (int l = 0; l < 3; ++l) qb[c][l] = sm.st.sqb[l][gq][tx + 16 * c];
       }
       // the nine level products, 4 samples per __dp4a (exact in int32),
       // grouped by scale as the TPU kernel's int32 sums
@@ -106,29 +176,36 @@ __device__ __forceinline__ void gram_hi_tile(
           t33[r][c] = __dp4a(x[2], q[2], t33[r][c]);
         }
       }
+      // the two corrections of the same 4 samples: bf16 x bf16 products
+      // are exact in double, the mma accumulates them in float64
+      const int sl = 4 * gq + kq;
+      double xa[2], ra[2], rb[2], ab[2];
+      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sxa[sl][ra0]), xa);
+      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sra[sl][ra0]), ra);
+      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.srb[sl][cb0]), rb);
+      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sab[sl][cb0]), ab);
       #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int sl = 4 * g + u;
-        double xa[2], ra[2], rb[4], ab[4];
+      for (int mt = 0; mt < 2; ++mt) {
         #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          xa[r] = sm.sxa[sl][ty * 2 + r];
-          ra[r] = sm.sra[sl][ty * 2 + r];
+        for (int n = 0; n < 2; ++n) {
+          mma_f64(c1[mt][n], xa[mt], rb[n]);
+          mma_f64(c2[mt][n], ra[mt], ab[n]);
         }
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          rb[c] = sm.srb[sl][tx + 16 * c];
-          ab[c] = sm.sab[sl][tx + 16 * c];
-        }
-        #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            // bf16 x bf16 products are exact in double: fma == mul + add
-            c1[r][c] = fma(xa[r], rb[c], c1[r][c]);
-            c2[r][c] = fma(ra[r], ab[c], c2[r][c]);
-          }
-        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the corrections, rounded once, from the mma layout to their owners
+  #pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    #pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = (warp % 4) * 16 + 2 * (2 * kq + e) + n;
+        sm.ex[0][ra0 + mt][col] = __double2float_rn(c1[mt][n][e]);
+        sm.ex[1][ra0 + mt][col] = __double2float_rn(c2[mt][n][e]);
       }
     }
   }
@@ -143,11 +220,12 @@ __device__ __forceinline__ void gram_hi_tile(
       const float v_c = mul((float)t22[r][c], 9.313225746154785e-10f);
       const float v_d = mul((float)t23[r][c], 3.637978807091713e-12f);
       const float v_e = mul((float)t33[r][c], 1.4210854715202004e-14f);
-      const float cf1 = __double2float_rn(c1[r][c]);
-      const float cf2 = __double2float_rn(c2[r][c]);
+      const float cf1 = sm.ex[0][ty * 2 + r][tx + 16 * c];
+      const float cf2 = sm.ex[1][ty * 2 + r][tx + 16 * c];
       a[r][c] = add(v_a, add(v_b, add(v_c, add(cf1, add(cf2, add(v_d, v_e))))));
     }
   }
+  __syncthreads();
 }
 
 }  // namespace mf

@@ -253,6 +253,9 @@ extern "C" int mf_rowmin4(const int8_t* q123, const __nv_bfloat16* a1bf,
       NR < nrow + 2 || NC < ncol || NV < nvox) {
     return (int)cudaErrorInvalidValue;
   }
+  if (!mf::gram_hi_aligned(a1bf, rabf, rbbf, abbf)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   const int smem = (nrow * TM + ncol * TN + nvox) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       rowmin4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
