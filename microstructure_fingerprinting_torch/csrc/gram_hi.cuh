@@ -52,8 +52,8 @@ struct alignas(16) GramHiSmem {
       uint16_t sxa[kHiSK][kHiFA], sra[kHiSK][kHiFA];
       uint16_t srb[kHiSK][kHiFB], sab[kHiSK][kHiFB];
     } st;
-    // the rounded corrections c1, c2 of the tile, after the last chunk
-    float ex[2][kHiTM][kHiEX];
+    // the finished tile, after the last chunk
+    float ex[kHiTM][kHiEX];
   };
 };
 
@@ -64,6 +64,19 @@ __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
       "{%0, %1}, {%2}, {%3}, {%0, %1};"
       : "+d"(d[0]), "+d"(d[1])
       : "d"(a), "d"(b));
+}
+
+// D (16 x 8, int32) += A (16 x 32 int8, row-major) * B (32 x 8, column-major),
+// exact. Lane l = (g, kq) = (l / 4, l % 4); a register holds 4 consecutive k:
+// a[0], a[1] rows g, g + 8 at k = 4 kq.., a[2], a[3] the same rows at k + 16;
+// b[0], b[1] column g at k = 4 kq.. and k + 16; d[0], d[1] row g, columns
+// 2 kq, 2 kq + 1; d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
+                                       const int (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // the two bf16 values of a 4-byte word (lower address first), as doubles
@@ -80,12 +93,35 @@ __device__ __forceinline__ void stage8(uint16_t* dst,
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
-// The tile stages its bf16 planes 16 bytes at a time: the launchers refuse
-// planes that are not so aligned (rows are, T and N2B being multiples of 32).
-inline bool gram_hi_aligned(const void* a1bf, const void* rabf,
+// The int8 levels of 4 neighbouring points at 4 consecutive samples (rows
+// of src, `stride` bytes apart; zeros from sample n on): four 4-byte loads,
+// a 4 x 4 byte transpose, and one 16-byte store of the points' packed words
+// (4 samples per int32, lowest byte first).
+__device__ __forceinline__ void stage4x4(int* dst, const int8_t* src,
+                                         size_t stride, int n) {
+  uint32_t w[4];
+  #pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    w[u] = u < n ? __ldg(reinterpret_cast<const uint32_t*>(src + u * stride))
+                 : 0u;
+  }
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                 __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632));
+}
+
+// The tile stages its operands 4 and 16 bytes at a time: the launchers
+// refuse packs that are not 16-byte aligned (their rows then are, T and N2B
+// being multiples of 32).
+inline bool gram_hi_aligned(const void* q123, const void* a1bf,
+                            const void* rabf, const void* qb3,
                             const void* rbbf, const void* abbf) {
-  return (((uintptr_t)a1bf | (uintptr_t)rabf | (uintptr_t)rbbf |
-           (uintptr_t)abbf) & 15) == 0;
+  return (((uintptr_t)q123 | (uintptr_t)a1bf | (uintptr_t)rabf |
+           (uintptr_t)qb3 | (uintptr_t)rbbf | (uintptr_t)abbf) & 15) == 0;
 }
 
 // a[r][c]: the rounded Gram entry of the thread's point (row0 + ty*2 + r,
@@ -111,25 +147,26 @@ __device__ __forceinline__ void gram_hi_tile(
   const int ra0 = (warp / 4) * 16 + 2 * g, cb0 = (warp % 4) * 16 + 2 * g;
 
   int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
-      t33[2][4] = {};
+      t33[2][4] = {};                             // [nt][2 mt + e]
   double c1[2][2][2] = {}, c2[2][2][2] = {};      // [mt][nt][e]
 
   const size_t abase = ((size_t)b * nt + ta) * S;
   const size_t bbase = ((size_t)b * NB + cb) * S;
   for (int s0 = 0; s0 < S; s0 += SK) {
     __syncthreads();
-    for (int k = tid; k < 3 * G * TM; k += kHiThreads) {
-      const int l = k / (G * TM), gq = (k / TM) % G, i = k % TM;
-      const int s = s0 + 4 * gq;
-      sm.st.sqa[l][gq][i] = pack4(
-          q123 + (abase + s) * 3 * T + l * T + ia + i, (size_t)3 * T, S - s);
+    for (int k = tid; k < 3 * G * (TM / 4); k += kHiThreads) {
+      const int l = k / (G * (TM / 4)), gq = (k / (TM / 4)) % G;
+      const int i = 4 * (k % (TM / 4)), s = s0 + 4 * gq;
+      stage4x4(&sm.st.sqa[l][gq][i],
+               q123 + (abase + s) * 3 * T + l * T + ia + i, (size_t)3 * T,
+               S - s);
     }
-    for (int k = tid; k < 3 * G * TN; k += kHiThreads) {
-      const int l = k / (G * TN), gq = (k / TN) % G, j = k % TN;
-      const int s = s0 + 4 * gq;
-      sm.st.sqb[l][gq][j] = pack4(
-          qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j, (size_t)3 * N2B,
-          S - s);
+    for (int k = tid; k < 3 * G * (TN / 4); k += kHiThreads) {
+      const int l = k / (G * (TN / 4)), gq = (k / (TN / 4)) % G;
+      const int j = 4 * (k % (TN / 4)), s = s0 + 4 * gq;
+      stage4x4(&sm.st.sqb[l][gq][j],
+               qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
+               (size_t)3 * N2B, S - s);
     }
     for (int k = tid; k < SK * (TM / 8); k += kHiThreads) {
       const int sl = k / (TM / 8), i = 8 * (k % (TM / 8)), s = s0 + sl;
@@ -144,40 +181,47 @@ __device__ __forceinline__ void gram_hi_tile(
       stage8(&sm.st.sab[sl][j], abbf + off, s < S);
     }
     __syncthreads();
-    // groups of 4 samples that hold any sample below S (block-uniform)
+
+    // the nine level products of the chunk's 32 samples (zeros beyond S),
+    // exact in int32, grouped by scale as the TPU kernel's int32 sums:
+    // mma operands straight from the staged words, a register = the 4
+    // samples of group kq (kq + 4 for the upper half of k) of one point
+    {
+      int qa[3][4], qb[3][2][2];
+      #pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        const int2 a_lo = *reinterpret_cast<const int2*>(&sm.st.sqa[l][kq][ra0]);
+        const int2 a_hi =
+            *reinterpret_cast<const int2*>(&sm.st.sqa[l][kq + 4][ra0]);
+        qa[l][0] = a_lo.x, qa[l][1] = a_lo.y, qa[l][2] = a_hi.x,
+        qa[l][3] = a_hi.y;
+        const int2 b_lo = *reinterpret_cast<const int2*>(&sm.st.sqb[l][kq][cb0]);
+        const int2 b_hi =
+            *reinterpret_cast<const int2*>(&sm.st.sqb[l][kq + 4][cb0]);
+        qb[l][0][0] = b_lo.x, qb[l][0][1] = b_hi.x;
+        qb[l][1][0] = b_lo.y, qb[l][1][1] = b_hi.y;
+      }
+      #pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mma_s8(t11[n], qa[0], qb[0][n]);
+        mma_s8(t12[n], qa[0], qb[1][n]);
+        mma_s8(t12[n], qa[1], qb[0][n]);
+        mma_s8(t22[n], qa[1], qb[1][n]);
+        mma_s8(t22[n], qa[0], qb[2][n]);
+        mma_s8(t22[n], qa[2], qb[0][n]);
+        mma_s8(t23[n], qa[1], qb[2][n]);
+        mma_s8(t23[n], qa[2], qb[1][n]);
+        mma_s8(t33[n], qa[2], qb[2][n]);
+      }
+    }
+
+    // the two corrections, 4 samples an mma: bf16 x bf16 products are
+    // exact in double, the mma accumulates them in float64. Groups of 4
+    // samples wholly beyond S are skipped (block-uniform).
     const int ng = min(G, (S - s0 + 3) / 4);
     #pragma unroll
     for (int gq = 0; gq < G; ++gq) {
       if (gq >= ng) break;
-      int qa[2][3], qb[4][3];
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        #pragma unroll
-        for (int l = 0; l < 3; ++l) qa[r][l] = sm.st.sqa[l][gq][ty * 2 + r];
-      }
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        #pragma unroll
-        for (int l = 0; l < 3; ++l) qb[c][l] = sm.st.sqb[l][gq][tx + 16 * c];
-      }
-      // the nine level products, 4 samples per __dp4a (exact in int32),
-      // grouped by scale as the TPU kernel's int32 sums
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int* x = qa[r];
-          const int* q = qb[c];
-          t11[r][c] = __dp4a(x[0], q[0], t11[r][c]);
-          t12[r][c] = __dp4a(x[1], q[0], __dp4a(x[0], q[1], t12[r][c]));
-          t22[r][c] = __dp4a(x[2], q[0], __dp4a(x[0], q[2],
-                              __dp4a(x[1], q[1], t22[r][c])));
-          t23[r][c] = __dp4a(x[2], q[1], __dp4a(x[1], q[2], t23[r][c]));
-          t33[r][c] = __dp4a(x[2], q[2], t33[r][c]);
-        }
-      }
-      // the two corrections of the same 4 samples: bf16 x bf16 products
-      // are exact in double, the mma accumulates them in float64
       const int sl = 4 * gq + kq;
       double xa[2], ra[2], rb[2], ab[2];
       widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sxa[sl][ra0]), xa);
@@ -196,34 +240,32 @@ __device__ __forceinline__ void gram_hi_tile(
   }
   __syncthreads();
 
-  // the corrections, rounded once, from the mma layout to their owners
+  // each entry finished in the mma layout (the fixed float32 sum), then
+  // handed to its owner in the callers' layout through shared memory
   #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     #pragma unroll
     for (int n = 0; n < 2; ++n) {
       #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = (warp % 4) * 16 + 2 * (2 * kq + e) + n;
-        sm.ex[0][ra0 + mt][col] = __double2float_rn(c1[mt][n][e]);
-        sm.ex[1][ra0 + mt][col] = __double2float_rn(c2[mt][n][e]);
+        const int i = 2 * mt + e;
+        const float v_a = mul((float)t11[n][i], 6.103515625e-05f);
+        const float v_b = mul((float)t12[n][i], 2.384185791015625e-07f);
+        const float v_c = mul((float)t22[n][i], 9.313225746154785e-10f);
+        const float v_d = mul((float)t23[n][i], 3.637978807091713e-12f);
+        const float v_e = mul((float)t33[n][i], 1.4210854715202004e-14f);
+        const float cf1 = __double2float_rn(c1[mt][n][e]);
+        const float cf2 = __double2float_rn(c2[mt][n][e]);
+        sm.ex[ra0 + mt][(warp % 4) * 16 + 2 * (2 * kq + e) + n] =
+            add(v_a, add(v_b, add(v_c, add(cf1, add(cf2, add(v_d, v_e))))));
       }
     }
   }
   __syncthreads();
-
   #pragma unroll
   for (int r = 0; r < 2; ++r) {
     #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float v_a = mul((float)t11[r][c], 6.103515625e-05f);
-      const float v_b = mul((float)t12[r][c], 2.384185791015625e-07f);
-      const float v_c = mul((float)t22[r][c], 9.313225746154785e-10f);
-      const float v_d = mul((float)t23[r][c], 3.637978807091713e-12f);
-      const float v_e = mul((float)t33[r][c], 1.4210854715202004e-14f);
-      const float cf1 = sm.ex[0][ty * 2 + r][tx + 16 * c];
-      const float cf2 = sm.ex[1][ty * 2 + r][tx + 16 * c];
-      a[r][c] = add(v_a, add(v_b, add(v_c, add(cf1, add(cf2, add(v_d, v_e))))));
-    }
+    for (int c = 0; c < 4; ++c) a[r][c] = sm.ex[ty * 2 + r][tx + 16 * c];
   }
   __syncthreads();
 }

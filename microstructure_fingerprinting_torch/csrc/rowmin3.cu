@@ -167,7 +167,7 @@ extern "C" int mf_rowmin3(const int8_t* q123, const __nv_bfloat16* a1bf,
                           int N1p, int T, int NB, int N2B, int n1, int n2,
                           cudaStream_t stream) {
   if (T % TM || N2B % TN || N1p % T) return (int)cudaErrorInvalidValue;
-  if (!mf::gram_hi_aligned(a1bf, rabf, rbbf, abbf)) {
+  if (!mf::gram_hi_aligned(q123, a1bf, rabf, qb3, rbbf, abbf)) {
     return (int)cudaErrorMisalignedAddress;
   }
   dim3 grid(NB * N2B / TN, N1p / TM, B);

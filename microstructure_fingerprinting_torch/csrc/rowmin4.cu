@@ -253,7 +253,7 @@ extern "C" int mf_rowmin4(const int8_t* q123, const __nv_bfloat16* a1bf,
       NR < nrow + 2 || NC < ncol || NV < nvox) {
     return (int)cudaErrorInvalidValue;
   }
-  if (!mf::gram_hi_aligned(a1bf, rabf, rbbf, abbf)) {
+  if (!mf::gram_hi_aligned(q123, a1bf, rabf, qb3, rbbf, abbf)) {
     return (int)cudaErrorMisalignedAddress;
   }
   const int smem = (nrow * TM + ncol * TN + nvox) * (int)sizeof(float);
