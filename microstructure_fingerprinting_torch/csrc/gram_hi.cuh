@@ -37,40 +37,49 @@ namespace mf {
 
 constexpr int kHiTM = 32, kHiTN = 64, kHiSK = 32, kHiThreads = 256;
 // padded rows of the staged planes: int8 groups (words) and bf16 samples
-// (elements), and of the float tiles handed to the callers' ownership
+// (elements), and of the float tile handed to the callers' ownership
 constexpr int kHiQA = kHiTM + 8, kHiQB = kHiTN + 8;
 constexpr int kHiFA = kHiTM + 16, kHiFB = kHiTN + 16;
 constexpr int kHiEX = kHiTN + 8;
 
+// One 32-sample chunk of the operands, two buffers each: the bf16 planes of
+// the correction pass, then (over them) the packed levels of the level pass,
+// then the finished tile.
 struct alignas(16) GramHiSmem {
   union {
+    // bf16 bit patterns of the correction planes, [sample][point]
     struct {
-      // int8 levels packed 4 sequence samples per int32 (the __dp4a operand)
-      int sqa[3][kHiSK / 4][kHiQA];
-      int sqb[3][kHiSK / 4][kHiQB];
-      // bf16 bit patterns of the correction planes, [sample][point]
       uint16_t sxa[kHiSK][kHiFA], sra[kHiSK][kHiFA];
       uint16_t srb[kHiSK][kHiFB], sab[kHiSK][kHiFB];
-    } st;
-    // the finished tile, after the last chunk
+    } f[2];
+    // int8 levels packed 4 sequence samples per int32 (the mma operand),
+    // [level][group of 4 samples][point]
+    struct {
+      int sqa[3][kHiSK / 4][kHiQA];
+      int sqb[3][kHiSK / 4][kHiQB];
+    } q[2];
     float ex[kHiTM][kHiEX];
   };
 };
 
-// D (8 x 8) += A (8 x 4, row-major) * B (4 x 8, column-major) in float64.
-// Lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and D[l / 4][2 (l % 4) + e].
-__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+// D (16 x 8) += A (16 x 8, row-major) * B (8 x 8, column-major) in float64.
+// Lane l = (g, kq) = (l / 4, l % 4) holds A[g][kq], A[g + 8][kq],
+// A[g][kq + 4], A[g + 8][kq + 4]; B[kq][g], B[kq + 4][g]; and D rows g (d0)
+// and g + 8 (d1) at columns 2 kq, 2 kq + 1.
+__device__ __forceinline__ void mma_f64(double (&d0)[2], double (&d1)[2],
+                                        double a0, double a1, double a2,
+                                        double a3, double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d0[0]), "+d"(d0[1]), "+d"(d1[0]), "+d"(d1[1])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
 
 // D (16 x 8, int32) += A (16 x 32 int8, row-major) * B (32 x 8, column-major),
-// exact. Lane l = (g, kq) = (l / 4, l % 4); a register holds 4 consecutive k:
-// a[0], a[1] rows g, g + 8 at k = 4 kq.., a[2], a[3] the same rows at k + 16;
-// b[0], b[1] column g at k = 4 kq.. and k + 16; d[0], d[1] row g, columns
-// 2 kq, 2 kq + 1; d[2], d[3] row g + 8.
+// exact. A register holds 4 consecutive k: a[0], a[1] rows g, g + 8 at
+// k = 4 kq.., a[2], a[3] the same rows at k + 16; b[0], b[1] column g at
+// k = 4 kq.. and k + 16; d[0], d[1] row g, columns 2 kq, 2 kq + 1; d[2],
+// d[3] row g + 8.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
                                        const int (&b)[2]) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -84,27 +93,41 @@ __device__ __forceinline__ void widen2(uint32_t p, double (&v)[2]) {
   v[0] = (double)__uint_as_float(p << 16);
   v[1] = (double)__uint_as_float(p & 0xffff0000u);
 }
+__device__ __forceinline__ void widen2(const uint16_t* p, double (&v)[2]) {
+  widen2(*reinterpret_cast<const uint32_t*>(p), v);
+}
 
-// 8 bf16 values of sample row s (zeros at s >= S) -> a staged plane row
-__device__ __forceinline__ void stage8(uint16_t* dst,
-                                       const __nv_bfloat16* src, bool in) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (in) v = __ldg(reinterpret_cast<const uint4*>(src));
-  *reinterpret_cast<uint4*>(dst) = v;
+// 16 bytes from device to shared memory without passing registers
+// (zeros if !in); completes at the next cp_async_wait that covers its group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = in ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 // The int8 levels of 4 neighbouring points at 4 consecutive samples (rows
-// of src, `stride` bytes apart; zeros from sample n on): four 4-byte loads,
-// a 4 x 4 byte transpose, and one 16-byte store of the points' packed words
-// (4 samples per int32, lowest byte first).
-__device__ __forceinline__ void stage4x4(int* dst, const int8_t* src,
-                                         size_t stride, int n) {
-  uint32_t w[4];
+// of src, `stride` bytes apart; zeros from sample n on), as loaded ...
+__device__ __forceinline__ void load4x4(uint32_t (&w)[4], const int8_t* src,
+                                        size_t stride, int n) {
   #pragma unroll
   for (int u = 0; u < 4; ++u) {
     w[u] = u < n ? __ldg(reinterpret_cast<const uint32_t*>(src + u * stride))
                  : 0u;
   }
+}
+// ... and transposed byte-wise into the points' packed words (4 samples per
+// int32, lowest byte first), one 16-byte store
+__device__ __forceinline__ void store4x4(int* dst, const uint32_t (&w)[4]) {
   const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
   const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
   const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
@@ -127,8 +150,7 @@ inline bool gram_hi_aligned(const void* q123, const void* a1bf,
 // a[r][c]: the rounded Gram entry of the thread's point (row0 + ty*2 + r,
 // col0 + tx + 16c) of voxel b. Operands are kernel 1's packs: q123/a1bf/rabf
 // (B, nt, S, 3T | T) of the row block, qb3/rbbf/abbf (B, NB, S, 3N2B | N2B)
-// of the column block; the bf16 planes must be 16-byte aligned. Begins and
-// ends with a block barrier.
+// of the column block, 16-byte aligned. Begins and ends with a block barrier.
 __device__ __forceinline__ void gram_hi_tile(
     const int8_t* __restrict__ q123, const __nv_bfloat16* __restrict__ a1bf,
     const __nv_bfloat16* __restrict__ rabf, const int8_t* __restrict__ qb3,
@@ -140,64 +162,157 @@ __device__ __forceinline__ void gram_hi_tile(
   const int ta = row0 / T, ia = row0 % T;         // row tile of the packs
   const int cb = col0 / N2B, jb = col0 % N2B;     // column block
   // the warp's 16 x 16 points; lane (g, kq) loads rows ra0 + mt and
-  // columns cb0 + nt of sample 4 ks + kq, and holds the mma results at
-  // rows ra0 + mt, columns wc * 16 + 2 (2 kq + e) + nt
+  // columns cb0 + n, and holds the mma results at rows ra0 + mt, columns
+  // wc * 16 + 2 (2 kq + e) + n
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, kq = lane % 4;
   const int ra0 = (warp / 4) * 16 + 2 * g, cb0 = (warp % 4) * 16 + 2 * g;
-
-  int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
-      t33[2][4] = {};                             // [nt][2 mt + e]
-  double c1[2][2][2] = {}, c2[2][2][2] = {};      // [mt][nt][e]
-
   const size_t abase = ((size_t)b * nt + ta) * S;
   const size_t bbase = ((size_t)b * NB + cb) * S;
-  for (int s0 = 0; s0 < S; s0 += SK) {
-    __syncthreads();
-    for (int k = tid; k < 3 * G * (TM / 4); k += kHiThreads) {
-      const int l = k / (G * (TM / 4)), gq = (k / (TM / 4)) % G;
-      const int i = 4 * (k % (TM / 4)), s = s0 + 4 * gq;
-      stage4x4(&sm.st.sqa[l][gq][i],
-               q123 + (abase + s) * 3 * T + l * T + ia + i, (size_t)3 * T,
-               S - s);
-    }
-    for (int k = tid; k < 3 * G * (TN / 4); k += kHiThreads) {
-      const int l = k / (G * (TN / 4)), gq = (k / (TN / 4)) % G;
-      const int j = 4 * (k % (TN / 4)), s = s0 + 4 * gq;
-      stage4x4(&sm.st.sqb[l][gq][j],
-               qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
-               (size_t)3 * N2B, S - s);
-    }
-    for (int k = tid; k < SK * (TM / 8); k += kHiThreads) {
-      const int sl = k / (TM / 8), i = 8 * (k % (TM / 8)), s = s0 + sl;
-      const size_t off = (abase + s) * T + ia + i;
-      stage8(&sm.st.sxa[sl][i], a1bf + off, s < S);
-      stage8(&sm.st.sra[sl][i], rabf + off, s < S);
-    }
-    for (int k = tid; k < SK * (TN / 8); k += kHiThreads) {
-      const int sl = k / (TN / 8), j = 8 * (k % (TN / 8)), s = s0 + sl;
-      const size_t off = (bbase + s) * N2B + jb + j;
-      stage8(&sm.st.srb[sl][j], rbbf + off, s < S);
-      stage8(&sm.st.sab[sl][j], abbf + off, s < S);
-    }
-    __syncthreads();
+  const int n_chunk = (S + SK - 1) / SK;
 
-    // the nine level products of the chunk's 32 samples (zeros beyond S),
-    // exact in int32, grouped by scale as the TPU kernel's int32 sums:
-    // mma operands straight from the staged words, a register = the 4
-    // samples of group kq (kq + 4 for the upper half of k) of one point
-    {
+  // ---- pass 1: the two corrections -----------------------------------
+  // bf16 x bf16 products are exact in double and the mma accumulates them
+  // in float64; rounded once at the end. Chunk i + 1 is copied while chunk
+  // i is multiplied.
+  float cf1[2][2][2], cf2[2][2][2];               // [mt][n][e]
+  {
+    auto issue = [&](int chunk) {
+      auto& f = sm.f[chunk % 2];
+      const int s0 = chunk * SK;
+      for (int k = tid; k < SK * (TM / 8); k += kHiThreads) {
+        const int sl = k / (TM / 8), i = 8 * (k % (TM / 8));
+        const bool in = s0 + sl < S;
+        const size_t off = in ? (abase + s0 + sl) * T + ia + i : 0;
+        cp_async16(&f.sxa[sl][i], a1bf + off, in);
+        cp_async16(&f.sra[sl][i], rabf + off, in);
+      }
+      for (int k = tid; k < SK * (TN / 8); k += kHiThreads) {
+        const int sl = k / (TN / 8), j = 8 * (k % (TN / 8));
+        const bool in = s0 + sl < S;
+        const size_t off = in ? (bbase + s0 + sl) * N2B + jb + j : 0;
+        cp_async16(&f.srb[sl][j], rbbf + off, in);
+        cp_async16(&f.sab[sl][j], abbf + off, in);
+      }
+      cp_async_commit();
+    };
+    double c1[2][2][2] = {}, c2[2][2][2] = {};
+    __syncthreads();
+    issue(0);
+    for (int chunk = 0; chunk < n_chunk; ++chunk) {
+      if (chunk + 1 < n_chunk) {
+        issue(chunk + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const auto& f = sm.f[chunk % 2];
+      // groups of 4 samples that hold a sample below S (block-uniform);
+      // an mma takes two, the planes hold zeros beyond S
+      const int ng = min(G, (S - chunk * SK + 3) / 4);
+      #pragma unroll
+      for (int gq = 0; gq < G; gq += 2) {
+        if (gq >= ng) break;
+        const int sl = 4 * gq + kq;
+        double xa[2][2], ra[2][2], rb[2][2], ab[2][2];   // [k half][mt | n]
+        #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          widen2(&f.sxa[sl + 4 * h][ra0], xa[h]);
+          widen2(&f.sra[sl + 4 * h][ra0], ra[h]);
+          widen2(&f.srb[sl + 4 * h][cb0], rb[h]);
+          widen2(&f.sab[sl + 4 * h][cb0], ab[h]);
+        }
+        #pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma_f64(c1[0][n], c1[1][n], xa[0][0], xa[0][1], xa[1][0], xa[1][1],
+                  rb[0][n], rb[1][n]);
+          mma_f64(c2[0][n], c2[1][n], ra[0][0], ra[0][1], ra[1][0], ra[1][1],
+                  ab[0][n], ab[1][n]);
+        }
+      }
+      __syncthreads();
+    }
+    #pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      #pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          cf1[mt][n][e] = __double2float_rn(c1[mt][n][e]);
+          cf2[mt][n][e] = __double2float_rn(c2[mt][n][e]);
+        }
+      }
+    }
+  }
+
+  // ---- pass 2: the nine level products ---------------------------------
+  // exact in int32, grouped by scale as the TPU kernel's int32 sums. A
+  // chunk is 576 loads of 4 points x 4 samples (192 of the row block, then
+  // 384 of the column block), up to 3 a thread, held in registers while the
+  // chunk before is multiplied.
+  int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
+      t33[2][4] = {};                             // [n][2 mt + e]
+  {
+    constexpr int KA = 3 * G * (TM / 4), KB = 3 * G * (TN / 4);
+    constexpr int NT = (KA + KB + kHiThreads - 1) / kHiThreads;
+    uint32_t w[NT][4];
+    auto load = [&](int chunk) {
+      const int s0 = chunk * SK;
+      #pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int k = tid + t * kHiThreads;
+        if (k < KA) {
+          const int l = k / (G * (TM / 4)), gq = (k / (TM / 4)) % G;
+          const int i = 4 * (k % (TM / 4)), s = s0 + 4 * gq;
+          load4x4(w[t], q123 + (abase + s) * 3 * T + l * T + ia + i,
+                  (size_t)3 * T, S - s);
+        } else if (k < KA + KB) {
+          const int kk = k - KA;
+          const int l = kk / (G * (TN / 4)), gq = (kk / (TN / 4)) % G;
+          const int j = 4 * (kk % (TN / 4)), s = s0 + 4 * gq;
+          load4x4(w[t], qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
+                  (size_t)3 * N2B, S - s);
+        }
+      }
+    };
+    auto store = [&](int chunk) {
+      auto& q = sm.q[chunk % 2];
+      #pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int k = tid + t * kHiThreads;
+        if (k < KA) {
+          store4x4(&q.sqa[0][0][0] + (k / (TM / 4)) * kHiQA + 4 * (k % (TM / 4)),
+                   w[t]);
+        } else if (k < KA + KB) {
+          const int kk = k - KA;
+          store4x4(&q.sqb[0][0][0] + (kk / (TN / 4)) * kHiQB +
+                       4 * (kk % (TN / 4)),
+                   w[t]);
+        }
+      }
+    };
+    load(0);
+    for (int chunk = 0; chunk < n_chunk; ++chunk) {
+      // buffer chunk % 2 was last read two chunks ago, before the barrier
+      // of the chunk between
+      store(chunk);
+      if (chunk + 1 < n_chunk) load(chunk + 1);
+      __syncthreads();
+      const auto& q = sm.q[chunk % 2];
+      // mma operands straight from the staged words: a register = the 4
+      // samples of group kq (kq + 4 for the upper half of k) of one point
       int qa[3][4], qb[3][2][2];
       #pragma unroll
       for (int l = 0; l < 3; ++l) {
-        const int2 a_lo = *reinterpret_cast<const int2*>(&sm.st.sqa[l][kq][ra0]);
+        const int2 a_lo = *reinterpret_cast<const int2*>(&q.sqa[l][kq][ra0]);
         const int2 a_hi =
-            *reinterpret_cast<const int2*>(&sm.st.sqa[l][kq + 4][ra0]);
-        qa[l][0] = a_lo.x, qa[l][1] = a_lo.y, qa[l][2] = a_hi.x,
-        qa[l][3] = a_hi.y;
-        const int2 b_lo = *reinterpret_cast<const int2*>(&sm.st.sqb[l][kq][cb0]);
+            *reinterpret_cast<const int2*>(&q.sqa[l][kq + 4][ra0]);
+        qa[l][0] = a_lo.x, qa[l][1] = a_lo.y;
+        qa[l][2] = a_hi.x, qa[l][3] = a_hi.y;
+        const int2 b_lo = *reinterpret_cast<const int2*>(&q.sqb[l][kq][cb0]);
         const int2 b_hi =
-            *reinterpret_cast<const int2*>(&sm.st.sqb[l][kq + 4][cb0]);
+            *reinterpret_cast<const int2*>(&q.sqb[l][kq + 4][cb0]);
         qb[l][0][0] = b_lo.x, qb[l][0][1] = b_hi.x;
         qb[l][1][0] = b_lo.y, qb[l][1][1] = b_hi.y;
       }
@@ -212,29 +327,6 @@ __device__ __forceinline__ void gram_hi_tile(
         mma_s8(t23[n], qa[1], qb[2][n]);
         mma_s8(t23[n], qa[2], qb[1][n]);
         mma_s8(t33[n], qa[2], qb[2][n]);
-      }
-    }
-
-    // the two corrections, 4 samples an mma: bf16 x bf16 products are
-    // exact in double, the mma accumulates them in float64. Groups of 4
-    // samples wholly beyond S are skipped (block-uniform).
-    const int ng = min(G, (S - s0 + 3) / 4);
-    #pragma unroll
-    for (int gq = 0; gq < G; ++gq) {
-      if (gq >= ng) break;
-      const int sl = 4 * gq + kq;
-      double xa[2], ra[2], rb[2], ab[2];
-      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sxa[sl][ra0]), xa);
-      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sra[sl][ra0]), ra);
-      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.srb[sl][cb0]), rb);
-      widen2(*reinterpret_cast<const uint32_t*>(&sm.st.sab[sl][cb0]), ab);
-      #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          mma_f64(c1[mt][n], xa[mt], rb[n]);
-          mma_f64(c2[mt][n], ra[mt], ab[n]);
-        }
       }
     }
   }
@@ -254,10 +346,10 @@ __device__ __forceinline__ void gram_hi_tile(
         const float v_c = mul((float)t22[n][i], 9.313225746154785e-10f);
         const float v_d = mul((float)t23[n][i], 3.637978807091713e-12f);
         const float v_e = mul((float)t33[n][i], 1.4210854715202004e-14f);
-        const float cf1 = __double2float_rn(c1[mt][n][e]);
-        const float cf2 = __double2float_rn(c2[mt][n][e]);
         sm.ex[ra0 + mt][(warp % 4) * 16 + 2 * (2 * kq + e) + n] =
-            add(v_a, add(v_b, add(v_c, add(cf1, add(cf2, add(v_d, v_e))))));
+            add(v_a, add(v_b, add(v_c, add(cf1[mt][n][e],
+                                           add(cf2[mt][n][e],
+                                               add(v_d, v_e))))));
       }
     }
   }
