@@ -9,23 +9,39 @@
 // v_a + (v_b + (v_c + (c1 + (c2 + (v_d + v_e))))), the order KERR and KERR4
 // were calibrated on.
 //
-// What bounds it on an H100: the two float64 correction products per sample
-// and point (1.04 TFLOP per 512-voxel chunk at 782 x 782, S = 552); on CUDA
-// cores, fed by 8-byte shared-memory loads, they took most of the tile's
-// time. The design: the corrections run on the float64 tensor cores
-// (mma.sync m8n8k4). The 8 warps tile the block 2 x 4, a warp owns 16 x 16
-// points as 2 x 2 mma tiles per correction. 32-sequence chunks of the
-// operands are staged in shared memory: the bf16 planes as they lie in
-// device memory (2 bytes an element, copied 16 bytes at a time, zeros beyond
-// S), widened at the fragment load (bf16 -> float is a shift, float ->
-// double is exact). A lane's two rows (columns) of a plane are neighbours,
-// rows 2g + mt of the warp's 16, so one 4-byte load feeds both mma tiles;
-// the plane rows are padded (+16 elements) so that the four samples of a
-// fragment load fall on distinct banks. The level products still run on
-// CUDA cores (__dp4a, 4 samples each) in the callers' ownership (thread
-// (ty, tx) = (tid / 16, tid % 16) owns the 2 x 4 points at rows ty * 2 + r
-// and columns tx + 16 c); the rounded corrections reach those owners through
-// shared memory (two 32 x 64 float tiles over the staging planes).
+// What bounds it on an H100: operations, and first the two float64
+// correction products per sample and point (1.04 TFLOP per 512-voxel chunk
+// at 782 x 782, S = 552: 15.5 ms at the float64 tensor rate), then the nine
+// int8 products (4.7 POP, 2.4 ms at the int8 tensor rate). On CUDA cores
+// (float64 multiply-adds fed by 8-byte shared-memory loads, 4-byte integer
+// dot products) the tile took ~200 ms of kernel 2's 203 ms a chunk. The
+// design puts both on the tensor cores with mma.sync, in two
+// passes over the samples so that neither pass holds the other's
+// accumulators (a thread has 32 + 40 accumulator registers in all):
+//
+//   pass 1, corrections: mma m16n8k8 in float64. The 8 warps tile the block
+//     2 x 4, a warp owns 16 x 16 points: 2 mma per correction and 8
+//     samples. 32-sample chunks of the four bf16 planes are copied as they
+//     lie in device memory (cp.async, 16 bytes each, zeros beyond S) into
+//     two buffers, chunk i + 1 in flight while chunk i is multiplied; a
+//     value is widened at the fragment load (bf16 -> float is a shift,
+//     float -> double is exact). A lane's two rows (columns) are
+//     neighbours, rows 2g + mt of the warp's 16, so one 4-byte load feeds
+//     both halves of the mma's m; plane rows are padded by 16 elements so
+//     that the four samples of a fragment load fall on distinct banks.
+//   pass 2, levels: mma m16n8k32 in int8, 18 per warp and chunk, chained on
+//     five accumulator sets as the int32 sums are grouped. The levels are
+//     copied as they lie (cp.async, 8 bytes each: rows padded by 8 bytes are
+//     conflict-free but only 8-byte aligned) into three buffers, two chunks
+//     in flight, one barrier a chunk. An mma register needs 4 samples of
+//     one point where memory has 4 points of one sample: each lane loads
+//     the 4 words of its two points and transposes them with 4 byte
+//     permutes.
+//
+// Each thread finishes its 8 entries in the mma layout (scaling, the fixed
+// float32 sum on CUDA cores) and the tile passes through shared memory to
+// the callers' ownership: thread (ty, tx) = (tid / 16, tid % 16) owns the
+// 2 x 4 points at rows ty * 2 + r and columns tx + 16 c.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,15 +52,15 @@
 namespace mf {
 
 constexpr int kHiTM = 32, kHiTN = 64, kHiSK = 32, kHiThreads = 256;
-// padded rows of the staged planes: int8 groups (words) and bf16 samples
+// padded rows of the staged planes: int8 levels (bytes), bf16 samples
 // (elements), and of the float tile handed to the callers' ownership
 constexpr int kHiQA = kHiTM + 8, kHiQB = kHiTN + 8;
 constexpr int kHiFA = kHiTM + 16, kHiFB = kHiTN + 16;
 constexpr int kHiEX = kHiTN + 8;
 
-// One 32-sample chunk of the operands, two buffers each: the bf16 planes of
-// the correction pass, then (over them) the packed levels of the level pass,
-// then the finished tile.
+// 32-sample chunks of the operands as they lie in device memory: two
+// buffers of the bf16 planes for the correction pass, then (over them) three
+// of the int8 levels for the level pass, then the finished tile.
 struct alignas(16) GramHiSmem {
   union {
     // bf16 bit patterns of the correction planes, [sample][point]
@@ -52,12 +68,11 @@ struct alignas(16) GramHiSmem {
       uint16_t sxa[kHiSK][kHiFA], sra[kHiSK][kHiFA];
       uint16_t srb[kHiSK][kHiFB], sab[kHiSK][kHiFB];
     } f[2];
-    // int8 levels packed 4 sequence samples per int32 (the mma operand),
-    // [level][group of 4 samples][point]
+    // int8 levels, [level][sample][point]
     struct {
-      int sqa[3][kHiSK / 4][kHiQA];
-      int sqb[3][kHiSK / 4][kHiQB];
-    } q[2];
+      int8_t sqa[3][kHiSK][kHiQA];
+      int8_t sqb[3][kHiSK][kHiQB];
+    } q[3];
     float ex[kHiTM][kHiEX];
   };
 };
@@ -97,14 +112,19 @@ __device__ __forceinline__ void widen2(const uint16_t* p, double (&v)[2]) {
   widen2(*reinterpret_cast<const uint32_t*>(p), v);
 }
 
-// 16 bytes from device to shared memory without passing registers
-// (zeros if !in); completes at the next cp_async_wait that covers its group
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
+// N = 8 or 16 bytes from device to shared memory without passing registers
+// (zeros if !in); complete after the cp_async_wait that covers their group
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = in ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(n) : "memory");
+  const int n = in ? N : 0;
+  if constexpr (N == 16) {      // past L1: every byte is read once a block
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(d), "l"(src), "n"(N), "r"(n) : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -115,29 +135,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
-// The int8 levels of 4 neighbouring points at 4 consecutive samples (rows
-// of src, `stride` bytes apart; zeros from sample n on), as loaded ...
-__device__ __forceinline__ void load4x4(uint32_t (&w)[4], const int8_t* src,
-                                        size_t stride, int n) {
+// mma operands of two neighbouring points from the staged levels: p points
+// at the 4-byte word that holds both (bytes at, at + 1 of it; sel = 0x5140
+// for at = 0, 0x7362 for at = 2) at the first of 4 consecutive samples,
+// `row` bytes apart. lo, hi: the 4 samples of the first and of the second
+// point, lowest sample in the lowest byte.
+__device__ __forceinline__ void pack2x4(const int8_t* p, int row,
+                                        uint32_t sel, int& lo, int& hi) {
+  uint32_t w[4];
   #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    w[u] = u < n ? __ldg(reinterpret_cast<const uint32_t*>(src + u * stride))
-                 : 0u;
+    w[u] = *reinterpret_cast<const uint32_t*>(p + u * row);
   }
-}
-// ... and transposed byte-wise into the points' packed words (4 samples per
-// int32, lowest byte first), one 16-byte store
-__device__ __forceinline__ void store4x4(int* dst, const uint32_t (&w)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                 __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632));
+  const uint32_t t0 = __byte_perm(w[0], w[1], sel);
+  const uint32_t t2 = __byte_perm(w[2], w[3], sel);
+  lo = (int)__byte_perm(t0, t2, 0x5410);
+  hi = (int)__byte_perm(t0, t2, 0x7632);
 }
 
-// The tile stages its operands 4 and 16 bytes at a time: the launchers
+// The tile copies its operands 8 and 16 bytes at a time: the launchers
 // refuse packs that are not 16-byte aligned (their rows then are, T and N2B
 // being multiples of 32).
 inline bool gram_hi_aligned(const void* q123, const void* a1bf,
@@ -184,15 +200,15 @@ __device__ __forceinline__ void gram_hi_tile(
         const int sl = k / (TM / 8), i = 8 * (k % (TM / 8));
         const bool in = s0 + sl < S;
         const size_t off = in ? (abase + s0 + sl) * T + ia + i : 0;
-        cp_async16(&f.sxa[sl][i], a1bf + off, in);
-        cp_async16(&f.sra[sl][i], rabf + off, in);
+        cp_async<16>(&f.sxa[sl][i], a1bf + off, in);
+        cp_async<16>(&f.sra[sl][i], rabf + off, in);
       }
       for (int k = tid; k < SK * (TN / 8); k += kHiThreads) {
         const int sl = k / (TN / 8), j = 8 * (k % (TN / 8));
         const bool in = s0 + sl < S;
         const size_t off = in ? (bbase + s0 + sl) * N2B + jb + j : 0;
-        cp_async16(&f.srb[sl][j], rbbf + off, in);
-        cp_async16(&f.sab[sl][j], abbf + off, in);
+        cp_async<16>(&f.srb[sl][j], rbbf + off, in);
+        cp_async<16>(&f.sab[sl][j], abbf + off, in);
       }
       cp_async_commit();
     };
@@ -247,74 +263,56 @@ __device__ __forceinline__ void gram_hi_tile(
   }
 
   // ---- pass 2: the nine level products ---------------------------------
-  // exact in int32, grouped by scale as the TPU kernel's int32 sums. A
-  // chunk is 576 loads of 4 points x 4 samples (192 of the row block, then
-  // 384 of the column block), up to 3 a thread, held in registers while the
-  // chunk before is multiplied.
+  // exact in int32, grouped by scale as the TPU kernel's int32 sums. Three
+  // buffers: chunks i + 1 and i + 2 are copied while chunk i is multiplied,
+  // one barrier a chunk. A group is committed every turn (an empty one past
+  // the last chunk), so "at most one in flight" always means chunk i is in.
   int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
       t33[2][4] = {};                             // [n][2 mt + e]
   {
-    constexpr int KA = 3 * G * (TM / 4), KB = 3 * G * (TN / 4);
-    constexpr int NT = (KA + KB + kHiThreads - 1) / kHiThreads;
-    uint32_t w[NT][4];
-    auto load = [&](int chunk) {
-      const int s0 = chunk * SK;
-      #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int k = tid + t * kHiThreads;
-        if (k < KA) {
-          const int l = k / (G * (TM / 4)), gq = (k / (TM / 4)) % G;
-          const int i = 4 * (k % (TM / 4)), s = s0 + 4 * gq;
-          load4x4(w[t], q123 + (abase + s) * 3 * T + l * T + ia + i,
-                  (size_t)3 * T, S - s);
-        } else if (k < KA + KB) {
-          const int kk = k - KA;
-          const int l = kk / (G * (TN / 4)), gq = (kk / (TN / 4)) % G;
-          const int j = 4 * (kk % (TN / 4)), s = s0 + 4 * gq;
-          load4x4(w[t], qb3 + (bbase + s) * 3 * N2B + l * N2B + jb + j,
-                  (size_t)3 * N2B, S - s);
+    auto issue = [&](int chunk) {
+      if (chunk < n_chunk) {
+        auto& q = sm.q[chunk % 3];
+        const int s0 = chunk * SK;
+        for (int k = tid; k < 3 * SK * (TM / 8); k += kHiThreads) {
+          const int l = k / (SK * (TM / 8)), sl = (k / (TM / 8)) % SK;
+          const int i = 8 * (k % (TM / 8));
+          const bool in = s0 + sl < S;
+          const size_t off =
+              in ? (abase + s0 + sl) * 3 * T + l * T + ia + i : 0;
+          cp_async<8>(&q.sqa[l][sl][i], q123 + off, in);
+        }
+        for (int k = tid; k < 3 * SK * (TN / 8); k += kHiThreads) {
+          const int l = k / (SK * (TN / 8)), sl = (k / (TN / 8)) % SK;
+          const int j = 8 * (k % (TN / 8));
+          const bool in = s0 + sl < S;
+          const size_t off =
+              in ? (bbase + s0 + sl) * 3 * N2B + l * N2B + jb + j : 0;
+          cp_async<8>(&q.sqb[l][sl][j], qb3 + off, in);
         }
       }
+      cp_async_commit();
     };
-    auto store = [&](int chunk) {
-      auto& q = sm.q[chunk % 2];
-      #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int k = tid + t * kHiThreads;
-        if (k < KA) {
-          store4x4(&q.sqa[0][0][0] + (k / (TM / 4)) * kHiQA + 4 * (k % (TM / 4)),
-                   w[t]);
-        } else if (k < KA + KB) {
-          const int kk = k - KA;
-          store4x4(&q.sqb[0][0][0] + (kk / (TN / 4)) * kHiQB +
-                       4 * (kk % (TN / 4)),
-                   w[t]);
-        }
-      }
-    };
-    load(0);
+    // the word of the lane's two rows (columns) and where they lie in it
+    const int wa = ra0 & ~3, wb = cb0 & ~3;
+    const uint32_t sel = (g & 1) ? 0x7362u : 0x5140u;
+    issue(0);
+    issue(1);
     for (int chunk = 0; chunk < n_chunk; ++chunk) {
-      // buffer chunk % 2 was last read two chunks ago, before the barrier
-      // of the chunk between
-      store(chunk);
-      if (chunk + 1 < n_chunk) load(chunk + 1);
+      cp_async_wait<1>();
       __syncthreads();
-      const auto& q = sm.q[chunk % 2];
-      // mma operands straight from the staged words: a register = the 4
-      // samples of group kq (kq + 4 for the upper half of k) of one point
+      issue(chunk + 2);       // over chunk - 1, which every warp has left
+      const auto& q = sm.q[chunk % 3];
+      // a register = the 4 samples of group kq (kq + 4 for the upper half of
+      // k) of one point; zeros beyond S
       int qa[3][4], qb[3][2][2];
       #pragma unroll
       for (int l = 0; l < 3; ++l) {
-        const int2 a_lo = *reinterpret_cast<const int2*>(&q.sqa[l][kq][ra0]);
-        const int2 a_hi =
-            *reinterpret_cast<const int2*>(&q.sqa[l][kq + 4][ra0]);
-        qa[l][0] = a_lo.x, qa[l][1] = a_lo.y;
-        qa[l][2] = a_hi.x, qa[l][3] = a_hi.y;
-        const int2 b_lo = *reinterpret_cast<const int2*>(&q.sqb[l][kq][cb0]);
-        const int2 b_hi =
-            *reinterpret_cast<const int2*>(&q.sqb[l][kq + 4][cb0]);
-        qb[l][0][0] = b_lo.x, qb[l][0][1] = b_hi.x;
-        qb[l][1][0] = b_lo.y, qb[l][1][1] = b_hi.y;
+        pack2x4(&q.sqa[l][4 * kq][wa], kHiQA, sel, qa[l][0], qa[l][1]);
+        pack2x4(&q.sqa[l][4 * kq + 16][wa], kHiQA, sel, qa[l][2], qa[l][3]);
+        pack2x4(&q.sqb[l][4 * kq][wb], kHiQB, sel, qb[l][0][0], qb[l][1][0]);
+        pack2x4(&q.sqb[l][4 * kq + 16][wb], kHiQB, sel, qb[l][0][1],
+                qb[l][1][1]);
       }
       #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -329,6 +327,7 @@ __device__ __forceinline__ void gram_hi_tile(
         mma_s8(t33[n], qa[2], qb[2][n]);
       }
     }
+    cp_async_wait<0>();
   }
   __syncthreads();
 

@@ -14,16 +14,17 @@
 // over valid rows; blocks run in no order, so ops/f32scan.py folds the
 // partials (amin) and the row-level supports in once per row.
 //
-// What bounds it on an H100: the Gram's arithmetic on CUDA cores, as in
-// kernel 2 (9 int8 products per sample by __dp4a and 2 float64 correction
-// products per sample and point), plus ~22 support chains per point at
-// E = 10 (~1,000 float32 operations, all explicitly rounded). The design:
-// kernel 2's register-blocked 32 x 64 tile for the Gram; the chain prefixes
-// of the tile's rows and columns (up to 2 + 5 * 17 + 5 * 16 + 2 floats per
-// row and 2 + 4 * 17 + 4 * 16 per column at E <= 16) are staged once per
-// block in dynamic shared memory, beyond the 48 KB static limit; the
-// support loops are rolled and run from shared memory, with each thread's
-// eight Gram entries in registers.
+// What bounds it on an H100: operations, about half in the Gram (9 int8
+// and 2 float64 correction products per sample and point, on the tensor
+// cores through the tile of gram_hi.cuh, shared with kernel 2) and half in
+// the ~22 support chains per point at E = 10 (~1,000 float32 operations,
+// all explicitly rounded, on CUDA cores). The design: kernel 2's 32 x 64
+// tile for the Gram, which hands each thread its 2 x 4 points; the chain
+// prefixes of the tile's rows and columns (up to 2 + 5 * 17 + 5 * 16 + 2
+// floats per row and 2 + 4 * 17 + 4 * 16 per column at E <= 16) are staged
+// once per block in dynamic shared memory, beyond the 48 KB static limit;
+// the support loops are rolled and run from shared memory, with each
+// thread's eight Gram entries in registers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
