@@ -12,12 +12,10 @@
 // What bounds it on an H100: operations, and first the two float64
 // correction products per sample and point (1.04 TFLOP per 512-voxel chunk
 // at 782 x 782, S = 552: 15.5 ms at the float64 tensor rate), then the nine
-// int8 products (4.7 POP, 2.4 ms at the int8 tensor rate). On CUDA cores
-// (float64 multiply-adds fed by 8-byte shared-memory loads, 4-byte integer
-// dot products) the tile took ~200 ms of kernel 2's 203 ms a chunk. The
-// design puts both on the tensor cores with mma.sync, in two
-// passes over the samples so that neither pass holds the other's
-// accumulators (a thread has 32 + 40 accumulator registers in all):
+// int8 products (4.7 POP, 2.4 ms at the int8 tensor rate). The design puts
+// both on the tensor cores with mma.sync, in two passes over the samples so
+// that neither pass holds the other's accumulators (a thread has 32 + 40
+// accumulator registers in all):
 //
 //   pass 1, corrections: mma m16n8k8 in float64. The 8 warps tile the block
 //     2 x 4, a warp owns 16 x 16 points: 2 mma per correction and 8
@@ -103,13 +101,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// the two bf16 values of a 4-byte word (lower address first), as doubles
-__device__ __forceinline__ void widen2(uint32_t p, double (&v)[2]) {
-  v[0] = (double)__uint_as_float(p << 16);
-  v[1] = (double)__uint_as_float(p & 0xffff0000u);
-}
+// the two bf16 values at p (4-byte aligned), as doubles
 __device__ __forceinline__ void widen2(const uint16_t* p, double (&v)[2]) {
-  widen2(*reinterpret_cast<const uint32_t*>(p), v);
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  v[0] = (double)__uint_as_float(w << 16);
+  v[1] = (double)__uint_as_float(w & 0xffff0000u);
 }
 
 // N = 8 or 16 bytes from device to shared memory without passing registers
@@ -193,7 +189,7 @@ __device__ __forceinline__ void gram_hi_tile(
   // i is multiplied.
   float cf1[2][2][2], cf2[2][2][2];               // [mt][n][e]
   {
-    auto issue = [&](int chunk) {
+    auto copy_chunk = [&](int chunk) {
       auto& f = sm.f[chunk % 2];
       const int s0 = chunk * SK;
       for (int k = tid; k < SK * (TM / 8); k += kHiThreads) {
@@ -214,10 +210,10 @@ __device__ __forceinline__ void gram_hi_tile(
     };
     double c1[2][2][2] = {}, c2[2][2][2] = {};
     __syncthreads();
-    issue(0);
+    copy_chunk(0);
     for (int chunk = 0; chunk < n_chunk; ++chunk) {
       if (chunk + 1 < n_chunk) {
-        issue(chunk + 1);
+        copy_chunk(chunk + 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -270,7 +266,7 @@ __device__ __forceinline__ void gram_hi_tile(
   int t11[2][4] = {}, t12[2][4] = {}, t22[2][4] = {}, t23[2][4] = {},
       t33[2][4] = {};                             // [n][2 mt + e]
   {
-    auto issue = [&](int chunk) {
+    auto copy_chunk = [&](int chunk) {
       if (chunk < n_chunk) {
         auto& q = sm.q[chunk % 3];
         const int s0 = chunk * SK;
@@ -296,12 +292,12 @@ __device__ __forceinline__ void gram_hi_tile(
     // the word of the lane's two rows (columns) and where they lie in it
     const int wa = ra0 & ~3, wb = cb0 & ~3;
     const uint32_t sel = (g & 1) ? 0x7362u : 0x5140u;
-    issue(0);
-    issue(1);
+    copy_chunk(0);
+    copy_chunk(1);
     for (int chunk = 0; chunk < n_chunk; ++chunk) {
       cp_async_wait<1>();
       __syncthreads();
-      issue(chunk + 2);       // over chunk - 1, which every warp has left
+      copy_chunk(chunk + 2);       // over chunk - 1, which every warp has left
       const auto& q = sm.q[chunk % 3];
       // a register = the 4 samples of group kq (kq + 4 for the upper half of
       // k) of one point; zeros beyond S

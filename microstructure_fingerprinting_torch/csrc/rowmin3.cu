@@ -15,15 +15,14 @@
 //
 // What bounds it on an H100: the Gram's operations. It is
 // 9 * S * N1p * N2pb int8 products per voxel (~4.5 G at N1 = N2 = 782,
-// S = 552) plus 2 * S * N1p * N2pb float64 correction products; the ~70
-// float32 chain operations per point are a few per cent of the time. The
-// design is the tile of gram_hi.cuh (shared with kernel 4): a 256-thread
-// block owns 32 rows x 64 columns, and both kinds of product run on the
-// tensor cores (mma.sync: float64 m16n8k8 for the corrections, int8 m16n8k32
-// for the levels), from 32-sample chunks copied ahead with cp.async. The
-// tile hands each thread its 2 x 4 points, and the chains below run on them
-// as they did on the CUDA-core tile. The bf16 corrections are exact
-// products accumulated in float64 and rounded once, equal to the plain
+// S = 552) plus 2 * S * N1p * N2pb float64 correction products, against ~70
+// float32 chain operations per point. The design is the tile of gram_hi.cuh
+// (shared with kernel 4): a 256-thread block owns 32 rows x 64 columns, and
+// both kinds of product run on the tensor cores (mma.sync: float64 m16n8k8
+// for the corrections, int8 m16n8k32 for the levels), from 32-sample chunks
+// copied ahead with cp.async. The tile hands each thread its 2 x 4 points,
+// on which the chains below run on CUDA cores. The bf16 corrections are
+// exact products accumulated in float64 and rounded once, equal to the plain
 // PyTorch version whatever the order. Warpgroup mma (wgmma) fed by TMA, and
 // chains that run in the mma layout, are later work.
 #include <cuda_runtime.h>
