@@ -14,7 +14,10 @@ failure; needs one CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
 main path (its launches in that path's fit, its times at that path's rhs
-count); an earlier ``record:`` line holds every number measured.
+count) and, for the rows that were designed anew, the time before as a
+labelled string; an earlier ``record:`` line holds every number measured,
+and each fit prints its "prep" and "re-scan" stages split into the kernel
+and the torch code around it.
 """
 
 import dataclasses
@@ -41,13 +44,24 @@ SLICE = {"prep_block": 128, "rowmin3": 64, "rescan3": 512, "rowmin4": 16,
 #: float32 rate is outside the tensor cores), for the kernels' bounds
 PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 #: float32 operations per grid point of each kernel's chain, counted by
-#: hand from its source (an add, multiply, divide or compare is one);
+#: hand from its source (an add, multiply, divide or compare is one, a
+#: fused multiply-add two);
 #: nx = n3 + n4 extra columns, ns = n3 * n4 sweeps
 CHAIN_OPS = {
     "rowmin3": lambda nx, ns: 70,
     "rescan3": lambda nx, ns: 400,
     "rowmin4": lambda nx, ns: 30 + 37 * nx + 47 * ns,
-    "rescan4": lambda nx, ns: 160 + 215 * nx + 215 * ns,
+    "rescan4": lambda nx, ns: 120 + 173 * nx + 145 * ns,
+}
+#: kernel 5's chain before its products were fused (Dekker products on
+#: presplit halves), for the old bound beside the new one
+CHAIN_OPS_DEKKER = {"rescan4": lambda nx, ns: 160 + 215 * nx + 215 * ns}
+#: ms a 512-voxel chunk of the rows that were designed anew, as the same
+#: phases of this script measured them on the parent design
+BEFORE = {
+    "prep_block": "10.110 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
+    "prep_block_ear": "29.197 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
+    "rescan4": "40.723 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
 }
 
 RECORD = {}
@@ -94,14 +108,14 @@ def bound(bytes_moved, ops):
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
-def scan_ops(name, B, S, n1p, n2p, nx=0, ns=0):
+def scan_ops(name, B, S, n1p, n2p, nx=0, ns=0, chain=CHAIN_OPS):
     """Operations of a row pass or re-scan over a B x n1p x n2p grid."""
     pts = float(B) * n1p * n2p
     if name.startswith("rowmin"):
         gram = {"int8": 2 * 9 * S * pts, "bf16": 2 * 2 * S * pts}
     else:
         gram = {"int8": 2 * 4 * S * pts, "f32": 2 * 2 * S * pts}
-    gram["f32"] = gram.get("f32", 0.0) + CHAIN_OPS[name](nx, ns) * pts
+    gram["f32"] = gram.get("f32", 0.0) + chain[name](nx, ns) * pts
     return gram
 
 
@@ -217,6 +231,27 @@ def check_prep(rows, name, blocks, rhs, n_rhs):
     rows[name] = row(err, ms_k, ms_p, nb, ops)
 
 
+def check_prep_narrow(A, rhs, n_rhs, S_wide=2000):
+    """Kernel 1 at its narrowest strip: a few voxels of A with the
+    samples padded with zeros up to ``S_wide``, where only the narrowest
+    width fits shared memory, against the plain version."""
+    import torch.nn.functional as F
+    from microstructure_fingerprinting_torch.ops import prep
+    tile, pad = 128, S_wide - A.shape[1]
+    ins = [F.pad(t[:4], (0, 0, 0, pad)).contiguous()
+           for t in (prep.pad_block(A, tile)[0],) + tuple(rhs)]
+    W = prep.strip_width(S_wide, tile, n_rhs)
+    if W != prep.STRIP_WIDTHS[-1]:
+        raise AssertionError("S = %d does not force the narrowest strip"
+                             % S_wide)
+    outs = prep.prep_block(*ins, tile, "xra", n_rhs=n_rhs)
+    plain = prep.prep_block_twin(*ins, tile, "xra", n_rhs=n_rhs)
+    shape = "prep %s strip width %d, %d rhs" % (tuple(ins[0].shape), W,
+                                                 n_rhs)
+    for what, k, p in zip(("q123", "x", "r", "a", "gram"), outs, plain):
+        held("%s %s" % (shape, what), k, p)
+
+
 def check_rescan(name, kern, plain, top1, B, n):
     """A re-scan kernel against its plain version: row minima by the
     agreement rule, first-minimum indices and the top-1 exact. Returns
@@ -252,6 +287,7 @@ def phase_kernels(wl):
     rhs = prep.pack_rhs([yh, a3h[:, :, 0]])[:3]
     check_prep(rows, "prep_block", ((A1, 128, "xr"), (A2, 512, "ra")), rhs,
                2)
+    check_prep_narrow(A1, rhs, 2)
 
     # kernel 2: the row pass at N1 = N2 = 782
     ops, _ = f32scan.rowmin_3_operands(A1, A2, a3, y)
@@ -301,9 +337,11 @@ def phase_kernels(wl):
 
 def log_rows(rows):
     RECORD.setdefault("kernels", {}).update(rows)
-    log("kernel vs plain ms (bound ms) on a %d-voxel chunk: " % CHUNK
-        + ", ".join("%s %.3f vs %.3f (%.3f, %s)" % (
-            name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"])
+    log("kernel vs plain ms (bound ms) [before its redesign] on a %d-voxel "
+        "chunk: " % CHUNK
+        + ", ".join("%s %.3f vs %.3f (%.3f, %s)%s" % (
+            name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+            " [%s]" % BEFORE[name] if name in BEFORE else "")
             for name, r in rows.items()))
 
 
@@ -386,6 +424,10 @@ def phase_ear_kernels(wl, sig_ear):
                                            ops[4].shape[2], nx, ns))
             RECORD["rescan4_packs"] = [ops[8].shape[1], ops[9].shape[1],
                                        ops[10].shape[1]]
+            RECORD["rescan4_bound_ms_dekker_chain"] = bound(
+                nbytes(ops, outs), scan_ops(
+                    "rescan4", B, S, ops[0].shape[2], ops[4].shape[2], nx,
+                    ns, chain=CHAIN_OPS_DEKKER))[0]
         else:
             RECORD["rescan4_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
@@ -527,7 +569,14 @@ def phase_fit(wl, sig_ear=None):
         model.fit(data, mask, numfasc, **kw)
     stages = st.totals_ms()
     log("%s: stage split (device ms, one fit): " % label + ", ".join(
-        "%s %.1f" % kv for kv in stages.items()))
+        "%s %.1f" % kv for kv in stages.items()
+        if not kv[0].startswith("kernel ")))
+    # each launch is a stage of its own inside the stage that holds it:
+    # what is left of "prep" and "re-scan" is their torch code (hoists)
+    for stage_name, kernel in (("prep", path[0]), ("re-scan", path[2])):
+        k_ms = stages["kernel " + kernel]
+        log("%s: stage %s = kernel %s %.1f ms + torch hoists %.1f ms" % (
+            label, stage_name, kernel, k_ms, stages[stage_name] - k_ms))
     RECORD[label] = dict(cold_fit_s=cold_s, warm_fit_s=warm_s,
                          voxels_per_s=N_VOX / warm_s, stages_ms=stages,
                          launches=launches, n_ties=n_tie,
@@ -652,7 +701,8 @@ def main():
         dict(name=name, route="cuda",
              source="microstructure_fingerprinting_torch/" + src,
              replaces="microstructure_fingerprinting_tpu/" + tpu,
-             launches=launches[name], **rows[name])
+             launches=launches[name], **rows[name],
+             **({"before": BEFORE[name]} if name in BEFORE else {}))
         for name, (src, tpu) in KERNEL_META.items()]}
     RECORD["total_s"] = time.time() - t_all
     log("record: " + json.dumps(RECORD))

@@ -129,4 +129,29 @@ __device__ __forceinline__ int pack4(const int8_t* p, size_t stride, int n) {
   return (int)v;
 }
 
+// ---- fused forms (kernel 5) ----
+// The H100's float32 pipe has a fused multiply-add, which the TPU's vector
+// unit did not offer to the kernel: fma(a, b, -fl(a * b)) is the exact error
+// of the rounded product in one operation, where the Dekker forms above
+// spend 15 (mul_ps, on presplit halves) or 17 (two_prod). By Dekker's
+// theorem both give the same float whenever the error term a * b - fl(a * b)
+// is representable, i.e. a multiple of 2^-149: for |a * b| >= 2^-101
+// (~4e-31) always; the forms can part only on products below that
+// (tests/test_torch_df32_fma.py finds the line). __fmaf_rn is explicit, so
+// --fmad=false (which only stops contraction) leaves it alone. These need
+// no split halves: a double-float value is its (hi, lo) pair, held in a P2.
+
+// exact product of two floats: p + e == a * b
+__device__ __forceinline__ P2 two_prod_fma(float a, float b) {
+  const float p = mul(a, b);
+  return {p, __fmaf_rn(a, b, -p)};
+}
+
+// product of two double-float values (hi, lo) -> (main, err): mul_ps with
+// the fused error term; the cross terms in mul_ps's order
+__device__ __forceinline__ P2 mul_df_fma(P2 x, P2 y) {
+  const P2 t = two_prod_fma(x.p, y.p);
+  return {t.p, add(t.e, add(mul(x.p, y.e), mul(x.e, y.p)))};
+}
+
 }  // namespace mf

@@ -15,21 +15,42 @@
 // into segments and candidates_from_rows_df4 takes the first minimum in
 // (i1, i2, i3, i4) order.
 //
-// What bounds it on an H100: the per-point chains, roughly 160 float32
-// operations for the base and 215 per extra column and per sweep (~4,700
-// at E = 10), all explicitly rounded intrinsics of df32.cuh (never
-// contracted; the double-float division inlined as the TPU kernel writes
-// it). The Gram (4 int8 products by __dp4a and 2 float64 products per
-// sample) is small beside it. The TPU kernel unrolled the ns sweeps over
-// whole (tile, N2B) temporaries in 100 MB of VMEM; here each thread runs
-// its 2 x 2 points one at a time with the sweep loop rolled, keeping
-// best/best_s in registers and the point's nx extra-column residuals in a
-// per-thread slice of shared memory. The row and column packs (345 and 415
-// floats per row and column at E = 10) are staged once per 32 x 32 block in
-// dynamic shared memory.
+// What bounds it on an H100: the per-point chains of explicitly rounded
+// float32 operations (about 120 for the base, 173 per extra column and 145
+// per sweep, a fused multiply-add counted as 2: ~3,500 at E = 10; ~4,700
+// with Dekker products), each a long dependent run of two_sum /
+// fast_two_sum / product steps, so the float32 pipe waits on its own
+// latency unless many chains are in flight; and the Gram tile, shared with
+// kernel 3 (gram_df.cuh: 4 int8 products by __dp4a and 2 float64 products
+// per sample on the scalar float64 pipe, each operand converted from
+// float32), which takes about two thirds of the kernel's time since the
+// chains were rebuilt. The design, for this card:
+//   * every product of double-float values is mul_df_fma / two_prod_fma of
+//     df32.cuh: the error of the rounded product by one fused multiply-add
+//     instead of the Dekker form on presplit halves. Every add, subtract and
+//     divide keeps its place and order, so the result is the plain
+//     version's (ops/rescan.rescan4_twin) bit for bit unless a product is
+//     below ~4e-31;
+//   * the packs keep their layout in device memory, (hi, lo, hh, hl) a
+//     double-float value, but the kernel never reads the halves hh, hl: it
+//     stages (hi, lo) only (PackMap below; ops/rescan.py holds the same map
+//     for the CPU tests), 193 + 213 entries a 32 x 32 block at E = 10
+//     instead of 345 + 415, so two blocks share an SM (128 registers a
+//     thread, no spills);
+//   * a thread runs the two columns of a row through the loops together:
+//     two independent chains whose latencies hide under each other (with one
+//     block an SM the same code is slower than the Dekker kernel was: the
+//     chains are bound by latency, not by their operation count);
+//   * the packs are copied with cp.async before the Gram tile starts and
+//     waited for after it: the copy hides under the Gram;
+//   * the sweep loop stays rolled (the TPU kernel unrolled the ns sweeps
+//     over whole tiles in 100 MB of VMEM), best/best_s in registers and the
+//     point's nx extra-column residuals in a per-thread slice of shared
+//     memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "df32.cuh"
 #include "gram_df.cuh"
 
@@ -37,16 +58,68 @@ namespace {
 
 constexpr int TM = mf::kDfTM, TN = 32, CN = TN / 16;
 constexpr int kThreads = mf::kDfThreads;
+static_assert(CN == 2, "a thread owns 2 x 2 points");
+// blocks an SM (the register cap that follows: 128 a thread), and the
+// columns of a thread that run through the loops together
+constexpr int kBlocksPerSM = 2;
+constexpr int kChains = 2;
 
 using mf::P2;
-using mf::PS;
-using mf::mul_ps;
+using mf::mul_df_fma;
 
 __device__ __forceinline__ P2 twice(P2 x) {
   return {mf::mul(2.0f, x.p), mf::mul(2.0f, x.e)};
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// The staged (short) layout of a row or column pack. The pack's first
+// `quad` entries are (hi, lo, hh, hl) quadruples, of which (hi, lo) are
+// staged; the other n - quad entries are single floats.
+struct PackMap {
+  int quad, n;
+  __host__ __device__ int slots() const { return quad / 2 + (n - quad); }
+  // slot of pack entry e: hi or lo of a quadruple, or a single float
+  __device__ int slot(int e) const {
+    return e < quad ? (e >> 2) * 2 + (e & 3) : quad / 2 + (e - quad);
+  }
+  // pack entry held by slot s
+  __device__ int entry(int s) const {
+    return s < quad / 2 ? (s >> 1) * 4 + (s & 1) : quad + (s - quad / 2);
+  }
+};
+
+// The voxel vector: the quadruple w, then per extra column x the quadruple
+// C2X and two floats, then 5 ns floats; staged as w's (hi, lo), per x
+// (hi, lo, dX, rX), and the floats.
+struct VoxMap {
+  int nx, n;
+  __host__ __device__ int slots() const { return n - 2 - 2 * nx; }
+  __device__ int slot(int e) const {
+    if (e < 4) return e;
+    if (e < 4 + 6 * nx) {
+      const int x = (e - 4) / 6, k = (e - 4) % 6;
+      return 2 + 4 * x + (k < 2 ? k : k - 2);
+    }
+    return e - 2 - 2 * nx;
+  }
+  __device__ int entry(int s) const {
+    if (s < 2) return s;
+    if (s < 2 + 4 * nx) {
+      const int x = (s - 2) / 4, k = (s - 2) % 4;
+      return 4 + 6 * x + (k < 2 ? k : k + 2);
+    }
+    return s + 2 + 2 * nx;
+  }
+};
+
+// what a column's chain carries from the base through the loops
+struct Chain {
+  const float* C;     // C[slot * TN]: the column's staged pack
+  P2 a_, a2_, U1;     // Gram entry, its square, q^2 - d2 w
+  float d2f, qf, base, best;
+  int best_s;
+};
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
                const float* __restrict__ a1h, const float* __restrict__ ra,
                const int8_t* __restrict__ q1b, const int8_t* __restrict__ q2b,
@@ -57,15 +130,6 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
                int* __restrict__ cidx, int S, int N1p, int N2pb, int n2,
                int n3, int n4, int NR, int NC, int NV, int nrow, int ncol,
                int nvox, float tol) {
-  extern __shared__ float dyn[];
-  float* srow = dyn;                      // [nrow][TM]
-  float* scol = srow + nrow * TM;         // [ncol][TN]
-  float* svox = scol + ncol * TN;         // [nvox]
-  float* sr1x = svox + nvox;              // [nx][kThreads]
-  __shared__ mf::GramDfSmem<TN> gsm;
-  __shared__ float sres[TM][TN + 1];
-  __shared__ int sidx[TM][TN + 1];
-
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
@@ -77,56 +141,86 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
   const int c_x0 = 16, c_l23 = c_x0 + 24 * nx, c_ldl = c_l23 + 4 * n3;
   const int c_res2 = c_ldl + 12 * ns, c_col0 = c_res2 + 1;
   const int v_x0 = 4, v_s0 = v_x0 + 6 * nx, v_fix0 = v_s0 + 4 * ns;
+  const PackMap rmap = {r_res1, nrow}, cmap = {c_res2, ncol};
+  const VoxMap vmap = {nx, nvox};
 
-  for (int k = tid; k < nrow * TM; k += kThreads) {
-    srow[k] = row_pack[((size_t)b * NR + k / TM) * N1p + row0 + k % TM];
-  }
-  for (int k = tid; k < ncol * TN; k += kThreads) {
-    scol[k] = col_pack[((size_t)b * NC + k / TN) * N2pb + col0 + k % TN];
-  }
-  for (int k = tid; k < nvox; k += kThreads) svox[k] = vox[(size_t)b * NV + k];
+  extern __shared__ __align__(16) float dyn[];
+  float* srow = dyn;                          // [rmap.slots()][TM]
+  float* scol = srow + rmap.slots() * TM;     // [cmap.slots()][TN]
+  float* sr1x = scol + cmap.slots() * TN;     // [kChains][nx][kThreads]
+  float* svox = sr1x + kChains * nx * kThreads;         // [vmap.slots()]
+  __shared__ mf::GramDfSmem<TN> gsm;
+  __shared__ float sres[TM][TN + 1];
+  __shared__ int sidx[TM][TN + 1];
 
-  PS g[2][CN];
+  // the packs, 16 bytes a copy, in flight while the Gram tile runs
+  for (int k = tid; k < rmap.slots() * (TM / 4); k += kThreads) {
+    const int s = k / (TM / 4), part = 4 * (k % (TM / 4));
+    mf::copy16_async(srow + s * TM + part,
+                     row_pack + ((size_t)b * NR + rmap.entry(s)) * N1p +
+                         row0 + part);
+  }
+  for (int k = tid; k < cmap.slots() * (TN / 4); k += kThreads) {
+    const int s = k / (TN / 4), part = 4 * (k % (TN / 4));
+    mf::copy16_async(scol + s * TN + part,
+                     col_pack + ((size_t)b * NC + cmap.entry(s)) * N2pb +
+                         col0 + part);
+  }
+  for (int s = tid; s < vmap.slots(); s += kThreads) {
+    mf::copy4_async(svox + s, vox + (size_t)b * NV + vmap.entry(s));
+  }
+
+  mf::PS g[2][CN];
   mf::gram_df_tile<TN>(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, b, S, N1p, N2pb,
                        row0, col0, gsm, g);
+  mf::copy_async_wait_all();
+  __syncthreads();
 
-  const PS w_ = {svox[0], svox[1], svox[2], svox[3]};
-  const float wf = w_.hi;
-  float* r1x = sr1x + tid;                // r1x[x * kThreads]
+  auto vf = [&](int e) { return svox[vmap.slot(e)]; };
+  auto vp = [&](int e) { return P2{vf(e), vf(e + 1)}; };
+  const P2 w_ = vp(0);
+  const float wf = w_.p;
+  float* r1x = sr1x + tid;       // r1x[(u * nx + x) * kThreads]
 
   #pragma unroll 1
   for (int r = 0; r < 2; ++r) {
     const int i = ty * 2 + r;
-    const float* R = srow + i;            // R[k * TM]: row-pack entry k
-    auto rp = [&](int k) {
-      return PS{R[k * TM], R[(k + 1) * TM], R[(k + 2) * TM], R[(k + 3) * TM]};
-    };
+    const float* R = srow + i;
+    // row-pack entry e (a single float), the double-float value at e
+    auto rf = [&](int e) { return R[rmap.slot(e) * TM]; };
+    auto rp = [&](int e) { return P2{rf(e), rf(e + 1)}; };
+    const P2 d1 = rp(0), p_ = rp(4), p2 = rp(8);
+    const float d1f = d1.p, pf = p_.p;
     #pragma unroll 1
-    for (int c = 0; c < CN; ++c) {
-      const int j = tx + 16 * c;
-      const float* C = scol + j;          // C[k * TN]: column-pack entry k
-      auto cp = [&](int k) {
-        return PS{C[k * TN], C[(k + 1) * TN], C[(k + 2) * TN],
-                  C[(k + 3) * TN]};
-      };
-      const PS a_ps = g[r][c];
-      const PS d1 = rp(0), p_ = rp(4), p2 = rp(8);
-      const PS d2 = cp(0), q_ = cp(4), q2 = cp(8), d2w = cp(12);
-      const float d1f = d1.hi, pf = p_.hi, d2f = d2.hi, qf = q_.hi;
-      const float af = a_ps.hi;
+    for (int c0 = 0; c0 < CN; c0 += kChains) {
+      // kChains of the thread's columns run through the loops together:
+      // independent chains, so one's latency hides under the other's
+      Chain ch[kChains];
+      #pragma unroll
+      for (int u = 0; u < kChains; ++u) {
+        Chain& k = ch[u];
+        const int c = c0 + u;
+        k.C = scol + tx + 16 * c;
+        auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
+        auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
+        k.a_ = {
+            r ? (c ? g[1][1].hi : g[1][0].hi) : (c ? g[0][1].hi : g[0][0].hi),
+            r ? (c ? g[1][1].lo : g[1][0].lo) : (c ? g[0][1].lo : g[0][0].lo)};
+        const P2 d2 = cp(0), q_ = cp(4), q2 = cp(8), d2w = cp(12);
+        const float d2f = d2.p, qf = q_.p, af = k.a_.p;
+        k.d2f = d2f;
+        k.qf = qf;
+        const P2 a2 = mul_df_fma(k.a_, k.a_);
+        k.a2_ = mf::fast_two_sum(a2.p, a2.e);
+        const P2 pq = mul_df_fma(p_, q_);
+        const P2 pq_ = mf::fast_two_sum(pq.p, pq.e);
 
-      const P2 a2 = mul_ps(a_ps, a_ps);
-      const PS a2_ps = mf::presplit(mf::fast_two_sum(a2.p, a2.e));
-      const P2 pq = mul_ps(p_, q_);
-      const PS pq_ps = mf::presplit(mf::fast_two_sum(pq.p, pq.e));
-
-      // ---- base: {1,2} (unconstrained-sign feasibility), row/col/empty
-      float base;
-      {
-        const P2 apq = mul_ps(a_ps, pq_ps);
-        const P2 parts[5] = {mul_ps(d1, d2w), mf::neg(mul_ps(a2_ps, w_)),
-                             twice(apq), mf::neg(mul_ps(d1, q2)),
-                             mf::neg(mul_ps(p2, d2))};
+        // ---- base: {1,2} (unconstrained-sign feasibility), row/col/empty
+        const P2 apq = mul_df_fma(k.a_, pq_);
+        const P2 parts[5] = {mul_df_fma(d1, d2w),
+                             mf::neg(mul_df_fma(k.a2_, w_)), twice(apq),
+                             mf::neg(mul_df_fma(d1, q2)),
+                             mf::neg(mul_df_fma(p2, d2))};
         const float num12 = mf::acc(parts);
         const float det2 = mf::sub(mf::mul(d1f, d2f), mf::mul(af, af));
         const float n1w = mf::sub(mf::mul(d2f, pf), mf::mul(af, qf));
@@ -134,139 +228,158 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
         const bool feas12 = (det2 > mf::mul(mf::mul(tol, d1f), d2f)) &&
                             (n1w >= 0.0f) && (n2w >= 0.0f);
         const float r12 = feas12 ? mf::dv(num12, det2) : mf::kInf;
-        base = mf::jmin(mf::nan_to_inf(r12), R[r_res1 * TM]);
-        base = mf::jmin(base, C[c_res2 * TN]);
-        base = mf::jmin(base, wf);
+        k.base = mf::jmin(mf::nan_to_inf(r12), rf(r_res1));
+        k.base = mf::jmin(k.base, cf(c_res2));
+        k.base = mf::jmin(k.base, wf);
+        // U1 = q^2 - d2*w (column-level, X-independent)
+        k.U1 = mf::df_add(q2, mf::neg(d2w));
+        k.best = mf::kInf;
+        k.best_s = 0;
       }
-      // U1 = q^2 - d2*w (column-level, X-independent)
-      const PS U1_ps = mf::presplit(mf::df_add({q2.hi, q2.lo},
-                                               {-d2w.hi, -d2w.lo}));
 
       // ---- supports {1,2,X} per extra column X (i3's first, then i4's)
       #pragma unroll 1
       for (int x = 0; x < nx; ++x) {
-        const PS bX = rp(12 + 12 * x), bX2 = rp(16 + 12 * x);
-        const PS bXp = rp(20 + 12 * x);
+        const P2 bX = rp(12 + 12 * x), bX2 = rp(16 + 12 * x);
+        const P2 bXp = rp(20 + 12 * x);
         const int cx = c_x0 + 24 * x;
-        const PS U2X = cp(cx), U3X = cp(cx + 4), U4X = cp(cx + 8);
-        const PS V1X = cp(cx + 12), V2X = cp(cx + 16), cX = cp(cx + 20);
         const int vx = v_x0 + 6 * x;
-        const PS C2X = {svox[vx], svox[vx + 1], svox[vx + 2], svox[vx + 3]};
-        const float dXf = svox[vx + 4], rXf = svox[vx + 5];
-        const P2 m1 = mul_ps(bX, V1X), m2 = mul_ps(p_, V2X);
-        const P2 st = mf::two_sum(m1.p, m2.p);
-        const PS s_ps = mf::presplit(
-            mf::fast_two_sum(st.p, mf::add(mf::add(st.e, m1.e), m2.e)));
-        const P2 parts[6] = {mul_ps(bX2, U1_ps), mul_ps(bXp, U2X),
-                             mul_ps(d1, U3X), mul_ps(p2, U4X),
-                             mul_ps(a_ps, s_ps), mul_ps(a2_ps, C2X)};
-        const float det4 = mf::acc(parts);
-        const float bf = bX.hi, cfX = cX.hi;
-        using mf::add;
-        using mf::mul;
-        using mf::sub;
-        const float det3 =
-            add(sub(mul(d1f, sub(mul(d2f, dXf), mul(cfX, cfX))),
-                    mul(af, sub(mul(af, dXf), mul(cfX, bf)))),
-                mul(bf, sub(mul(af, cfX), mul(d2f, bf))));
-        const float D1 =
-            add(sub(mul(pf, sub(mul(d2f, dXf), mul(cfX, cfX))),
-                    mul(qf, sub(mul(af, dXf), mul(cfX, bf)))),
-                mul(rXf, sub(mul(af, cfX), mul(d2f, bf))));
-        const float D2 =
-            sub(add(mul(-pf, sub(mul(af, dXf), mul(bf, cfX))),
-                    mul(qf, sub(mul(d1f, dXf), mul(bf, bf)))),
-                mul(rXf, sub(mul(d1f, cfX), mul(af, bf))));
-        const float D3 =
-            add(sub(mul(pf, sub(mul(af, cfX), mul(bf, d2f))),
-                    mul(qf, sub(mul(d1f, cfX), mul(bf, af)))),
-                mul(rXf, sub(mul(d1f, d2f), mul(af, af))));
-        const bool feas = (det3 > mul(mul(mul(tol, d1f), d2f), dXf)) &&
-                          (D1 >= 0.0f) && (D2 >= 0.0f) && (D3 >= 0.0f);
-        r1x[x * kThreads] = mf::nan_to_inf(feas ? mf::dv(det4, det3)
-                                                : mf::kInf);
+        const P2 C2X = vp(vx);
+        const float dXf = vf(vx + 4), rXf = vf(vx + 5);
+        const float bf = bX.p;
+        #pragma unroll
+        for (int u = 0; u < kChains; ++u) {
+          const Chain& k = ch[u];
+          auto cp = [&](int e) {
+            return P2{k.C[cmap.slot(e) * TN], k.C[cmap.slot(e + 1) * TN]};
+          };
+          const float af = k.a_.p, d2f = k.d2f, qf = k.qf;
+          const P2 U2X = cp(cx), U3X = cp(cx + 4), U4X = cp(cx + 8);
+          const P2 V1X = cp(cx + 12), V2X = cp(cx + 16), cX = cp(cx + 20);
+          const P2 m1 = mul_df_fma(bX, V1X), m2 = mul_df_fma(p_, V2X);
+          const P2 st = mf::two_sum(m1.p, m2.p);
+          const P2 s_ =
+              mf::fast_two_sum(st.p, mf::add(mf::add(st.e, m1.e), m2.e));
+          const P2 parts[6] = {mul_df_fma(bX2, k.U1), mul_df_fma(bXp, U2X),
+                               mul_df_fma(d1, U3X),   mul_df_fma(p2, U4X),
+                               mul_df_fma(k.a_, s_),  mul_df_fma(k.a2_, C2X)};
+          const float det4 = mf::acc(parts);
+          const float cfX = cX.p;
+          using mf::add;
+          using mf::mul;
+          using mf::sub;
+          const float det3 =
+              add(sub(mul(d1f, sub(mul(d2f, dXf), mul(cfX, cfX))),
+                      mul(af, sub(mul(af, dXf), mul(cfX, bf)))),
+                  mul(bf, sub(mul(af, cfX), mul(d2f, bf))));
+          const float D1 =
+              add(sub(mul(pf, sub(mul(d2f, dXf), mul(cfX, cfX))),
+                      mul(qf, sub(mul(af, dXf), mul(cfX, bf)))),
+                  mul(rXf, sub(mul(af, cfX), mul(d2f, bf))));
+          const float D2 =
+              sub(add(mul(-pf, sub(mul(af, dXf), mul(bf, cfX))),
+                      mul(qf, sub(mul(d1f, dXf), mul(bf, bf)))),
+                  mul(rXf, sub(mul(d1f, cfX), mul(af, bf))));
+          const float D3 =
+              add(sub(mul(pf, sub(mul(af, cfX), mul(bf, d2f))),
+                      mul(qf, sub(mul(d1f, cfX), mul(bf, af)))),
+                  mul(rXf, sub(mul(d1f, d2f), mul(af, af))));
+          const bool feas = (det3 > mul(mul(mul(tol, d1f), d2f), dXf)) &&
+                            (D1 >= 0.0f) && (D2 >= 0.0f) && (D3 >= 0.0f);
+          r1x[(u * nx + x) * kThreads] =
+              mf::nan_to_inf(feas ? mf::dv(det4, det3) : mf::kInf);
+        }
       }
 
       // ---- sweeps: {1,2,3,4} LDL' finish + per-sweep folds ----
-      float best = mf::kInf;
-      int best_s = 0;
       #pragma unroll 1
       for (int s = 0; s < ns; ++s) {
         const int i3 = s / n4, i4 = s - i3 * n4;
-        const PS b3ps = rp(12 + 12 * i3);
-        const PS L23 = cp(c_l23 + 4 * i3);
+        const P2 b3 = rp(12 + 12 * i3);
         const int rl = r_ldl + 16 * s, cl = c_ldl + 12 * s;
-        const PS e4r = rp(rl), kap1 = rp(rl + 4), invD1h = rp(rl + 8);
-        const PS rho1 = rp(rl + 12);
-        const PS L24 = cp(cl), d2r = cp(cl + 4), q2r = cp(cl + 8);
-        const float ok34s = svox[v_s0 + 4 * s], u3fs = svox[v_s0 + 4 * s + 1];
-        const float u4fs = svox[v_s0 + 4 * s + 2];
-        const float L43fs = svox[v_s0 + 4 * s + 3];
-        const float rowoks = R[(r_ok + 3 * s) * TM];
-        const float L13fs = R[(r_ok + 3 * s + 1) * TM];
-        const float L14fs = R[(r_ok + 3 * s + 2) * TM];
+        const P2 e4r = rp(rl), kap1 = rp(rl + 4), invD1h = rp(rl + 8);
+        const P2 rho1 = rp(rl + 12);
+        const float ok34s = vf(v_s0 + 4 * s), u3fs = vf(v_s0 + 4 * s + 1);
+        const float u4fs = vf(v_s0 + 4 * s + 2);
+        const float L43fs = vf(v_s0 + 4 * s + 3);
+        const float rowoks = rf(r_ok + 3 * s);
+        const float L13fs = rf(r_ok + 3 * s + 1);
+        const float L14fs = rf(r_ok + 3 * s + 2);
+        const float rrow = rf(r_row0 + s), rfix = vf(v_fix0 + s);
+        #pragma unroll
+        for (int u = 0; u < kChains; ++u) {
+          Chain& k = ch[u];
+          auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
+          auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
+          const float af = k.a_.p, d2f = k.d2f;
+          const P2 L23 = cp(c_l23 + 4 * i3);
+          const P2 L24 = cp(cl), d2r = cp(cl + 4), q2r = cp(cl + 8);
 
-        const P2 m1 = mul_ps(b3ps, L23), m2 = mul_ps(e4r, L24);
-        P2 t = mf::two_sum(af, -m1.p);
-        const float lo = mf::sub(mf::add(a_ps.lo, t.e), m1.e);
-        t = mf::two_sum(t.p, -m2.p);
-        const P2 NUM = mf::fast_two_sum(t.p, mf::sub(mf::add(lo, t.e), m2.e));
-        const PS NUM_ps = mf::presplit(NUM);
-        const P2 n2d = mul_ps(NUM_ps, NUM_ps);
-        const PS n2_ps = mf::presplit(mf::fast_two_sum(n2d.p, n2d.e));
-        const P2 tD = mul_ps(n2_ps, invD1h);
-        t = mf::two_sum(d2r.hi, -tD.p);
-        const P2 D2h =
-            mf::fast_two_sum(t.p, mf::sub(mf::add(d2r.lo, t.e), tD.e));
-        const bool pointok = D2h.p > mf::mul(tol, d2f);
-        const float D2hs_hi = pointok ? D2h.p : 1.0f;
-        const float D2hs_lo = pointok ? D2h.e : 0.0f;
-        const P2 uK = mul_ps(NUM_ps, kap1);
-        t = mf::two_sum(q2r.hi, -uK.p);
-        const P2 pi2 =
-            mf::fast_two_sum(t.p, mf::sub(mf::add(q2r.lo, t.e), uK.e));
-        const PS pi2_ps = mf::presplit(pi2);
-        const P2 p2q = mul_ps(pi2_ps, pi2_ps);
-        const P2 p2q_df = mf::fast_two_sum(p2q.p, p2q.e);
-        // double-float division (dfscan._df_div, inlined)
-        const float q0 = mf::dv(p2q_df.p, D2hs_hi);
-        const P2 pe = mf::two_prod(q0, D2hs_hi);
-        const float r_hi =
-            mf::sub(mf::add(mf::sub(mf::sub(p2q_df.p, pe.p), pe.e), p2q_df.e),
-                    mf::mul(q0, D2hs_lo));
-        const P2 div = mf::fast_two_sum(q0, mf::dv(r_hi, D2hs_hi));
-        t = mf::two_sum(rho1.hi, -div.p);
-        const float res1234 =
-            mf::add(t.p, mf::sub(mf::add(rho1.lo, t.e), div.e));
-        const float pi2f = pi2.p;
-        const float wb2 = mf::dv(pi2f, D2hs_hi);
-        const float L21f = mf::mul(NUM.p, invD1h.hi);
-        const float wb1 = mf::sub(kap1.hi, mf::mul(L21f, wb2));
-        const float we4 =
-            mf::sub(mf::sub(u4fs, mf::mul(L14fs, wb1)), mf::mul(L24.hi, wb2));
-        const float we3 = mf::sub(
-            mf::sub(mf::sub(u3fs, mf::mul(L43fs, we4)), mf::mul(L13fs, wb1)),
-            mf::mul(L23.hi, wb2));
-        const bool feasF = (ok34s > 0.5f) && (rowoks > 0.5f) && pointok &&
-                           (pi2f >= 0.0f) && (wb1 >= 0.0f) && (we4 >= 0.0f) &&
-                           (we3 >= 0.0f);
-        const float r1234 = feasF ? mf::nan_to_inf(res1234) : mf::kInf;
+          const P2 m1 = mul_df_fma(b3, L23), m2 = mul_df_fma(e4r, L24);
+          P2 t = mf::two_sum(af, -m1.p);
+          const float lo = mf::sub(mf::add(k.a_.e, t.e), m1.e);
+          t = mf::two_sum(t.p, -m2.p);
+          const P2 NUM =
+              mf::fast_two_sum(t.p, mf::sub(mf::add(lo, t.e), m2.e));
+          const P2 n2d = mul_df_fma(NUM, NUM);
+          const P2 n2_ = mf::fast_two_sum(n2d.p, n2d.e);
+          const P2 tD = mul_df_fma(n2_, invD1h);
+          t = mf::two_sum(d2r.p, -tD.p);
+          const P2 D2h =
+              mf::fast_two_sum(t.p, mf::sub(mf::add(d2r.e, t.e), tD.e));
+          const bool pointok = D2h.p > mf::mul(tol, d2f);
+          const float D2hs_hi = pointok ? D2h.p : 1.0f;
+          const float D2hs_lo = pointok ? D2h.e : 0.0f;
+          const P2 uK = mul_df_fma(NUM, kap1);
+          t = mf::two_sum(q2r.p, -uK.p);
+          const P2 pi2 =
+              mf::fast_two_sum(t.p, mf::sub(mf::add(q2r.e, t.e), uK.e));
+          const P2 p2q = mul_df_fma(pi2, pi2);
+          const P2 p2q_df = mf::fast_two_sum(p2q.p, p2q.e);
+          // double-float division (dfscan._df_div, inlined)
+          const float q0 = mf::dv(p2q_df.p, D2hs_hi);
+          const P2 pe = mf::two_prod_fma(q0, D2hs_hi);
+          const float r_hi = mf::sub(
+              mf::add(mf::sub(mf::sub(p2q_df.p, pe.p), pe.e), p2q_df.e),
+              mf::mul(q0, D2hs_lo));
+          const P2 div = mf::fast_two_sum(q0, mf::dv(r_hi, D2hs_hi));
+          t = mf::two_sum(rho1.p, -div.p);
+          const float res1234 =
+              mf::add(t.p, mf::sub(mf::add(rho1.e, t.e), div.e));
+          const float pi2f = pi2.p;
+          const float wb2 = mf::dv(pi2f, D2hs_hi);
+          const float L21f = mf::mul(NUM.p, invD1h.p);
+          const float wb1 = mf::sub(kap1.p, mf::mul(L21f, wb2));
+          const float we4 = mf::sub(mf::sub(u4fs, mf::mul(L14fs, wb1)),
+                                    mf::mul(L24.p, wb2));
+          const float we3 = mf::sub(
+              mf::sub(mf::sub(u3fs, mf::mul(L43fs, we4)),
+                      mf::mul(L13fs, wb1)),
+              mf::mul(L23.p, wb2));
+          const bool feasF = (ok34s > 0.5f) && (rowoks > 0.5f) && pointok &&
+                             (pi2f >= 0.0f) && (wb1 >= 0.0f) &&
+                             (we4 >= 0.0f) && (we3 >= 0.0f);
+          const float r1234 = feasF ? mf::nan_to_inf(res1234) : mf::kInf;
 
-        float res_s = mf::jmin(base, r1x[i3 * kThreads]);
-        res_s = mf::jmin(res_s, r1x[(n3 + i4) * kThreads]);
-        res_s = mf::jmin(res_s, r1234);
-        res_s = mf::jmin(res_s, R[(r_row0 + s) * TM]);
-        res_s = mf::jmin(res_s, C[(c_col0 + s) * TN]);
-        res_s = mf::jmin(res_s, svox[v_fix0 + s]);
-        res_s = mf::nan_to_inf(res_s);
-        if (res_s < best) {
-          best = res_s;
-          best_s = s;
+          float res_s = mf::jmin(k.base, r1x[(u * nx + i3) * kThreads]);
+          res_s = mf::jmin(res_s, r1x[(u * nx + n3 + i4) * kThreads]);
+          res_s = mf::jmin(res_s, r1234);
+          res_s = mf::jmin(res_s, rrow);
+          res_s = mf::jmin(res_s, cf(c_col0 + s));
+          res_s = mf::jmin(res_s, rfix);
+          res_s = mf::nan_to_inf(res_s);
+          if (res_s < k.best) {
+            k.best = res_s;
+            k.best_s = s;
+          }
         }
       }
-      const int col = col0 + j;
-      sres[i][j] = col < n2 ? best : mf::kInf;
-      sidx[i][j] = col * ns + best_s;
+      #pragma unroll
+      for (int u = 0; u < kChains; ++u) {
+        const int j = tx + 16 * (c0 + u), col = col0 + j;
+        sres[i][j] = col < n2 ? ch[u].best : mf::kInf;
+        sidx[i][j] = col * ns + ch[u].best_s;
+      }
     }
   }
   __syncthreads();
@@ -303,11 +416,15 @@ extern "C" int mf_rescan4(const int8_t* q1a, const int8_t* q2a,
   const int ncol = 16 + 24 * nx + 4 * n3 + 13 * ns + 1;
   const int nvox = 4 + 6 * nx + 5 * ns;
   if (N1p % TM || N2pb % TN || n3 < 1 || n4 < 1 || NR < nrow ||
-      NC < ncol || NV < nvox) {
+      NC < ncol || NV < nvox || (uintptr_t)row_pack % 16 ||
+      (uintptr_t)col_pack % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem =
-      (nrow * TM + ncol * TN + nvox + nx * kThreads) * (int)sizeof(float);
+  const PackMap rmap = {nrow - 1 - 4 * ns, nrow};
+  const PackMap cmap = {ncol - 1 - ns, ncol};
+  const VoxMap vmap = {nx, nvox};
+  const int smem = (rmap.slots() * TM + cmap.slots() * TN + kChains * nx * kThreads +
+                    vmap.slots()) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       rescan4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -18,8 +18,10 @@ Floating-point flags are part of the numerics, not tuning:
 and no ``--use_fast_math``.
 
 ``LAUNCHES`` counts, per kernel, the launches made through ``launch``;
-nothing else touches it. Importing this module needs neither ``nvcc`` nor
-a GPU.
+nothing else touches it. Under a ``utils.profiling.StageTimer`` each
+launch is its own stage "kernel <name>", inside the fit path's stage that
+holds it, so a stage splits into its kernel and the torch code around
+it. Importing this module needs neither ``nvcc`` nor a GPU.
 """
 
 import ctypes
@@ -30,6 +32,8 @@ import tempfile
 import time
 
 import torch
+
+from ..utils.profiling import stage
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -162,7 +166,9 @@ def launch(name, *args):
         else:
             conv.append(int(a) if kind == "i" else float(a))
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), cname)(*conv, stream)
+    fn = getattr(library(), cname)
+    with stage("kernel " + name, "cuda"):
+        err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
     LAUNCHES[name] += 1

@@ -17,7 +17,9 @@ quantize to zero. Level products are exact integers; the bf16 corrections
 are exact bf16 x bf16 products. Both are summed so that the order does
 not matter (integers exactly, the corrections and the squared norm in
 float64 rounded once to float32), so the CUDA kernel
-(``csrc/prep.cu``) and the plain version here agree bit for bit.
+(``csrc/prep.cu``) and the plain version here agree bit for bit, up to
+the rounding of a float64 sum taken in another order
+(``testing.kernel_agreement``).
 
 ``prep_block`` dispatches on the device of ``A``: CUDA tensors launch the
 kernel (or raise), CPU tensors run ``prep_block_twin``.
@@ -36,6 +38,36 @@ from .nnls import sqrt_f32, sumsq_f32
 _LANE = 128
 #: rhs columns (signal + fixed compartments): gram rows 1..15
 MAX_RHS = 15
+#: csrc/prep.cu: a block stages a strip of W columns of one voxel, the
+#: widest of these that divides the tile and fits the shared-memory limit
+STRIP_WIDTHS = (32, 16, 8)
+SMEM_LIMIT = 212 * 1024
+_THREADS, _RHS_TILE = 256, 2
+
+
+def strip_smem_bytes(S, W, n_rhs):
+    """Dynamic shared memory of a block of ``csrc/prep.cu`` (its
+    ``smem_bytes``): the (S, W) strip and, with rhs columns, the x/r
+    plane, 4 bytes an element each (the scratch that joins the product
+    phase's partial sums lies over them and counts where it is larger),
+    and the staged rhs columns, padded to whole thread tiles, 8 bytes a
+    sample."""
+    planes = S * W * 4 * (2 if n_rhs > 0 else 1)
+    join = _THREADS * 4 * _RHS_TILE * (5 + 2 * 2) * 4 if n_rhs > 0 else 0
+    return max(planes, join) + S * (-(-n_rhs // _RHS_TILE) * _RHS_TILE) * 8
+
+
+def strip_width(S, tile, n_rhs):
+    """The strip width the kernel's launcher picks for S samples; raises
+    ``ValueError`` where no width fits (the kernel has no second path)."""
+    for W in STRIP_WIDTHS:
+        if tile % W == 0 and strip_smem_bytes(S, W, n_rhs) <= SMEM_LIMIT:
+            return W
+    raise ValueError(
+        "prep_block: S=%d samples with %d rhs columns at tile %d fit no "
+        "strip of %s columns in %d bytes of shared memory (the narrowest "
+        "needs %d)" % (S, n_rhs, tile, STRIP_WIDTHS, SMEM_LIMIT,
+                       strip_smem_bytes(S, STRIP_WIDTHS[-1], n_rhs)))
 
 
 def pack_rhs(cols):
@@ -139,6 +171,7 @@ def _prep_block_cuda(A, rhs_q, rhs_r, rhs_a, tile, planes, n_rhs):
     kernels.check(rhs_a, torch.bfloat16, (B, S, _LANE), "rhs_a")
     if not 0 <= n_rhs <= MAX_RHS:
         raise ValueError("n_rhs must be in [0, %d]" % MAX_RHS)
+    strip_width(S, tile, n_rhs)
     nt = Np // tile
     dev = A.device
     q123 = torch.empty(B, nt, S, 3 * tile, dtype=torch.int8, device=dev)

@@ -369,6 +369,65 @@ def row_scan_df3(A1, A2, a3, y, segments=_SEGMENTS):
 TN4 = 32
 
 
+def df4_pack_sizes(n3, n4):
+    """Entries of the 4-block re-scan's packs that the kernel reads, and
+    how many of them, from the front, are (hi, lo, hh, hl) quadruples
+    (``_df4_hoists``' layout): {"row": (n, quad), "col": (n, quad),
+    "vox": n}."""
+    nx, ns = n3 + n4, n3 * n4
+    return {"row": (12 + 12 * nx + 20 * ns + 1, 12 + 12 * nx + 16 * ns),
+            "col": (16 + 24 * nx + 4 * n3 + 13 * ns + 1,
+                    16 + 24 * nx + 4 * n3 + 12 * ns),
+            "vox": 4 + 6 * nx + 5 * ns}
+
+
+# The staged layout of csrc/rescan4.cu (its PackMap and VoxMap): the kernel
+# multiplies by fused multiply-add and never reads the split halves hh, hl,
+# so shared memory holds (hi, lo) of each quadruple and the single floats.
+
+def short_slots(n, quad):
+    """Slots of a row or column pack of n entries, quad of them quadruples."""
+    return quad // 2 + (n - quad)
+
+
+def short_slot(e, quad):
+    """Slot of pack entry e: hi or lo of a quadruple, or a single float."""
+    if e < quad:
+        if e % 4 >= 2:
+            raise ValueError("entry %d is a split half: not staged" % e)
+        return e // 4 * 2 + e % 4
+    return quad // 2 + (e - quad)
+
+
+def short_entry(s, quad):
+    """Pack entry held by slot s."""
+    return s // 2 * 4 + s % 2 if s < quad // 2 else quad + (s - quad // 2)
+
+
+def vox_slots(n, nx):
+    return n - 2 - 2 * nx
+
+
+def vox_slot(e, nx):
+    """Slot of voxel entry e: w's (hi, lo), per extra column x
+    (hi, lo, dX, rX), then the per-sweep floats."""
+    if e >= 4 + 6 * nx:
+        return e - 2 - 2 * nx
+    base, k = (0, e) if e < 4 else (2 + (e - 4) // 6 * 4, (e - 4) % 6)
+    if k in (2, 3):
+        raise ValueError("entry %d is a split half: not staged" % e)
+    return base + (k if k < 2 else k - 2)
+
+
+def vox_entry(s, nx):
+    if s < 2:
+        return s
+    if s < 2 + 4 * nx:
+        x, k = divmod(s - 2, 4)
+        return 4 + 6 * x + (k if k < 2 else k + 2)
+    return s + 2 + 2 * nx
+
+
 def n_segments_df4(N2, segments=1):
     """Total per-row segment count of ``row_scan_df4``'s output."""
     return col_blocks(N2, 256, 16)[0] * segments
