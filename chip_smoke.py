@@ -14,10 +14,9 @@ failure; needs one CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
 main path (its launches in that path's fit, its times at that path's rhs
-count) and, for the rows that were designed anew, the time before as a
-labelled string; an earlier ``record:`` line holds every number measured,
-and each fit prints its "prep" and "re-scan" stages split into the kernel
-and the torch code around it.
+count); an earlier ``record:`` line holds every number measured, and each
+fit prints its "prep" and "re-scan" stages split into the kernel and the
+torch code around it.
 """
 
 import dataclasses
@@ -56,13 +55,11 @@ CHAIN_OPS = {
 #: kernel 5's chain before its products were fused (Dekker products on
 #: presplit halves), for the old bound beside the new one
 CHAIN_OPS_DEKKER = {"rescan4": lambda nx, ns: 160 + 215 * nx + 215 * ns}
-#: ms a 512-voxel chunk of the rows that were designed anew, as the same
-#: phases of this script measured them on the parent design
-BEFORE = {
-    "prep_block": "10.110 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
-    "prep_block_ear": "29.197 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
-    "rescan4": "40.723 ms (NVIDIA H100 80GB HBM3, 700.00 W)",
-}
+#: samples (zero-padded) at which kernel 1 is also held at each of its
+#: narrower strip widths, with the flagship's 2 rhs columns at tile 128
+NARROW_S = {16: 900, 8: 2000}
+#: samples kept of kernel 5's operands to time it with nearly no Gram
+FEW_SAMPLES = 8
 
 RECORD = {}
 
@@ -231,19 +228,19 @@ def check_prep(rows, name, blocks, rhs, n_rhs):
     rows[name] = row(err, ms_k, ms_p, nb, ops)
 
 
-def check_prep_narrow(A, rhs, n_rhs, S_wide=2000):
-    """Kernel 1 at its narrowest strip: a few voxels of A with the
-    samples padded with zeros up to ``S_wide``, where only the narrowest
-    width fits shared memory, against the plain version."""
+def check_prep_narrow(A, rhs, n_rhs, W_want, S_wide):
+    """Kernel 1 at a narrower strip: a few voxels of A with the samples
+    padded with zeros up to ``S_wide``, where ``W_want`` is the widest
+    strip that fits shared memory, against the plain version."""
     import torch.nn.functional as F
     from microstructure_fingerprinting_torch.ops import prep
     tile, pad = 128, S_wide - A.shape[1]
     ins = [F.pad(t[:4], (0, 0, 0, pad)).contiguous()
            for t in (prep.pad_block(A, tile)[0],) + tuple(rhs)]
     W = prep.strip_width(S_wide, tile, n_rhs)
-    if W != prep.STRIP_WIDTHS[-1]:
-        raise AssertionError("S = %d does not force the narrowest strip"
-                             % S_wide)
+    if W != W_want:
+        raise AssertionError("S = %d selects strips of %d columns, not %d"
+                             % (S_wide, W, W_want))
     outs = prep.prep_block(*ins, tile, "xra", n_rhs=n_rhs)
     plain = prep.prep_block_twin(*ins, tile, "xra", n_rhs=n_rhs)
     shape = "prep %s strip width %d, %d rhs" % (tuple(ins[0].shape), W,
@@ -287,7 +284,8 @@ def phase_kernels(wl):
     rhs = prep.pack_rhs([yh, a3h[:, :, 0]])[:3]
     check_prep(rows, "prep_block", ((A1, 128, "xr"), (A2, 512, "ra")), rhs,
                2)
-    check_prep_narrow(A1, rhs, 2)
+    for W, S_wide in NARROW_S.items():
+        check_prep_narrow(A1, rhs, 2, W, S_wide)
 
     # kernel 2: the row pass at N1 = N2 = 782
     ops, _ = f32scan.rowmin_3_operands(A1, A2, a3, y)
@@ -337,11 +335,9 @@ def phase_kernels(wl):
 
 def log_rows(rows):
     RECORD.setdefault("kernels", {}).update(rows)
-    log("kernel vs plain ms (bound ms) [before its redesign] on a %d-voxel "
-        "chunk: " % CHUNK
-        + ", ".join("%s %.3f vs %.3f (%.3f, %s)%s" % (
-            name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
-            " [%s]" % BEFORE[name] if name in BEFORE else "")
+    log("kernel vs plain ms (bound ms) on a %d-voxel chunk: " % CHUNK
+        + ", ".join("%s %.3f vs %.3f (%.3f, %s)" % (
+            name, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"])
             for name, r in rows.items()))
 
 
@@ -428,6 +424,16 @@ def phase_ear_kernels(wl, sig_ear):
                 nbytes(ops, outs), scan_ops(
                     "rescan4", B, S, ops[0].shape[2], ops[4].shape[2], nx,
                     ns, chain=CHAIN_OPS_DEKKER))[0]
+            # the same launch on the first few samples (operands 0-7 hold
+            # the sample axis): chains and staging with nearly no Gram,
+            # so the rest of the full time is the Gram tile's share
+            few = tuple(o[:, :FEW_SAMPLES].contiguous() if k < 8 else o
+                        for k, o in enumerate(ops))
+            RECORD["rescan4_few_samples_ms"] = [
+                FEW_SAMPLES, timed(lambda: rescan.rescan4_rows(*few, **kw))]
+            log("rescan4 on %d of %d samples: %.3f ms of %.3f" % (
+                FEW_SAMPLES, S, RECORD["rescan4_few_samples_ms"][1],
+                rows["rescan4"]["ms"]))
         else:
             RECORD["rescan4_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
@@ -572,13 +578,23 @@ def phase_fit(wl, sig_ear=None):
         "%s %.1f" % kv for kv in stages.items()
         if not kv[0].startswith("kernel ")))
     # each launch is a stage of its own inside the stage that holds it:
-    # what is left of "prep" and "re-scan" is their torch code (hoists)
+    # what is left of "prep" and "re-scan" is their torch code (hoists).
+    # Every launch of the fit must lie inside that stage, or the split
+    # would understate the hoists
+    split = {}
     for stage_name, kernel in (("prep", path[0]), ("re-scan", path[2])):
-        k_ms = stages["kernel " + kernel]
-        log("%s: stage %s = kernel %s %.1f ms + torch hoists %.1f ms" % (
-            label, stage_name, kernel, k_ms, stages[stage_name] - k_ms))
+        k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
+        if n != launches[kernel]:
+            raise AssertionError(
+                "%d of the fit's %d launches of %s lie inside stage %s"
+                % (n, launches[kernel], kernel, stage_name))
+        split[stage_name] = [k_ms, stages[stage_name] - k_ms]
+        log("%s: stage %s = kernel %s %.1f ms (%d launches) + torch hoists "
+            "%.1f ms" % (label, stage_name, kernel, k_ms, n,
+                         split[stage_name][1]))
     RECORD[label] = dict(cold_fit_s=cold_s, warm_fit_s=warm_s,
                          voxels_per_s=N_VOX / warm_s, stages_ms=stages,
+                         kernel_and_hoists_ms=split,
                          launches=launches, n_ties=n_tie,
                          min_r2=float(r2.min()), card=card)
     return launches
@@ -701,8 +717,7 @@ def main():
         dict(name=name, route="cuda",
              source="microstructure_fingerprinting_torch/" + src,
              replaces="microstructure_fingerprinting_tpu/" + tpu,
-             launches=launches[name], **rows[name],
-             **({"before": BEFORE[name]} if name in BEFORE else {}))
+             launches=launches[name], **rows[name])
         for name, (src, tpu) in KERNEL_META.items()]}
     RECORD["total_s"] = time.time() - t_all
     log("record: " + json.dumps(RECORD))

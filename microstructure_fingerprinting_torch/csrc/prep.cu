@@ -17,7 +17,7 @@
 // instruction on this card). The design:
 //   * one read of A: a block owns a strip of W neighbouring columns of one
 //     voxel and brings the whole (S, W) strip into shared memory by cp.async,
-//     all S rows in flight together; W is the widest of kStripWidths whose
+//     all S rows in flight together; W is the widest of 32, 16 and 8 whose
 //     strip, quantised planes and staged rhs fit kSmemLimit
 //     (ops/prep.strip_width is the same rule; beyond it the launch is
 //     refused, there is no second path). Narrower strips are slower;
@@ -63,7 +63,6 @@ constexpr int kLane = 128;
 constexpr int kMaxRhs = 15;   // rhs columns (gram rows 1..15)
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kRhsTile = 2;   // rhs columns of a product-phase thread
-constexpr int kStripWidths[3] = {32, 16, 8};   // widest first
 // dynamic shared memory of a block, bytes (the SM's 227 KB less the 10 KB
 // of static arrays below and the block's reserved 1 KB)
 constexpr int kSmemLimit = 212 * 1024;
@@ -444,16 +443,18 @@ extern "C" int mf_prep_block(const float* A, const int8_t* rhs_q,
     return (int)cudaErrorInvalidValue;
   }
   // the widest strip that divides the tile and fits shared memory
-  for (int W : kStripWidths) {
-    if (tile % W || smem_bytes(S, W, n_rhs) > kSmemLimit) continue;
-    if (W == 32) {
-      return launch<32>(A, rhs_q, rhs_r, rhs_a, q123, xbf, rbf, abf, gram, B,
-                        S, Np, tile, n_rhs, stream);
-    }
-    if (W == 16) {
-      return launch<16>(A, rhs_q, rhs_r, rhs_a, q123, xbf, rbf, abf, gram, B,
-                        S, Np, tile, n_rhs, stream);
-    }
+  auto fits = [&](int W) {
+    return tile % W == 0 && smem_bytes(S, W, n_rhs) <= kSmemLimit;
+  };
+  if (fits(32)) {
+    return launch<32>(A, rhs_q, rhs_r, rhs_a, q123, xbf, rbf, abf, gram, B,
+                      S, Np, tile, n_rhs, stream);
+  }
+  if (fits(16)) {
+    return launch<16>(A, rhs_q, rhs_r, rhs_a, q123, xbf, rbf, abf, gram, B,
+                      S, Np, tile, n_rhs, stream);
+  }
+  if (fits(8)) {
     return launch<8>(A, rhs_q, rhs_r, rhs_a, q123, xbf, rbf, abf, gram, B, S,
                      Np, tile, n_rhs, stream);
   }

@@ -59,10 +59,6 @@ namespace {
 constexpr int TM = mf::kDfTM, TN = 32, CN = TN / 16;
 constexpr int kThreads = mf::kDfThreads;
 static_assert(CN == 2, "a thread owns 2 x 2 points");
-// blocks an SM (the register cap that follows: 128 a thread), and the
-// columns of a thread that run through the loops together
-constexpr int kBlocksPerSM = 2;
-constexpr int kChains = 2;
 
 using mf::P2;
 using mf::mul_df_fma;
@@ -119,7 +115,8 @@ struct Chain {
   int best_s;
 };
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+// two blocks an SM: at most 128 registers a thread
+__global__ void __launch_bounds__(kThreads, 2)
 rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
                const float* __restrict__ a1h, const float* __restrict__ ra,
                const int8_t* __restrict__ q1b, const int8_t* __restrict__ q2b,
@@ -147,8 +144,8 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
   extern __shared__ __align__(16) float dyn[];
   float* srow = dyn;                          // [rmap.slots()][TM]
   float* scol = srow + rmap.slots() * TM;     // [cmap.slots()][TN]
-  float* sr1x = scol + cmap.slots() * TN;     // [kChains][nx][kThreads]
-  float* svox = sr1x + kChains * nx * kThreads;         // [vmap.slots()]
+  float* sr1x = scol + cmap.slots() * TN;     // [CN][nx][kThreads]
+  float* svox = sr1x + CN * nx * kThreads;    // [vmap.slots()]
   __shared__ mf::GramDfSmem<TN> gsm;
   __shared__ float sres[TM][TN + 1];
   __shared__ int sidx[TM][TN + 1];
@@ -180,7 +177,7 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
   auto vp = [&](int e) { return P2{vf(e), vf(e + 1)}; };
   const P2 w_ = vp(0);
   const float wf = w_.p;
-  float* r1x = sr1x + tid;       // r1x[(u * nx + x) * kThreads]
+  float* r1x = sr1x + tid;       // r1x[(c * nx + x) * kThreads]
 
   #pragma unroll 1
   for (int r = 0; r < 2; ++r) {
@@ -191,195 +188,191 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
     auto rp = [&](int e) { return P2{rf(e), rf(e + 1)}; };
     const P2 d1 = rp(0), p_ = rp(4), p2 = rp(8);
     const float d1f = d1.p, pf = p_.p;
+    // the row's CN columns run through the loops together: independent
+    // chains, so one's latency hides under the other's
+    Chain ch[CN];
+    #pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      Chain& k = ch[c];
+      k.C = scol + tx + 16 * c;
+      auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
+      auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
+      k.a_ = {
+          r ? (c ? g[1][1].hi : g[1][0].hi) : (c ? g[0][1].hi : g[0][0].hi),
+          r ? (c ? g[1][1].lo : g[1][0].lo) : (c ? g[0][1].lo : g[0][0].lo)};
+      const P2 d2 = cp(0), q_ = cp(4), q2 = cp(8), d2w = cp(12);
+      const float d2f = d2.p, qf = q_.p, af = k.a_.p;
+      k.d2f = d2f;
+      k.qf = qf;
+      const P2 a2 = mul_df_fma(k.a_, k.a_);
+      k.a2_ = mf::fast_two_sum(a2.p, a2.e);
+      const P2 pq = mul_df_fma(p_, q_);
+      const P2 pq_ = mf::fast_two_sum(pq.p, pq.e);
+
+      // ---- base: {1,2} (unconstrained-sign feasibility), row/col/empty
+      const P2 apq = mul_df_fma(k.a_, pq_);
+      const P2 parts[5] = {mul_df_fma(d1, d2w),
+                           mf::neg(mul_df_fma(k.a2_, w_)), twice(apq),
+                           mf::neg(mul_df_fma(d1, q2)),
+                           mf::neg(mul_df_fma(p2, d2))};
+      const float num12 = mf::acc(parts);
+      const float det2 = mf::sub(mf::mul(d1f, d2f), mf::mul(af, af));
+      const float n1w = mf::sub(mf::mul(d2f, pf), mf::mul(af, qf));
+      const float n2w = mf::sub(mf::mul(d1f, qf), mf::mul(af, pf));
+      const bool feas12 = (det2 > mf::mul(mf::mul(tol, d1f), d2f)) &&
+                          (n1w >= 0.0f) && (n2w >= 0.0f);
+      const float r12 = feas12 ? mf::dv(num12, det2) : mf::kInf;
+      k.base = mf::jmin(mf::nan_to_inf(r12), rf(r_res1));
+      k.base = mf::jmin(k.base, cf(c_res2));
+      k.base = mf::jmin(k.base, wf);
+      // U1 = q^2 - d2*w (column-level, X-independent)
+      k.U1 = mf::df_add(q2, mf::neg(d2w));
+      k.best = mf::kInf;
+      k.best_s = 0;
+    }
+
+    // ---- supports {1,2,X} per extra column X (i3's first, then i4's)
     #pragma unroll 1
-    for (int c0 = 0; c0 < CN; c0 += kChains) {
-      // kChains of the thread's columns run through the loops together:
-      // independent chains, so one's latency hides under the other's
-      Chain ch[kChains];
+    for (int x = 0; x < nx; ++x) {
+      const P2 bX = rp(12 + 12 * x), bX2 = rp(16 + 12 * x);
+      const P2 bXp = rp(20 + 12 * x);
+      const int cx = c_x0 + 24 * x;
+      const int vx = v_x0 + 6 * x;
+      const P2 C2X = vp(vx);
+      const float dXf = vf(vx + 4), rXf = vf(vx + 5);
+      const float bf = bX.p;
       #pragma unroll
-      for (int u = 0; u < kChains; ++u) {
-        Chain& k = ch[u];
-        const int c = c0 + u;
-        k.C = scol + tx + 16 * c;
+      for (int c = 0; c < CN; ++c) {
+        const Chain& k = ch[c];
+        auto cp = [&](int e) {
+          return P2{k.C[cmap.slot(e) * TN], k.C[cmap.slot(e + 1) * TN]};
+        };
+        const float af = k.a_.p, d2f = k.d2f, qf = k.qf;
+        const P2 U2X = cp(cx), U3X = cp(cx + 4), U4X = cp(cx + 8);
+        const P2 V1X = cp(cx + 12), V2X = cp(cx + 16), cX = cp(cx + 20);
+        const P2 m1 = mul_df_fma(bX, V1X), m2 = mul_df_fma(p_, V2X);
+        const P2 st = mf::two_sum(m1.p, m2.p);
+        const P2 s_ =
+            mf::fast_two_sum(st.p, mf::add(mf::add(st.e, m1.e), m2.e));
+        const P2 parts[6] = {mul_df_fma(bX2, k.U1), mul_df_fma(bXp, U2X),
+                             mul_df_fma(d1, U3X),   mul_df_fma(p2, U4X),
+                             mul_df_fma(k.a_, s_),  mul_df_fma(k.a2_, C2X)};
+        const float det4 = mf::acc(parts);
+        const float cfX = cX.p;
+        using mf::add;
+        using mf::mul;
+        using mf::sub;
+        const float det3 =
+            add(sub(mul(d1f, sub(mul(d2f, dXf), mul(cfX, cfX))),
+                    mul(af, sub(mul(af, dXf), mul(cfX, bf)))),
+                mul(bf, sub(mul(af, cfX), mul(d2f, bf))));
+        const float D1 =
+            add(sub(mul(pf, sub(mul(d2f, dXf), mul(cfX, cfX))),
+                    mul(qf, sub(mul(af, dXf), mul(cfX, bf)))),
+                mul(rXf, sub(mul(af, cfX), mul(d2f, bf))));
+        const float D2 =
+            sub(add(mul(-pf, sub(mul(af, dXf), mul(bf, cfX))),
+                    mul(qf, sub(mul(d1f, dXf), mul(bf, bf)))),
+                mul(rXf, sub(mul(d1f, cfX), mul(af, bf))));
+        const float D3 =
+            add(sub(mul(pf, sub(mul(af, cfX), mul(bf, d2f))),
+                    mul(qf, sub(mul(d1f, cfX), mul(bf, af)))),
+                mul(rXf, sub(mul(d1f, d2f), mul(af, af))));
+        const bool feas = (det3 > mul(mul(mul(tol, d1f), d2f), dXf)) &&
+                          (D1 >= 0.0f) && (D2 >= 0.0f) && (D3 >= 0.0f);
+        r1x[(c * nx + x) * kThreads] =
+            mf::nan_to_inf(feas ? mf::dv(det4, det3) : mf::kInf);
+      }
+    }
+
+    // ---- sweeps: {1,2,3,4} LDL' finish + per-sweep folds ----
+    #pragma unroll 1
+    for (int s = 0; s < ns; ++s) {
+      const int i3 = s / n4, i4 = s - i3 * n4;
+      const P2 b3 = rp(12 + 12 * i3);
+      const int rl = r_ldl + 16 * s, cl = c_ldl + 12 * s;
+      const P2 e4r = rp(rl), kap1 = rp(rl + 4), invD1h = rp(rl + 8);
+      const P2 rho1 = rp(rl + 12);
+      const float ok34s = vf(v_s0 + 4 * s), u3fs = vf(v_s0 + 4 * s + 1);
+      const float u4fs = vf(v_s0 + 4 * s + 2);
+      const float L43fs = vf(v_s0 + 4 * s + 3);
+      const float rowoks = rf(r_ok + 3 * s);
+      const float L13fs = rf(r_ok + 3 * s + 1);
+      const float L14fs = rf(r_ok + 3 * s + 2);
+      const float rrow = rf(r_row0 + s), rfix = vf(v_fix0 + s);
+      #pragma unroll
+      for (int c = 0; c < CN; ++c) {
+        Chain& k = ch[c];
         auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
         auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
-        k.a_ = {
-            r ? (c ? g[1][1].hi : g[1][0].hi) : (c ? g[0][1].hi : g[0][0].hi),
-            r ? (c ? g[1][1].lo : g[1][0].lo) : (c ? g[0][1].lo : g[0][0].lo)};
-        const P2 d2 = cp(0), q_ = cp(4), q2 = cp(8), d2w = cp(12);
-        const float d2f = d2.p, qf = q_.p, af = k.a_.p;
-        k.d2f = d2f;
-        k.qf = qf;
-        const P2 a2 = mul_df_fma(k.a_, k.a_);
-        k.a2_ = mf::fast_two_sum(a2.p, a2.e);
-        const P2 pq = mul_df_fma(p_, q_);
-        const P2 pq_ = mf::fast_two_sum(pq.p, pq.e);
+        const float af = k.a_.p, d2f = k.d2f;
+        const P2 L23 = cp(c_l23 + 4 * i3);
+        const P2 L24 = cp(cl), d2r = cp(cl + 4), q2r = cp(cl + 8);
 
-        // ---- base: {1,2} (unconstrained-sign feasibility), row/col/empty
-        const P2 apq = mul_df_fma(k.a_, pq_);
-        const P2 parts[5] = {mul_df_fma(d1, d2w),
-                             mf::neg(mul_df_fma(k.a2_, w_)), twice(apq),
-                             mf::neg(mul_df_fma(d1, q2)),
-                             mf::neg(mul_df_fma(p2, d2))};
-        const float num12 = mf::acc(parts);
-        const float det2 = mf::sub(mf::mul(d1f, d2f), mf::mul(af, af));
-        const float n1w = mf::sub(mf::mul(d2f, pf), mf::mul(af, qf));
-        const float n2w = mf::sub(mf::mul(d1f, qf), mf::mul(af, pf));
-        const bool feas12 = (det2 > mf::mul(mf::mul(tol, d1f), d2f)) &&
-                            (n1w >= 0.0f) && (n2w >= 0.0f);
-        const float r12 = feas12 ? mf::dv(num12, det2) : mf::kInf;
-        k.base = mf::jmin(mf::nan_to_inf(r12), rf(r_res1));
-        k.base = mf::jmin(k.base, cf(c_res2));
-        k.base = mf::jmin(k.base, wf);
-        // U1 = q^2 - d2*w (column-level, X-independent)
-        k.U1 = mf::df_add(q2, mf::neg(d2w));
-        k.best = mf::kInf;
-        k.best_s = 0;
-      }
+        const P2 m1 = mul_df_fma(b3, L23), m2 = mul_df_fma(e4r, L24);
+        P2 t = mf::two_sum(af, -m1.p);
+        const float lo = mf::sub(mf::add(k.a_.e, t.e), m1.e);
+        t = mf::two_sum(t.p, -m2.p);
+        const P2 NUM =
+            mf::fast_two_sum(t.p, mf::sub(mf::add(lo, t.e), m2.e));
+        const P2 n2d = mul_df_fma(NUM, NUM);
+        const P2 n2_ = mf::fast_two_sum(n2d.p, n2d.e);
+        const P2 tD = mul_df_fma(n2_, invD1h);
+        t = mf::two_sum(d2r.p, -tD.p);
+        const P2 D2h =
+            mf::fast_two_sum(t.p, mf::sub(mf::add(d2r.e, t.e), tD.e));
+        const bool pointok = D2h.p > mf::mul(tol, d2f);
+        const float D2hs_hi = pointok ? D2h.p : 1.0f;
+        const float D2hs_lo = pointok ? D2h.e : 0.0f;
+        const P2 uK = mul_df_fma(NUM, kap1);
+        t = mf::two_sum(q2r.p, -uK.p);
+        const P2 pi2 =
+            mf::fast_two_sum(t.p, mf::sub(mf::add(q2r.e, t.e), uK.e));
+        const P2 p2q = mul_df_fma(pi2, pi2);
+        const P2 p2q_df = mf::fast_two_sum(p2q.p, p2q.e);
+        // double-float division (dfscan._df_div, inlined)
+        const float q0 = mf::dv(p2q_df.p, D2hs_hi);
+        const P2 pe = mf::two_prod_fma(q0, D2hs_hi);
+        const float r_hi = mf::sub(
+            mf::add(mf::sub(mf::sub(p2q_df.p, pe.p), pe.e), p2q_df.e),
+            mf::mul(q0, D2hs_lo));
+        const P2 div = mf::fast_two_sum(q0, mf::dv(r_hi, D2hs_hi));
+        t = mf::two_sum(rho1.p, -div.p);
+        const float res1234 =
+            mf::add(t.p, mf::sub(mf::add(rho1.e, t.e), div.e));
+        const float pi2f = pi2.p;
+        const float wb2 = mf::dv(pi2f, D2hs_hi);
+        const float L21f = mf::mul(NUM.p, invD1h.p);
+        const float wb1 = mf::sub(kap1.p, mf::mul(L21f, wb2));
+        const float we4 = mf::sub(mf::sub(u4fs, mf::mul(L14fs, wb1)),
+                                  mf::mul(L24.p, wb2));
+        const float we3 = mf::sub(
+            mf::sub(mf::sub(u3fs, mf::mul(L43fs, we4)),
+                    mf::mul(L13fs, wb1)),
+            mf::mul(L23.p, wb2));
+        const bool feasF = (ok34s > 0.5f) && (rowoks > 0.5f) && pointok &&
+                           (pi2f >= 0.0f) && (wb1 >= 0.0f) &&
+                           (we4 >= 0.0f) && (we3 >= 0.0f);
+        const float r1234 = feasF ? mf::nan_to_inf(res1234) : mf::kInf;
 
-      // ---- supports {1,2,X} per extra column X (i3's first, then i4's)
-      #pragma unroll 1
-      for (int x = 0; x < nx; ++x) {
-        const P2 bX = rp(12 + 12 * x), bX2 = rp(16 + 12 * x);
-        const P2 bXp = rp(20 + 12 * x);
-        const int cx = c_x0 + 24 * x;
-        const int vx = v_x0 + 6 * x;
-        const P2 C2X = vp(vx);
-        const float dXf = vf(vx + 4), rXf = vf(vx + 5);
-        const float bf = bX.p;
-        #pragma unroll
-        for (int u = 0; u < kChains; ++u) {
-          const Chain& k = ch[u];
-          auto cp = [&](int e) {
-            return P2{k.C[cmap.slot(e) * TN], k.C[cmap.slot(e + 1) * TN]};
-          };
-          const float af = k.a_.p, d2f = k.d2f, qf = k.qf;
-          const P2 U2X = cp(cx), U3X = cp(cx + 4), U4X = cp(cx + 8);
-          const P2 V1X = cp(cx + 12), V2X = cp(cx + 16), cX = cp(cx + 20);
-          const P2 m1 = mul_df_fma(bX, V1X), m2 = mul_df_fma(p_, V2X);
-          const P2 st = mf::two_sum(m1.p, m2.p);
-          const P2 s_ =
-              mf::fast_two_sum(st.p, mf::add(mf::add(st.e, m1.e), m2.e));
-          const P2 parts[6] = {mul_df_fma(bX2, k.U1), mul_df_fma(bXp, U2X),
-                               mul_df_fma(d1, U3X),   mul_df_fma(p2, U4X),
-                               mul_df_fma(k.a_, s_),  mul_df_fma(k.a2_, C2X)};
-          const float det4 = mf::acc(parts);
-          const float cfX = cX.p;
-          using mf::add;
-          using mf::mul;
-          using mf::sub;
-          const float det3 =
-              add(sub(mul(d1f, sub(mul(d2f, dXf), mul(cfX, cfX))),
-                      mul(af, sub(mul(af, dXf), mul(cfX, bf)))),
-                  mul(bf, sub(mul(af, cfX), mul(d2f, bf))));
-          const float D1 =
-              add(sub(mul(pf, sub(mul(d2f, dXf), mul(cfX, cfX))),
-                      mul(qf, sub(mul(af, dXf), mul(cfX, bf)))),
-                  mul(rXf, sub(mul(af, cfX), mul(d2f, bf))));
-          const float D2 =
-              sub(add(mul(-pf, sub(mul(af, dXf), mul(bf, cfX))),
-                      mul(qf, sub(mul(d1f, dXf), mul(bf, bf)))),
-                  mul(rXf, sub(mul(d1f, cfX), mul(af, bf))));
-          const float D3 =
-              add(sub(mul(pf, sub(mul(af, cfX), mul(bf, d2f))),
-                      mul(qf, sub(mul(d1f, cfX), mul(bf, af)))),
-                  mul(rXf, sub(mul(d1f, d2f), mul(af, af))));
-          const bool feas = (det3 > mul(mul(mul(tol, d1f), d2f), dXf)) &&
-                            (D1 >= 0.0f) && (D2 >= 0.0f) && (D3 >= 0.0f);
-          r1x[(u * nx + x) * kThreads] =
-              mf::nan_to_inf(feas ? mf::dv(det4, det3) : mf::kInf);
+        float res_s = mf::jmin(k.base, r1x[(c * nx + i3) * kThreads]);
+        res_s = mf::jmin(res_s, r1x[(c * nx + n3 + i4) * kThreads]);
+        res_s = mf::jmin(res_s, r1234);
+        res_s = mf::jmin(res_s, rrow);
+        res_s = mf::jmin(res_s, cf(c_col0 + s));
+        res_s = mf::jmin(res_s, rfix);
+        res_s = mf::nan_to_inf(res_s);
+        if (res_s < k.best) {
+          k.best = res_s;
+          k.best_s = s;
         }
       }
-
-      // ---- sweeps: {1,2,3,4} LDL' finish + per-sweep folds ----
-      #pragma unroll 1
-      for (int s = 0; s < ns; ++s) {
-        const int i3 = s / n4, i4 = s - i3 * n4;
-        const P2 b3 = rp(12 + 12 * i3);
-        const int rl = r_ldl + 16 * s, cl = c_ldl + 12 * s;
-        const P2 e4r = rp(rl), kap1 = rp(rl + 4), invD1h = rp(rl + 8);
-        const P2 rho1 = rp(rl + 12);
-        const float ok34s = vf(v_s0 + 4 * s), u3fs = vf(v_s0 + 4 * s + 1);
-        const float u4fs = vf(v_s0 + 4 * s + 2);
-        const float L43fs = vf(v_s0 + 4 * s + 3);
-        const float rowoks = rf(r_ok + 3 * s);
-        const float L13fs = rf(r_ok + 3 * s + 1);
-        const float L14fs = rf(r_ok + 3 * s + 2);
-        const float rrow = rf(r_row0 + s), rfix = vf(v_fix0 + s);
-        #pragma unroll
-        for (int u = 0; u < kChains; ++u) {
-          Chain& k = ch[u];
-          auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
-          auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
-          const float af = k.a_.p, d2f = k.d2f;
-          const P2 L23 = cp(c_l23 + 4 * i3);
-          const P2 L24 = cp(cl), d2r = cp(cl + 4), q2r = cp(cl + 8);
-
-          const P2 m1 = mul_df_fma(b3, L23), m2 = mul_df_fma(e4r, L24);
-          P2 t = mf::two_sum(af, -m1.p);
-          const float lo = mf::sub(mf::add(k.a_.e, t.e), m1.e);
-          t = mf::two_sum(t.p, -m2.p);
-          const P2 NUM =
-              mf::fast_two_sum(t.p, mf::sub(mf::add(lo, t.e), m2.e));
-          const P2 n2d = mul_df_fma(NUM, NUM);
-          const P2 n2_ = mf::fast_two_sum(n2d.p, n2d.e);
-          const P2 tD = mul_df_fma(n2_, invD1h);
-          t = mf::two_sum(d2r.p, -tD.p);
-          const P2 D2h =
-              mf::fast_two_sum(t.p, mf::sub(mf::add(d2r.e, t.e), tD.e));
-          const bool pointok = D2h.p > mf::mul(tol, d2f);
-          const float D2hs_hi = pointok ? D2h.p : 1.0f;
-          const float D2hs_lo = pointok ? D2h.e : 0.0f;
-          const P2 uK = mul_df_fma(NUM, kap1);
-          t = mf::two_sum(q2r.p, -uK.p);
-          const P2 pi2 =
-              mf::fast_two_sum(t.p, mf::sub(mf::add(q2r.e, t.e), uK.e));
-          const P2 p2q = mul_df_fma(pi2, pi2);
-          const P2 p2q_df = mf::fast_two_sum(p2q.p, p2q.e);
-          // double-float division (dfscan._df_div, inlined)
-          const float q0 = mf::dv(p2q_df.p, D2hs_hi);
-          const P2 pe = mf::two_prod_fma(q0, D2hs_hi);
-          const float r_hi = mf::sub(
-              mf::add(mf::sub(mf::sub(p2q_df.p, pe.p), pe.e), p2q_df.e),
-              mf::mul(q0, D2hs_lo));
-          const P2 div = mf::fast_two_sum(q0, mf::dv(r_hi, D2hs_hi));
-          t = mf::two_sum(rho1.p, -div.p);
-          const float res1234 =
-              mf::add(t.p, mf::sub(mf::add(rho1.e, t.e), div.e));
-          const float pi2f = pi2.p;
-          const float wb2 = mf::dv(pi2f, D2hs_hi);
-          const float L21f = mf::mul(NUM.p, invD1h.p);
-          const float wb1 = mf::sub(kap1.p, mf::mul(L21f, wb2));
-          const float we4 = mf::sub(mf::sub(u4fs, mf::mul(L14fs, wb1)),
-                                    mf::mul(L24.p, wb2));
-          const float we3 = mf::sub(
-              mf::sub(mf::sub(u3fs, mf::mul(L43fs, we4)),
-                      mf::mul(L13fs, wb1)),
-              mf::mul(L23.p, wb2));
-          const bool feasF = (ok34s > 0.5f) && (rowoks > 0.5f) && pointok &&
-                             (pi2f >= 0.0f) && (wb1 >= 0.0f) &&
-                             (we4 >= 0.0f) && (we3 >= 0.0f);
-          const float r1234 = feasF ? mf::nan_to_inf(res1234) : mf::kInf;
-
-          float res_s = mf::jmin(k.base, r1x[(u * nx + i3) * kThreads]);
-          res_s = mf::jmin(res_s, r1x[(u * nx + n3 + i4) * kThreads]);
-          res_s = mf::jmin(res_s, r1234);
-          res_s = mf::jmin(res_s, rrow);
-          res_s = mf::jmin(res_s, cf(c_col0 + s));
-          res_s = mf::jmin(res_s, rfix);
-          res_s = mf::nan_to_inf(res_s);
-          if (res_s < k.best) {
-            k.best = res_s;
-            k.best_s = s;
-          }
-        }
-      }
-      #pragma unroll
-      for (int u = 0; u < kChains; ++u) {
-        const int j = tx + 16 * (c0 + u), col = col0 + j;
-        sres[i][j] = col < n2 ? ch[u].best : mf::kInf;
-        sidx[i][j] = col * ns + ch[u].best_s;
-      }
+    }
+    #pragma unroll
+    for (int c = 0; c < CN; ++c) {
+      const int j = tx + 16 * c, col = col0 + j;
+      sres[i][j] = col < n2 ? ch[c].best : mf::kInf;
+      sidx[i][j] = col * ns + ch[c].best_s;
     }
   }
   __syncthreads();
@@ -423,8 +416,8 @@ extern "C" int mf_rescan4(const int8_t* q1a, const int8_t* q2a,
   const PackMap rmap = {nrow - 1 - 4 * ns, nrow};
   const PackMap cmap = {ncol - 1 - ns, ncol};
   const VoxMap vmap = {nx, nvox};
-  const int smem = (rmap.slots() * TM + cmap.slots() * TN + kChains * nx * kThreads +
-                    vmap.slots()) * (int)sizeof(float);
+  const int smem = (rmap.slots() * TM + cmap.slots() * TN +
+                    CN * nx * kThreads + vmap.slots()) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       rescan4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

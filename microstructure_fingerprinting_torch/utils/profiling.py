@@ -4,7 +4,9 @@
 ``StageTimer`` is active; inside one, each region on a CUDA device is
 bracketed by two ``torch.cuda.Event``s recorded on the current stream, so
 the sums are device time between the events, without host
-synchronisation inside the path. CPU regions are not timed.
+synchronisation inside the path. CPU regions are not timed. A region
+also records the region it was opened in, so that a stage can be split
+exactly into the regions nested in it (``StageTimer.inside``).
 """
 
 import contextlib
@@ -15,10 +17,12 @@ _ACTIVE = []
 
 
 class StageTimer:
-    """Collects (stage, start event, end event) while active."""
+    """Collects (stage, start event, end event, enclosing stage) while
+    active."""
 
     def __init__(self):
         self.events = []
+        self.open = []
 
     def __enter__(self):
         _ACTIVE.append(self)
@@ -31,8 +35,19 @@ class StageTimer:
         """Milliseconds per stage, summed over its regions (synchronizes)."""
         torch.cuda.synchronize()
         out = {}
-        for name, s, e in self.events:
+        for name, s, e, _parent in self.events:
             out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        return out
+
+    def inside(self, parent):
+        """{stage: (milliseconds, regions)} of the regions opened directly
+        inside a region of stage ``parent`` (synchronizes)."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, s, e, p in self.events:
+            if p == parent:
+                ms, n = out.get(name, (0.0, 0))
+                out[name] = (ms + s.elapsed_time(e), n + 1)
         return out
 
 
@@ -43,7 +58,13 @@ def stage(name, device):
         return
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    timer = _ACTIVE[-1]
+    parent = timer.open[-1] if timer.open else None
+    timer.open.append(name)
     s.record()
-    yield
+    try:
+        yield
+    finally:
+        timer.open.pop()
     e.record()
-    _ACTIVE[-1].events.append((name, s, e))
+    timer.events.append((name, s, e, parent))

@@ -87,8 +87,11 @@ def test_gram_does_not_depend_on_how_samples_are_sliced(rng, monkeypatch,
 def _source():
     with open(CU) as f:
         text = f.read()
-    widths = tuple(int(w) for w in re.search(
-        r"kStripWidths\[3\] = \{(\d+), (\d+), (\d+)\}", text).groups())
+    # the launcher tries the instantiated widths in the order written
+    widths = tuple(int(w) for w in re.findall(r"return launch<(\d+)>\(",
+                                              text))
+    assert widths == tuple(int(w) for w in re.findall(r"if \(fits\((\d+)\)\)",
+                                                      text))
     limit = eval(re.search(r"kSmemLimit = ([\d *]+);", text).group(1))
     threads = int(re.search(r"kThreads = (\d+)", text).group(1))
     rhs_tile = int(re.search(r"kRhsTile = (\d+)", text).group(1))

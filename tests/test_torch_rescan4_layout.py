@@ -148,10 +148,12 @@ def test_layout_is_the_sources(n3, n4):
         c = {k: int(v) for k, v in re.findall(
             r"(kDfTM|kDfThreads) = (\d+)", open(os.path.join(
                 os.path.dirname(CU), "gram_df.cuh")).read())}
-        chains = int(re.search(r"kChains = (\d+)", text).group(1))
-        assert "kChains * nx * kThreads" in launcher
+        # a thread's CN = TN / 16 columns each keep nx residuals
+        chains = eval(re.search(r"TN = (\d+), CN = TN / 16;", text).group(1)
+                      + " // 16")
+        assert chains == 2 and "CN * nx * kThreads" in launcher
         dyn = 4 * (rs * c["kDfTM"] + cs * 32 + chains * nx * c["kDfThreads"]
                    + trescan.vox_slots(sizes["vox"], nx))
-        assert "kBlocksPerSM = 2" in text
+        assert "__launch_bounds__(kThreads, 2)" in text
         # static arrays (Gram staging, tile results) ~19 KB, 1 KB reserved
         assert 2 * (dyn + 19 * 1024 + 1024) <= 227 * 1024
