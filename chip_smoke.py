@@ -14,9 +14,11 @@ failure; needs one CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
 main path (its launches in that path's fit, its times at that path's rhs
-count); an earlier ``record:`` line holds every number measured, and each
-fit prints its "prep" and "re-scan" stages split into the kernel and the
-torch code around it.
+count); an earlier ``record:`` line holds every number measured. Each main
+path is fitted once cold (launch counts, recovery) and WARM_FITS times warm
+under the stage timer: voxels/s and every stage as median and min-max, the
+"prep" and "re-scan" stages split into the kernel and the torch code
+around it.
 """
 
 import dataclasses
@@ -48,18 +50,27 @@ PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 #: nx = n3 + n4 extra columns, ns = n3 * n4 sweeps
 CHAIN_OPS = {
     "rowmin3": lambda nx, ns: 70,
-    "rescan3": lambda nx, ns: 400,
+    "rescan3": lambda nx, ns: 521,
     "rowmin4": lambda nx, ns: 30 + 37 * nx + 47 * ns,
     "rescan4": lambda nx, ns: 120 + 173 * nx + 145 * ns,
 }
-#: kernel 5's chain before its products were fused (Dekker products on
-#: presplit halves), for the old bound beside the new one
-CHAIN_OPS_DEKKER = {"rescan4": lambda nx, ns: 160 + 215 * nx + 215 * ns}
+#: the re-scans' chains before their products were fused (Dekker products
+#: on presplit halves), for the old bounds beside the new ones. Kernel 3's
+#: 400 is the count its bound rested on while it held that chain; counted
+#: as ``CHAIN_OPS`` is now (36 products of 13 instead of 7 operations and 6
+#: splits of 4) that chain was 761 operations
+CHAIN_OPS_DEKKER = {"rescan3": lambda nx, ns: 400,
+                    "rescan4": lambda nx, ns: 160 + 215 * nx + 215 * ns}
 #: samples (zero-padded) at which kernel 1 is also held at each of its
 #: narrower strip widths, with the flagship's 2 rhs columns at tile 128
 NARROW_S = {16: 900, 8: 2000}
-#: samples kept of kernel 5's operands to time it with nearly no Gram
+#: samples kept of a re-scan's operands to time it with nearly no Gram
 FEW_SAMPLES = 8
+#: warm fits of each main path (voxels/s and stages: median and min-max)
+WARM_FITS = 3
+#: the fused and the Dekker product of two floats are the same float when
+#: |product| is at least this (tests/test_torch_df32_fma.py)
+FUSED_EQUALS_DEKKER_ABOVE = 2.0 ** -101
 
 RECORD = {}
 
@@ -123,6 +134,12 @@ def prep_ops(A, n_rhs):
     el = float(A.numel())
     return {"int8": 2 * (6 + 9 * n_rhs) * el,
             "bf16": 2 * (1 + 2 * n_rhs) * el, "f32": 26 * el}
+
+
+def spread(xs):
+    """Median, minimum and maximum of a few readings."""
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs))}
 
 
 def card_line():
@@ -249,6 +266,42 @@ def check_prep_narrow(A, rhs, n_rhs, W_want, S_wide):
         held("%s %s" % (shape, what), k, p)
 
 
+def few_samples_ms(name, fn, ops, full_ms, S, **kw):
+    """The re-scan launch ``fn`` on the first FEW_SAMPLES samples (operands
+    0-7 hold the sample axis): chain and staging with nearly no Gram, so
+    the rest of the full time is the Gram tile's share."""
+    few = tuple(o[:, :FEW_SAMPLES].contiguous() if k < 8 else o
+                for k, o in enumerate(ops))
+    ms = timed(lambda: fn(*few, **kw))
+    RECORD[name + "_few_samples_ms"] = [FEW_SAMPLES, ms]
+    log("%s on %d of %d samples: %.3f ms of %.3f" % (name, FEW_SAMPLES, S,
+                                                     ms, full_ms))
+
+
+def smallest_product(plain):
+    """Smallest non-zero |x.hi * y.hi| over the double-float products of
+    one run of a plain re-scan (its ``df32.mul_ps`` calls): where the
+    kernel multiplies by fused multiply-add, the two forms are the same
+    float only above FUSED_EQUALS_DEKKER_ABOVE."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import df32
+    orig, seen = df32.mul_ps, []
+
+    def spy(x, y):
+        p = (x[0].double() * y[0].double()).abs()
+        p = p[p > 0]
+        if p.numel():
+            seen.append(p.min())
+        return orig(x, y)
+
+    df32.mul_ps = spy
+    try:
+        plain()
+    finally:
+        df32.mul_ps = orig
+    return float(torch.stack(seen).min())
+
+
 def check_rescan(name, kern, plain, top1, B, n):
     """A re-scan kernel against its plain version: row minima by the
     agreement rule, first-minimum indices and the top-1 exact. Returns
@@ -318,10 +371,23 @@ def phase_kernels(wl):
         e, outs = check_rescan("rescan3", kern, plain, top1, B, n)
         err = max(err, e)
         if n == 128:
+            shape = (B, S, ops[0].shape[2], ops[4].shape[2])
             rows["rescan3"] = row(0.0, timed(kern), timed(plain),
                                   nbytes(ops, outs),
-                                  scan_ops("rescan3", B, S, ops[0].shape[2],
-                                           ops[4].shape[2]))
+                                  scan_ops("rescan3", *shape))
+            RECORD["rescan3_bound_ms_dekker_chain"] = bound(
+                nbytes(ops, outs),
+                scan_ops("rescan3", *shape, chain=CHAIN_OPS_DEKKER))[0]
+            few_samples_ms("rescan3", rescan.rescan3_rows, ops,
+                           rows["rescan3"]["ms"], S, n2=n, segw=segw)
+            small = smallest_product(plain)
+            RECORD["rescan3_smallest_product"] = small
+            log("rescan3: smallest non-zero product of the chain %.3e "
+                "(fused = Dekker above %.3e)"
+                % (small, FUSED_EQUALS_DEKKER_ABOVE))
+            if small < FUSED_EQUALS_DEKKER_ABOVE:
+                raise AssertionError("kernel 3 multiplies below the range "
+                                     "where fused and Dekker products agree")
         else:
             RECORD["rescan3_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
@@ -424,16 +490,8 @@ def phase_ear_kernels(wl, sig_ear):
                 nbytes(ops, outs), scan_ops(
                     "rescan4", B, S, ops[0].shape[2], ops[4].shape[2], nx,
                     ns, chain=CHAIN_OPS_DEKKER))[0]
-            # the same launch on the first few samples (operands 0-7 hold
-            # the sample axis): chains and staging with nearly no Gram,
-            # so the rest of the full time is the Gram tile's share
-            few = tuple(o[:, :FEW_SAMPLES].contiguous() if k < 8 else o
-                        for k, o in enumerate(ops))
-            RECORD["rescan4_few_samples_ms"] = [
-                FEW_SAMPLES, timed(lambda: rescan.rescan4_rows(*few, **kw))]
-            log("rescan4 on %d of %d samples: %.3f ms of %.3f" % (
-                FEW_SAMPLES, S, RECORD["rescan4_few_samples_ms"][1],
-                rows["rescan4"]["ms"]))
+            few_samples_ms("rescan4", rescan.rescan4_rows, ops,
+                           rows["rescan4"]["ms"], S, **kw)
         else:
             RECORD["rescan4_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
@@ -467,8 +525,8 @@ def fit_dictionary(wl, sig_ear=None):
 
 
 def phase_fit(wl, sig_ear=None):
-    """One main path through MFModel.fit, cold (launch counts), warm
-    (voxels/s) and under the stage timer: the flagship volume, or with
+    """One main path through MFModel.fit, cold (launch counts) and
+    WARM_FITS times warm (voxels/s, stages): the flagship volume, or with
     ``sig_ear`` the EAR volume (csf_mask = ear_mask = 1). Every voxel must
     recover its planted atoms (with EAR: also ie = 4) or an objective at
     most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6; the maps
@@ -564,37 +622,42 @@ def phase_fit(wl, sig_ear=None):
     log("%s: wrote and reloaded %d maps (%s)" % (label, len(files),
                                                 ", ".join(fit.param_names)))
 
-    t0 = time.time()
-    model.fit(data, mask, numfasc, **kw)
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
+    # WARM_FITS warm fits, each under the stage timer (two event records a
+    # region, no synchronisation inside the fit): host wall clock around
+    # the fit for voxels/s, device time per stage. Each launch is a stage
+    # of its own inside the stage that holds it: what is left of "prep" and
+    # "re-scan" is their torch code (hoists). Every launch of the fit must
+    # lie inside that stage, or the split would understate the hoists
     card = card_line()
-    log("%s: warm fit: %.3f s, %.1f voxels/s [%s]" % (
-        label, warm_s, N_VOX / warm_s, card))
-    with profiling.StageTimer() as st:
-        model.fit(data, mask, numfasc, **kw)
-    stages = st.totals_ms()
-    log("%s: stage split (device ms, one fit): " % label + ", ".join(
-        "%s %.1f" % kv for kv in stages.items()
-        if not kv[0].startswith("kernel ")))
-    # each launch is a stage of its own inside the stage that holds it:
-    # what is left of "prep" and "re-scan" is their torch code (hoists).
-    # Every launch of the fit must lie inside that stage, or the split
-    # would understate the hoists
-    split = {}
-    for stage_name, kernel in (("prep", path[0]), ("re-scan", path[2])):
-        k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
-        if n != launches[kernel]:
-            raise AssertionError(
-                "%d of the fit's %d launches of %s lie inside stage %s"
-                % (n, launches[kernel], kernel, stage_name))
-        split[stage_name] = [k_ms, stages[stage_name] - k_ms]
-        log("%s: stage %s = kernel %s %.1f ms (%d launches) + torch hoists "
-            "%.1f ms" % (label, stage_name, kernel, k_ms, n,
-                         split[stage_name][1]))
+    warm_s, runs = [], []
+    for _ in range(WARM_FITS):
+        with profiling.StageTimer() as st:
+            t0 = time.time()
+            model.fit(data, mask, numfasc, **kw)
+            torch.cuda.synchronize()
+            warm_s.append(time.time() - t0)
+        stages = {k: v for k, v in st.totals_ms().items()
+                  if not k.startswith("kernel ")}
+        for stage_name, kernel in (("prep", path[0]), ("re-scan", path[2])):
+            k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
+            if n != launches[kernel]:
+                raise AssertionError(
+                    "%d of the fit's %d launches of %s lie inside stage %s"
+                    % (n, launches[kernel], kernel, stage_name))
+            stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
+            stages[stage_name + ": torch hoists"] = stages[stage_name] - k_ms
+        runs.append(stages)
+    vps = spread([N_VOX / s for s in warm_s])
+    log("%s: %d warm fits: %s s; voxels/s median %.1f (min %.1f, max %.1f) "
+        "[%s]" % (label, WARM_FITS, ", ".join("%.3f" % s for s in warm_s),
+                  vps["median"], vps["min"], vps["max"], card))
+    stages = {k: spread([r[k] for r in runs]) for k in runs[0]}
+    log("%s: stages, device ms a fit, median (min-max) of %d fits: " % (
+        label, WARM_FITS) + ", ".join(
+            "%s %.1f (%.1f-%.1f)" % (k, v["median"], v["min"], v["max"])
+            for k, v in stages.items()))
     RECORD[label] = dict(cold_fit_s=cold_s, warm_fit_s=warm_s,
-                         voxels_per_s=N_VOX / warm_s, stages_ms=stages,
-                         kernel_and_hoists_ms=split,
+                         voxels_per_s=vps, stages_ms=stages,
                          launches=launches, n_ties=n_tie,
                          min_r2=float(r2.min()), card=card)
     return launches

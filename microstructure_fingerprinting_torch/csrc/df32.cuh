@@ -3,8 +3,11 @@
 // Device mirror of ops/df32.py. Every operation is an explicitly rounded
 // intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), which nvcc never
 // contracts into a fused multiply-add; the library is also built with
-// --fmad=false. A contracted a*b + c would make the Dekker split and the
-// two_prod error terms wrong, and the double-float residuals with them.
+// --fmad=false. A contracted a*b + c would make the two_sum error terms
+// wrong, and the double-float residuals with them. Products of double-float
+// values take their error term by an explicit fused multiply-add (below);
+// the Dekker forms on split halves live on in ops/df32.py, where the plain
+// versions use them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,11 +35,6 @@ struct P2 {
   float p, e;
 };
 
-// presplit double-float: (hi, lo, hi_h, hi_l)
-struct PS {
-  float hi, lo, hh, hl;
-};
-
 __device__ __forceinline__ P2 two_sum(float a, float b) {
   float s = add(a, b);
   float bb = sub(s, a);
@@ -49,40 +47,7 @@ __device__ __forceinline__ P2 fast_two_sum(float a, float b) {
   return {s, sub(b, sub(s, a))};
 }
 
-__device__ __forceinline__ P2 split(float a) {
-  float c = mul(4097.0f, a);
-  float ah = sub(c, sub(c, a));
-  return {ah, sub(a, ah)};
-}
-
-__device__ __forceinline__ PS presplit(P2 x) {
-  P2 h = split(x.p);
-  return {x.p, x.e, h.p, h.e};
-}
-
-__device__ __forceinline__ PS load_ps(const float* v, int stride) {
-  return {v[0], v[stride], v[2 * stride], v[3 * stride]};
-}
-
-// product of two presplit df values -> (main, err)
-__device__ __forceinline__ P2 mul_ps(const PS& x, const PS& y) {
-  float p = mul(x.hi, y.hi);
-  float e = add(add(add(sub(mul(x.hh, y.hh), p), mul(x.hh, y.hl)),
-                    mul(x.hl, y.hh)),
-                mul(x.hl, y.hl));
-  e = add(e, add(mul(x.hi, y.lo), mul(x.lo, y.hi)));
-  return {p, e};
-}
-
 __device__ __forceinline__ P2 neg(P2 x) { return {-x.p, -x.e}; }
-
-// exact product of two floats: p + e == a * b (Dekker, both split here)
-__device__ __forceinline__ P2 two_prod(float a, float b) {
-  const P2 x = split(a), y = split(b);
-  const float p = mul(a, b);
-  float e = add(add(sub(mul(x.p, y.p), p), mul(x.p, y.e)), mul(x.e, y.p));
-  return {p, add(e, mul(x.e, y.e))};
-}
 
 // double-float sum (Dekker add): ops/df32.df_add
 __device__ __forceinline__ P2 df_add(P2 x, P2 y) {
@@ -118,23 +83,12 @@ __device__ __forceinline__ P2 df_from_sum(const float (&v)[N]) {
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Four int8 values p[0], p[stride], p[2*stride], p[3*stride] packed into
-// one int32 for __dp4a (lowest byte first); entries at u >= n are 0.
-__device__ __forceinline__ int pack4(const int8_t* p, size_t stride, int n) {
-  unsigned v = 0;
-  #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    if (u < n) v |= (unsigned)(uint8_t)p[u * stride] << (8 * u);
-  }
-  return (int)v;
-}
-
-// ---- fused forms (kernel 5) ----
+// ---- products (kernels 3 and 5) ----
 // The H100's float32 pipe has a fused multiply-add, which the TPU's vector
 // unit did not offer to the kernel: fma(a, b, -fl(a * b)) is the exact error
-// of the rounded product in one operation, where the Dekker forms above
-// spend 15 (mul_ps, on presplit halves) or 17 (two_prod). By Dekker's
-// theorem both give the same float whenever the error term a * b - fl(a * b)
+// of the rounded product in one operation, where the Dekker forms of
+// ops/df32.py spend 13 (mul_ps, on presplit halves) or 17 (two_prod). By
+// Dekker's theorem both give the same float whenever the error term a * b - fl(a * b)
 // is representable, i.e. a multiple of 2^-149: for |a * b| >= 2^-101
 // (~4e-31) always; the forms can part only on products below that
 // (tests/test_torch_df32_fma.py finds the line). __fmaf_rn is explicit, so
@@ -147,8 +101,8 @@ __device__ __forceinline__ P2 two_prod_fma(float a, float b) {
   return {p, __fmaf_rn(a, b, -p)};
 }
 
-// product of two double-float values (hi, lo) -> (main, err): mul_ps with
-// the fused error term; the cross terms in mul_ps's order
+// product of two double-float values (hi, lo) -> (main, err): ops/df32.mul_ps
+// with the fused error term; the cross terms in mul_ps's order
 __device__ __forceinline__ P2 mul_df_fma(P2 x, P2 y) {
   const P2 t = two_prod_fma(x.p, y.p);
   return {t.p, add(t.e, add(mul(x.p, y.e), mul(x.e, y.p)))};

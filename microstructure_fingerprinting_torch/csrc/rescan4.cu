@@ -21,10 +21,8 @@
 // with Dekker products), each a long dependent run of two_sum /
 // fast_two_sum / product steps, so the float32 pipe waits on its own
 // latency unless many chains are in flight; and the Gram tile, shared with
-// kernel 3 (gram_df.cuh: 4 int8 products by __dp4a and 2 float64 products
-// per sample on the scalar float64 pipe, each operand converted from
-// float32), which takes about two thirds of the kernel's time since the
-// chains were rebuilt. The design, for this card:
+// kernel 3 (gram_df.cuh: 4 int8 and 2 float64 multiply-adds per sample and
+// point, on the tensor cores). The design, for this card:
 //   * every product of double-float values is mul_df_fma / two_prod_fma of
 //     df32.cuh: the error of the rounded product by one fused multiply-add
 //     instead of the Dekker form on presplit halves. Every add, subtract and
@@ -37,16 +35,19 @@
 //     for the CPU tests), 193 + 213 entries a 32 x 32 block at E = 10
 //     instead of 345 + 415, so two blocks share an SM (128 registers a
 //     thread, no spills);
-//   * a thread runs the two columns of a row through the loops together:
+//   * a thread owns the 2 x 2 points that the Gram tile's mma layout leaves
+//     it (two neighbouring rows, two neighbouring columns) and runs the two
+//     columns of a row through the loops together:
 //     two independent chains whose latencies hide under each other (with one
 //     block an SM the same code is slower than the Dekker kernel was: the
 //     chains are bound by latency, not by their operation count);
 //   * the packs are copied with cp.async before the Gram tile starts and
-//     waited for after it: the copy hides under the Gram;
+//     join its first chunk of copies;
 //   * the sweep loop stays rolled (the TPU kernel unrolled the ns sweeps
 //     over whole tiles in 100 MB of VMEM), best/best_s in registers and the
 //     point's nx extra-column residuals in a per-thread slice of shared
-//     memory.
+//     memory, which lies over the Gram tile's buffers (free by then), as
+//     does the tile of results: two blocks an SM still fit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +59,18 @@ namespace {
 
 constexpr int TM = mf::kDfTM, TN = 32, CN = TN / 16;
 constexpr int kThreads = mf::kDfThreads;
-static_assert(CN == 2, "a thread owns 2 x 2 points");
+static_assert(CN == 2 && TN / 32 == 1,
+              "a thread owns 2 x 2 points: at.row(r), at.col(0, c)");
+
+// Bytes of the region that first holds the Gram tile's buffers and then the
+// per-thread extra-column residuals [CN][nx][kThreads] and the tile of
+// results (minimum and flat index, [TM][TN + 1] each).
+__host__ __device__ inline int scratch_bytes(int nx) {
+  const int after =
+      (CN * nx * kThreads + 2 * TM * (TN + 1)) * (int)sizeof(float);
+  const int gram = (int)sizeof(mf::GramDfSmem<TN>);
+  return ((after > gram ? after : gram) + 15) & ~15;
+}
 
 using mf::P2;
 using mf::mul_df_fma;
@@ -127,7 +139,7 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
                int* __restrict__ cidx, int S, int N1p, int N2pb, int n2,
                int n3, int n4, int NR, int NC, int NV, int nrow, int ncol,
                int nvox, float tol) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
   const int nx = n3 + n4, ns = n3 * n4;
@@ -141,16 +153,18 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
   const PackMap rmap = {r_res1, nrow}, cmap = {c_res2, ncol};
   const VoxMap vmap = {nx, nvox};
 
-  extern __shared__ __align__(16) float dyn[];
-  float* srow = dyn;                          // [rmap.slots()][TM]
+  extern __shared__ __align__(16) unsigned char dyn[];
+  mf::GramDfSmem<TN>& gsm = *reinterpret_cast<mf::GramDfSmem<TN>*>(dyn);
+  float* sr1x = reinterpret_cast<float*>(dyn);    // [CN][nx][kThreads]
+  float (*sres)[TN + 1] =
+      reinterpret_cast<float (*)[TN + 1]>(sr1x + CN * nx * kThreads);
+  int (*sidx)[TN + 1] = reinterpret_cast<int (*)[TN + 1]>(sres + TM);
+  float* srow = reinterpret_cast<float*>(dyn + scratch_bytes(nx));
+                                              // [rmap.slots()][TM]
   float* scol = srow + rmap.slots() * TM;     // [cmap.slots()][TN]
-  float* sr1x = scol + cmap.slots() * TN;     // [CN][nx][kThreads]
-  float* svox = sr1x + CN * nx * kThreads;    // [vmap.slots()]
-  __shared__ mf::GramDfSmem<TN> gsm;
-  __shared__ float sres[TM][TN + 1];
-  __shared__ int sidx[TM][TN + 1];
+  float* svox = scol + cmap.slots() * TN;     // [vmap.slots()]
 
-  // the packs, 16 bytes a copy, in flight while the Gram tile runs
+  // the packs, 16 bytes a copy: they join the Gram tile's first chunk
   for (int k = tid; k < rmap.slots() * (TM / 4); k += kThreads) {
     const int s = k / (TM / 4), part = 4 * (k % (TM / 4));
     mf::copy16_async(srow + s * TM + part,
@@ -167,11 +181,10 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
     mf::copy4_async(svox + s, vox + (size_t)b * NV + vmap.entry(s));
   }
 
-  mf::PS g[2][CN];
-  mf::gram_df_tile<TN>(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, b, S, N1p, N2pb,
-                       row0, col0, gsm, g);
-  mf::copy_async_wait_all();
-  __syncthreads();
+  P2 g[2][1][CN];
+  const mf::GramDfAt<TN> at = mf::gram_df_tile<TN>(
+      q1a, q2a, a1h, ra, q1b, q2b, rb, ab, b, S, N1p, N2pb, row0, col0, gsm,
+      g);
 
   auto vf = [&](int e) { return svox[vmap.slot(e)]; };
   auto vp = [&](int e) { return P2{vf(e), vf(e + 1)}; };
@@ -181,7 +194,7 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
 
   #pragma unroll 1
   for (int r = 0; r < 2; ++r) {
-    const int i = ty * 2 + r;
+    const int i = at.row(r);
     const float* R = srow + i;
     // row-pack entry e (a single float), the double-float value at e
     auto rf = [&](int e) { return R[rmap.slot(e) * TM]; };
@@ -194,12 +207,10 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
     #pragma unroll
     for (int c = 0; c < CN; ++c) {
       Chain& k = ch[c];
-      k.C = scol + tx + 16 * c;
+      k.C = scol + at.col(0, c);
       auto cf = [&](int e) { return k.C[cmap.slot(e) * TN]; };
       auto cp = [&](int e) { return P2{cf(e), cf(e + 1)}; };
-      k.a_ = {
-          r ? (c ? g[1][1].hi : g[1][0].hi) : (c ? g[0][1].hi : g[0][0].hi),
-          r ? (c ? g[1][1].lo : g[1][0].lo) : (c ? g[0][1].lo : g[0][0].lo)};
+      k.a_ = r ? g[1][0][c] : g[0][0][c];
       const P2 d2 = cp(0), q_ = cp(4), q2 = cp(8), d2w = cp(12);
       const float d2f = d2.p, qf = q_.p, af = k.a_.p;
       k.d2f = d2f;
@@ -370,7 +381,7 @@ rescan4_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
     }
     #pragma unroll
     for (int c = 0; c < CN; ++c) {
-      const int j = tx + 16 * c, col = col0 + j;
+      const int j = at.col(0, c), col = col0 + j;
       sres[i][j] = col < n2 ? ch[c].best : mf::kInf;
       sidx[i][j] = col * ns + ch[c].best_s;
     }
@@ -409,15 +420,19 @@ extern "C" int mf_rescan4(const int8_t* q1a, const int8_t* q2a,
   const int ncol = 16 + 24 * nx + 4 * n3 + 13 * ns + 1;
   const int nvox = 4 + 6 * nx + 5 * ns;
   if (N1p % TM || N2pb % TN || n3 < 1 || n4 < 1 || NR < nrow ||
-      NC < ncol || NV < nvox || (uintptr_t)row_pack % 16 ||
-      (uintptr_t)col_pack % 16) {
+      NC < ncol || NV < nvox) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (!mf::gram_df_aligned(q1a, q2a, a1h, ra, q1b, q2b, rb, ab) ||
+      (((uintptr_t)row_pack | (uintptr_t)col_pack) & 15)) {
+    return (int)cudaErrorMisalignedAddress;
   }
   const PackMap rmap = {nrow - 1 - 4 * ns, nrow};
   const PackMap cmap = {ncol - 1 - ns, ncol};
   const VoxMap vmap = {nx, nvox};
-  const int smem = (rmap.slots() * TM + cmap.slots() * TN +
-                    CN * nx * kThreads + vmap.slots()) * (int)sizeof(float);
+  // CN * nx * kThreads residuals lie over the Gram buffers (scratch_bytes)
+  const int smem = scratch_bytes(nx) + (rmap.slots() * TM + cmap.slots() * TN +
+                                        vmap.slots()) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       rescan4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -18,6 +18,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .. import config
 from ..ops import interp as mfi
@@ -93,23 +94,48 @@ class MFModel(object):
             peaks=None, colat_longit=None, tensors=None,
             pgse_scheme=None, bvals=None, bvecs=None,
             csf_mask=None, ear_mask=None,
-            verbose=1, parallel=False, batch_size=None, device=None):
+            verbose=1, parallel=False, batch_size=None, refine=None,
+            topm=16, engine="auto", mesh_shape=None, device=None):
         """Fit the fingerprinting model in every masked voxel.
 
         Same argument contract as the JAX package's ``MFModel.fit`` for
         the configurations this package covers: every array argument also
         accepts a NIfTI path (and scalars for masks / numfasc).
         ``device`` overrides the model's device for this fit.
+        ``parallel=True`` with a single visible device fits as
+        ``parallel=False`` does, as in the JAX package. Of ``engine``
+        only the fast path is here (``"auto"``, ``"fast"``, its alias
+        ``"pallas"``), whose double-float selection needs no float64 host
+        re-scoring: ``refine=True``, ``engine="xla"``, another ``topm``
+        than the default, a ``mesh_shape`` of more than one device and
+        ``parallel=True`` on several devices raise ``NotImplementedError``.
         Returns an :class:`MFModelFit`.
         """
-        if parallel:
-            raise NotImplementedError("multi-GPU fits: " + _ROADMAP % 10)
         if peaks is None and (colat_longit is not None
                               or tensors is not None):
             raise NotImplementedError(
                 "colat_longit= / tensors= need ops/dti.py: "
-                + _ROADMAP % 11)
+                + _ROADMAP % 3)
+        if engine not in ("auto", "fast", "pallas", "xla"):
+            raise ValueError("engine should be 'auto', 'fast' (alias "
+                             "'pallas') or 'xla', got %r." % (engine,))
+        if engine == "xla" or topm != 16:
+            raise NotImplementedError(
+                "engine='xla' and its topm-deep candidate pool (the general "
+                "tiled scan): " + _ROADMAP % 4)
+        if refine:
+            raise NotImplementedError(
+                "float64 host re-scoring of the candidates (refine=True): "
+                + _ROADMAP % 5)
         dev = config.resolve_device(device or self.device)
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if (parallel and n_dev > 1) or (
+                mesh_shape is not None
+                and int(np.prod([int(x) for x in mesh_shape])) != 1):
+            raise NotImplementedError(
+                "fits sharded over several devices (parallel=True on %d "
+                "devices, mesh_shape=%r): " % (n_dev, mesh_shape)
+                + _ROADMAP % 6)
         VRB = verbose
         nii_affine = None
 
@@ -274,7 +300,8 @@ class MFModel(object):
                     not has_ear or self.num_ear <= 16)):
                 raise NotImplementedError(
                     "bucket with %d fascicle(s), csf=%d, ear=%d (num_ear "
-                    "%d): " % (key + (self.num_ear,)) + _ROADMAP % 9)
+                    "%d): " % (key + (self.num_ear,))
+                    + _ROADMAP % "2 (fast path) or 4 (general path)")
             configs.setdefault(key, []).append(i)
 
         rotator = self._grouped_rotator(plan_h, pgse_scheme)

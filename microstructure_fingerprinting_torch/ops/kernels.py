@@ -3,7 +3,9 @@
 The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a``
 (one nvcc per source, all started together) and linked into one shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers: the build takes seconds). The library's file name carries a
+headers: the build takes seconds), in ``build/`` of the checkout or,
+where that cannot be written, in a per-user cache directory. The
+library's file name carries a
 hash of the sources, the headers and the flags, so a later process
 reuses it and an edit rebuilds it; the library is linked under a
 temporary name and renamed into place, so processes that build at once
@@ -40,6 +42,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 #: build output: ``build/`` of the checkout that holds the package
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)),
                          "build", "mf_torch_kernels")
+#: build output where ``BUILD_DIR`` cannot be created or written (an
+#: installed package, a read-only checkout): a per-user cache directory
+USER_BUILD_DIR = os.path.join(os.path.expanduser("~"), ".cache",
+                              "microstructure_fingerprinting_torch",
+                              "kernels")
 SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
            "rescan4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -94,18 +101,35 @@ def _run_all(cmds):
     return [(p.returncode, o) for p, o in zip(procs, outs)]
 
 
+def _writable(path):
+    """Whether ``path`` is, or can be made, a directory that takes a new
+    file (tried, not asked: permission bits do not bind every user)."""
+    try:
+        os.makedirs(path, exist_ok=True)
+        with tempfile.TemporaryFile(dir=path):
+            return True
+    except OSError:
+        return False
+
+
 def build():
     """Path of the shared library; compiles it unless a library built
     from the same sources and flags is already there. Each source is
-    compiled by its own nvcc, all at once, then the objects are linked."""
-    out = os.path.join(BUILD_DIR, "libmfkernels-%s.so" % _source_key())
-    if os.path.exists(out):
-        BUILD_INFO.update(seconds=0.0, cached=True, cmd=out, log="")
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    compiled by its own nvcc, all at once, then the objects are linked.
+    The library lives in ``BUILD_DIR``, or in ``USER_BUILD_DIR`` when the
+    former cannot be created or written."""
+    name = "libmfkernels-%s.so" % _source_key()
+    for where in (BUILD_DIR, USER_BUILD_DIR):
+        out = os.path.join(where, name)
+        if os.path.exists(out):
+            BUILD_INFO.update(seconds=0.0, cached=True, cmd=out, log="")
+            return out
+    build_dir = BUILD_DIR if _writable(BUILD_DIR) else USER_BUILD_DIR
+    os.makedirs(build_dir, exist_ok=True)
+    out = os.path.join(build_dir, name)
     nvcc = _nvcc()
     t0 = time.time()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
         cmds = [[nvcc] + list(NVCC_FLAGS) + ["-I", _CSRC, "-c", "-o", o,
                                              os.path.join(_CSRC, src)]

@@ -11,7 +11,10 @@ Counterpart of ``microstructure_fingerprinting_tpu/ops/pallas_dfscan.py``
     out     = per-(row, segment) minimum residual + first-minimum i2
 
 All per-row (i1) / per-column (i2) double-float factors are hoisted here
-and arrive pre-split (df32.presplit). ``row_scan_df3`` dispatches the
+and arrive pre-split (df32.presplit): the plain version multiplies by
+Dekker's forms on the split halves, the CUDA kernel reads (hi, lo) only
+and takes each product's error by a fused multiply-add, the same float
+for every product above 2^-101. ``row_scan_df3`` dispatches the
 per-point scan on the device of its inputs: CUDA tensors launch
 ``csrc/rescan3.cu`` (or raise), CPU tensors run ``rescan3_twin``.
 """

@@ -179,8 +179,8 @@ def test_model_fit_matches_jax(rows, tmp_path):
 def test_model_fit_unported_buckets_raise():
     """Configurations outside the ported buckets raise
     NotImplementedError naming their ROADMAP item (one fascicle, an EAR
-    block of more than 16 atoms, EAR without CSF, multi-GPU); CUDA asked
-    for without a card raises."""
+    block of more than 16 atoms, EAR without CSF, a mesh of two
+    devices); CUDA asked for without a card raises."""
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0)
@@ -194,7 +194,75 @@ def test_model_fit_unported_buckets_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ear.fit(data, mask, numfasc, ear_mask=1, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(data, mask, numfasc, csf_mask=1, parallel=True, **kw)
+        model.fit(data, mask, numfasc, csf_mask=1, parallel=True,
+                  mesh_shape=(2, 1), **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             model.fit(data, mask, numfasc, csf_mask=1, device="cuda", **kw)
+
+
+def test_parallel_on_one_device_fits_as_batched(rows):
+    """``fit(parallel=True)`` with a single visible device takes the
+    batched path, as the JAX package does: the same maps as
+    ``parallel=False``, also with a mesh of one device."""
+    rows(16)
+    dic, data, mask, numfasc, peaks, _wl = _model_inputs()
+    model = mft.MFModel(dic, device="cpu")
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1,
+              verbose=0, batch_size=8)
+    ref = model.fit(data, mask, numfasc, **kw)
+    for extra in (dict(parallel=True),
+                  dict(parallel=True, mesh_shape=(1, 1))):
+        got = model.fit(data, mask, numfasc, **kw, **extra)
+        assert got.param_names == ref.param_names
+        for p in ref.param_names:
+            assert np.array_equal(getattr(got, p), getattr(ref, p)), p
+
+
+def test_parallel_on_several_devices_raises(monkeypatch):
+    """With more than one CUDA device in sight, ``parallel=True`` asks for
+    the sharded fit, which is not ported: NotImplementedError naming the
+    multi-GPU item, raised before any work."""
+    dic, data, mask, numfasc, peaks, _wl = _model_inputs()
+    model = mft.MFModel(dic, device="cpu")
+    monkeypatch.setattr(tconfig, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        model.fit(data, mask, numfasc, peaks=peaks,
+                  pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0,
+                  parallel=True, device="cuda")
+
+
+@pytest.mark.parametrize("extra,item", [
+    (dict(engine="xla"), "item 4"), (dict(topm=4), "item 4"),
+    (dict(refine=True), "item 5"), (dict(mesh_shape=(1, 2)), "item 6")])
+def test_unported_fit_arguments_raise(extra, item):
+    """``refine=``, ``topm=``, ``engine=`` and ``mesh_shape=`` are
+    accepted; a value that asks for what is not ported raises
+    NotImplementedError naming its ROADMAP item, not a TypeError."""
+    dic, data, mask, numfasc, peaks, _wl = _model_inputs()
+    model = mft.MFModel(dic, device="cpu")
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+        model.fit(data, mask, numfasc, **kw, **extra)
+
+
+def test_default_fit_arguments_are_accepted(rows):
+    """The JAX package's defaults (``refine=None``, ``topm=16``,
+    ``engine="auto"``, ``mesh_shape=None``) and the fast path's names
+    (``"fast"``, ``"pallas"``, ``refine=False``) fit as no argument does;
+    an unknown engine is a ValueError."""
+    rows(16)
+    dic, data, mask, numfasc, peaks, _wl = _model_inputs()
+    model = mft.MFModel(dic, device="cpu")
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1,
+              verbose=0, batch_size=8)
+    ref = model.fit(data, mask, numfasc, **kw)
+    for extra in (dict(refine=None, topm=16, engine="auto",
+                       mesh_shape=None),
+                  dict(engine="pallas", refine=False), dict(engine="fast")):
+        got = model.fit(data, mask, numfasc, **kw, **extra)
+        assert np.array_equal(got.MSE, ref.MSE)
+    with pytest.raises(ValueError, match="engine"):
+        model.fit(data, mask, numfasc, engine="triton", **kw)

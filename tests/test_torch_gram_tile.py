@@ -149,7 +149,10 @@ def test_operand_packing_selectors(rng):
         text = f.read()
     m = re.search(r"sel = \(g & 1\) \? (0x\w+)u : (0x\w+)u", text)
     sel_at = {2: int(m.group(1), 16), 0: int(m.group(2), 16)}
-    body = text[text.index("void pack2x4"):text.index("// The tile copies")]
+    # pack2x4 lives in the header both Gram tiles share
+    with open(os.path.join(os.path.dirname(CUH), "mma_sync.cuh")) as f:
+        mma = f.read()
+    body = mma[mma.index("void pack2x4"):mma.index("// The same for one")]
     lo_sel, hi_sel = (int(v, 16) for v in re.findall(
         r"__byte_perm\(t0, t2, (0x\w+)\)", body))
     pts = rng.randint(0, 256, size=(4, 4))          # [sample][point]

@@ -265,6 +265,7 @@ def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
     """A library built from the same sources and flags is reused: no
     compiler is asked for."""
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "USER_BUILD_DIR", str(tmp_path))
     lib = tmp_path / ("libmfkernels-%s.so" % kernels._source_key())
     lib.write_bytes(b"")
 
@@ -284,10 +285,62 @@ def test_kernel_build_failure_raises_and_leaves_nothing(monkeypatch,
     """A failed compile raises and leaves neither a library nor its
     temporary file behind."""
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "USER_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(kernels, "_nvcc", lambda: shutil.which("false"))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernels.build()
     assert os.listdir(tmp_path) == []
+
+
+def _stub_nvcc(tmp_path):
+    """An ``nvcc`` that writes an empty file where ``-o`` points."""
+    stub = tmp_path / "nvcc"
+    stub.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then : > \"$2\"; fi\n"
+                    "  shift\ndone\n")
+    stub.chmod(0o755)
+    return str(stub)
+
+
+@pytest.mark.parametrize("how", ["read-only", "not-a-directory"])
+def test_kernel_build_falls_to_user_cache(monkeypatch, tmp_path, how):
+    """Where ``build/`` of the checkout cannot be written (a read-only
+    tree: an installed package) or cannot be created (its parent is
+    taken by a file), the library is built into the per-user cache
+    directory and reused from there; a writable checkout keeps it."""
+    tree = tmp_path / "site-packages"
+    tree.mkdir()
+    if how == "read-only":
+        (tree / "build").mkdir()
+        (tree / "build").chmod(0o555)
+        tree.chmod(0o555)
+        if os.access(str(tree / "build"), os.W_OK):
+            # permission bits do not bind this user (root): take the
+            # directory's place with a file instead
+            tree.chmod(0o755)
+            (tree / "build").chmod(0o755)
+            (tree / "build").rmdir()
+            (tree / "build").write_text("")
+    else:
+        (tree / "build").write_text("")
+    user = tmp_path / "home" / ".cache" / "kernels"
+    monkeypatch.setattr(kernels, "BUILD_DIR",
+                        str(tree / "build" / "mf_torch_kernels"))
+    monkeypatch.setattr(kernels, "USER_BUILD_DIR", str(user))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: _stub_nvcc(tmp_path))
+    try:
+        out = kernels.build()
+        assert os.path.dirname(out) == str(user) and os.path.exists(out)
+        assert os.listdir(user) == [os.path.basename(out)]
+        assert kernels.BUILD_INFO["cached"] is False
+        assert kernels.build() == out and kernels.BUILD_INFO["cached"]
+    finally:
+        tree.chmod(0o755)
+    # a checkout that can be written keeps its own build directory
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build" / "k"))
+    monkeypatch.setattr(kernels, "USER_BUILD_DIR", str(tmp_path / "unused"))
+    assert os.path.dirname(kernels.build()) == str(tmp_path / "build" / "k")
+    assert not (tmp_path / "unused").exists()
 
 
 @pytest.mark.cuda
@@ -298,6 +351,7 @@ def test_cuda_inputs_raise_without_library(rng, monkeypatch, tmp_path):
         pytest.skip("needs a CUDA device")
     monkeypatch.setattr(kernels, "_lib", None)
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "USER_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(kernels, "_nvcc", lambda: "/nonexistent/nvcc")
     A1, A2, a3, y = (x.cuda() for x in _small_scan_inputs(rng))
     A1p, _ = tprep.pad_block(A1, 128)

@@ -145,15 +145,25 @@ def test_layout_is_the_sources(n3, n4):
         rs = trescan.short_slots(*sizes["row"])
         cs = trescan.short_slots(*sizes["col"])
         assert (rs, cs) == (193, 213)
+        gram = open(os.path.join(os.path.dirname(CU), "gram_df.cuh")).read()
         c = {k: int(v) for k, v in re.findall(
-            r"(kDfTM|kDfThreads) = (\d+)", open(os.path.join(
-                os.path.dirname(CU), "gram_df.cuh")).read())}
+            r"(kDfTM|kDfSK|kDfThreads|kDfBufs) = (\d+)", gram)}
         # a thread's CN = TN / 16 columns each keep nx residuals
         chains = eval(re.search(r"TN = (\d+), CN = TN / 16;", text).group(1)
                       + " // 16")
         assert chains == 2 and "CN * nx * kThreads" in launcher
-        dyn = 4 * (rs * c["kDfTM"] + cs * 32 + chains * nx * c["kDfThreads"]
-                   + trescan.vox_slots(sizes["vox"], nx))
         assert "__launch_bounds__(kThreads, 2)" in text
-        # static arrays (Gram staging, tile results) ~19 KB, 1 KB reserved
-        assert 2 * (dyn + 19 * 1024 + 1024) <= 227 * 1024
+        # the residuals and the tile of results (minimum, flat index) lie
+        # over the Gram tile's buffers (``scratch_bytes``): kDfBufs chunks
+        # of kDfSK samples of 4 level planes (rows of 32 + 16 bytes) and 4
+        # float planes (rows of 32 + 8 values)
+        assert "scratch_bytes(nx) +" in launcher
+        gram_bytes = c["kDfBufs"] * c["kDfSK"] * (4 * 48 + 4 * 4 * 40)
+        after = 4 * (chains * nx * c["kDfThreads"] + 2 * 32 * 33)
+        dyn = 4 * (rs * c["kDfTM"] + cs * 32
+                   + trescan.vox_slots(sizes["vox"], nx)) \
+            + max(gram_bytes, after)
+        # no static arrays; 1 KB a block reserved
+        assert "__shared__ float" not in text.replace(
+            "extern __shared__", "")
+        assert 2 * (dyn + 1024) <= 227 * 1024
