@@ -5,25 +5,34 @@
 Builds the five CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
-both, then drives the two main paths through ``MFModel.fit``: the
-flagship [782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
+both, then drives the main paths through ``MFModel.fit``: the flagship
+[782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
 [782, 782, 1, 10] volume (552 sequences, 4096 voxels each, random
-directions, noiseless), writes and reloads their maps, and drives the
-overflow tiers of both. Every phase runs; exits non-zero on any
+directions, noiseless), and two volumes that mix the fast path's buckets
+at the same widths: "mixed" (2048 voxels of 0, 1 and 2 fascicles with
+CSF and 2 without) and "ear_mixed" (1024 voxels of 0, 1 and 2 fascicles
++ CSF + EAR, kernel 3 on the one-fascicle bucket's [782, 10, 1] grid).
+It writes and reloads their maps, drives the overflow tiers of the
+two-fascicle + CSF buckets, and fits a few voxels of each newer bucket
+on the card and on the CPU. Every phase runs; exits non-zero on any
 failure; needs one CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
-main path (its launches in that path's fit, its times at that path's rhs
-count); an earlier ``record:`` line holds every number measured. Each main
-path is fitted once cold (launch counts, recovery) and WARM_FITS times warm
-under the stage timer: voxels/s and every stage as median and min-max, the
-"prep" and "re-scan" stages split into the kernel and the torch code
-around it.
+rhs width (its launches in the fits at that width, its times at that
+width) and every row's launches summed over the fits that run it; an
+earlier ``record:`` line holds every number measured. Each fit is run
+once cold (launch counts, recovery) and WARM_FITS times warm under the
+stage timer: voxels/s, every stage, and each bucket's wall time and
+stages as median and min-max, the flagship and EAR paths' "prep" and
+"re-scan" stages split into the kernel and the torch code around it.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -35,11 +44,12 @@ N_VOX = 4096          # 16 x 16 x 16 volume
 N_ATOM = 782          # flagship sub-dictionary size
 N_EAR = 10            # EAR diffusivities of the UK-Biobank configuration
 R_EAR = 256           # the EAR two-pass row budget (twopass_rows_ear)
+EAR_ATOM = 4          # the EAR atom planted in every voxel (testing.make_ear)
 CHUNK = 512           # voxels per chunk of the fit (MFModel.fit default)
 #: voxels per call of each plain version when it is held against its
 #: kernel on a whole chunk (bounds the plain versions' temporaries)
 SLICE = {"prep_block": 128, "rowmin3": 64, "rescan3": 512, "rowmin4": 16,
-         "rescan4": 64}
+         "rescan4": 64, "rescan3_ear": 64}
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, dense; the
 #: float32 rate is outside the tensor cores), for the kernels' bounds
@@ -71,6 +81,15 @@ WARM_FITS = 3
 #: the fused and the Dekker product of two floats are the same float when
 #: |product| is at least this (tests/test_torch_df32_fma.py)
 FUSED_EQUALS_DEKKER_ABOVE = 2.0 ** -101
+#: the volumes that mix buckets: their shape and (voxels, fascicles, CSF)
+#: groups, planted by ``testing.make_mixed`` (EAR_MIXED with ear_mask = 1
+#: and EAR atom 4 in every voxel)
+MIXED = {"shape": (16, 16, 8), "groups": ((256, 0, True), (1024, 1, True),
+                                          (512, 2, True), (256, 2, False))}
+EAR_MIXED = {"shape": (16, 8, 8), "groups": ((512, 1, True), (256, 2, True),
+                                             (256, 0, True))}
+#: voxels of each newer bucket fitted on the card and on the CPU
+CROSS_VOX = 8
 
 RECORD = {}
 
@@ -169,20 +188,23 @@ def phase_setup():
     RECORD["build_s"] = build_s
 
 
-def flagship_inputs(wl, B, device):
-    """Rotated blocks, signals and the CSF block for the first B voxels."""
+def voxel_inputs(wl, vox, ys_np, device):
+    """Rotated blocks (both directions of the workload's voxels ``vox``),
+    their signals of ``ys_np`` and the CSF block, in the rotation's
+    sequence order."""
     import torch
     from microstructure_fingerprinting_torch.ops import interp as mfi
     ms, plan = wl["msinterp"], wl["plan"]
     rotate, perm = mfi.make_grouped_rotation_paired(ms, plan)
     _x, ys, _c = ms.device_tables(device, torch.float32)
-    D = rotate(ys, torch.as_tensor(wl["peaks"][:B], dtype=torch.float32,
+    D = rotate(ys, torch.as_tensor(wl["peaks"][vox], dtype=torch.float32,
                                    device=device))
-    y = torch.as_tensor(wl["y"][:B][:, perm], dtype=torch.float32,
+    y = torch.as_tensor(ys_np[vox][:, perm], dtype=torch.float32,
                         device=device)
     csf = torch.as_tensor(wl["sig_csf"][perm], dtype=torch.float32,
                           device=device)
-    return D, y, csf[None, :, None].expand(B, -1, 1).contiguous()
+    return D, y, csf[None, :, None].expand(len(vox), -1, 1).contiguous()
+
 
 
 def held(what, k, p, exact=False):
@@ -302,13 +324,14 @@ def smallest_product(plain):
     return float(torch.stack(seen).min())
 
 
-def check_rescan(name, kern, plain, top1, B, n):
-    """A re-scan kernel against its plain version: row minima by the
-    agreement rule, first-minimum indices and the top-1 exact. Returns
-    (max|err|, the kernel's outputs)."""
+def check_rescan(name, kern, plain, top1, B, n, n2=None):
+    """A re-scan kernel against its plain version on an n x n2 grid (n2
+    = n by default): row minima by the agreement rule, first-minimum
+    indices and the top-1 exact. Returns (max|err|, the kernel's
+    outputs)."""
     import torch
     k, p = kern(), plain()
-    what = "%s %d x %d, %d voxels" % (name, n, n, B)
+    what = "%s %d x %d, %d voxels" % (name, n, n if n2 is None else n2, B)
     err = held(what + " row minima", k[0], p[0])
     held(what + " first-minimum index", k[1], p[1], exact=True)
     if not torch.equal(top1(k), top1(p)):
@@ -325,7 +348,7 @@ def phase_kernels(wl):
     from microstructure_fingerprinting_torch.ops import f32scan, prep, rescan
     from microstructure_fingerprinting_torch.ops import nnls as mfn
     dev = torch.device("cuda")
-    D, y, a3 = flagship_inputs(wl, CHUNK, dev)
+    D, y, a3 = voxel_inputs(wl, np.arange(CHUNK), wl["y"], dev)
     A1, A2 = D[:, 0].contiguous(), D[:, 1].contiguous()
     del D
     rows = {}
@@ -412,7 +435,7 @@ def ear_inputs(wl, sig_ear, B, device):
     the EAR signals."""
     import torch
     from microstructure_fingerprinting_torch.ops import interp as mfi
-    D, _y, a3 = flagship_inputs(wl, B, device)
+    D, _y, a3 = voxel_inputs(wl, np.arange(B), wl["y"], device)
     _r, perm = mfi.make_grouped_rotation_paired(wl["msinterp"], wl["plan"])
     y = torch.as_tensor(wl["y_ear"][:B][:, perm], dtype=torch.float32,
                         device=device)
@@ -524,92 +547,101 @@ def fit_dictionary(wl, sig_ear=None):
     return dic
 
 
-def phase_fit(wl, sig_ear=None):
-    """One main path through MFModel.fit, cold (launch counts) and
-    WARM_FITS times warm (voxels/s, stages): the flagship volume, or with
-    ``sig_ear`` the EAR volume (csf_mask = ear_mask = 1). Every voxel must
-    recover its planted atoms (with EAR: also ie = 4) or an objective at
-    most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6; the maps
-    must reload identically."""
+def cold_fit(label, model, args, kw, path):
+    """The fit of one path with every launch count set to 0 just before
+    it and read just after: every kernel of ``path`` must have run.
+    Returns (fit, launches, seconds)."""
     import torch
     import microstructure_fingerprinting_torch as mft
-    from microstructure_fingerprinting_torch.models import fit as fit_mod
-    from microstructure_fingerprinting_torch.ops import interp as mfi
-    from microstructure_fingerprinting_torch.utils import nifti, profiling
-    ear = sig_ear is not None
-    label = "EAR" if ear else "flagship"
-    sch = wl["sch_mat"]
-    ys_np = wl["y_ear"] if ear else wl["y"]
-    data, mask, numfasc, peaks = make_volume(wl, ys_np)
-    model = mft.MFModel(fit_dictionary(wl, sig_ear))
-    kw = dict(peaks=peaks, pgse_scheme=sch, csf_mask=1, verbose=0)
-    if ear:
-        kw["ear_mask"] = 1
-    path = ("prep_block", "rowmin4", "rescan4") if ear else (
-        "prep_block", "rowmin3", "rescan3")
-
     mft.reset_counts()
     t0 = time.time()
-    fit = model.fit(data, mask, numfasc, **kw)
+    fit = model.fit(*args, **kw)
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     launches = {k: mft.LAUNCHES[k] for k in path}
     log("%s: cold fit of %d voxels: %.2f s; kernel launches %s"
-        % (label, N_VOX, cold_s, launches))
+        % (label, args[0][..., 0].size, cold_s, launches))
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the %s path was never launched"
                              % label)
+    return fit, launches, cold_s
 
+
+def planted_objectives(wl, vox, ys_np, gt, K, csf, sig_ear):
+    """Objectives of the planted supports of the workload's voxels
+    ``vox`` (fascicle ids ``gt``, CSF index 0, with ``sig_ear`` EAR atom
+    EAR_ATOM) on the rotated columns the fit used, by the double-float finalize
+    on the card, bucket by bucket (K and csf per voxel)."""
+    import torch
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    from microstructure_fingerprinting_torch.ops import interp as mfi
+    ear = sig_ear is not None
+    _r, perm = mfi.make_grouped_rotation_paired(wl["msinterp"], wl["plan"])
+    on_card = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                        device="cuda")
+    ear_d = on_card(sig_ear[perm]) if ear else None
+    out = np.zeros(vox.size)
+    for k, c in sorted(set(zip(K[vox].tolist(), csf[vox].tolist()))):
+        sel = np.flatnonzero((K[vox] == k) & (csf[vox] == c))
+        v = vox[sel]
+        D, y, a3 = voxel_inputs(wl, v, ys_np, "cuda")
+        cand = np.concatenate(
+            [gt[v, :k], np.zeros((v.size, int(c))),
+             np.full((v.size, int(ear)), EAR_ATOM)], axis=1)
+        _w, obj, _r2 = fit_mod._finalize_top1(
+            D, a3[0, :, 0], ear_d, y,
+            torch.as_tensor(cand, dtype=torch.int64, device="cuda"),
+            csf_on=bool(c), ear_on=ear, K=k)
+        out[sel] = obj.double().cpu().numpy()
+    return out
+
+
+def check_recovery(label, wl, fit, ys_np, gt, K, csf, sig_ear):
+    """Every voxel must recover its planted atoms (gt (n, 2), -1 where a
+    fascicle is absent; with ``sig_ear`` also ie = EAR_ATOM) or an objective at
+    most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6. K and
+    csf (n,) give each voxel's bucket. Returns (equal-or-better
+    objectives, min R^2)."""
+    ear = sig_ear is not None
+    n, S = ys_np.shape
     r2 = fit.R2.reshape(-1)
     if not np.all(r2 >= 1 - 1e-6):
         raise AssertionError("R2 below 1 - 1e-6 in %d voxels (min %.9f)"
                              % (int(np.sum(r2 < 1 - 1e-6)), r2.min()))
     ids = [fit.atom_id_f0.reshape(-1), fit.atom_id_f1.reshape(-1)]
-    gt = [wl["gt_ids"][:, 0], wl["gt_ids"][:, 1]]
+    want = [np.maximum(gt[:, 0], 0), np.maximum(gt[:, 1], 0)]
     if ear:
         d_ear = fit.D_ear.reshape(-1)
         ids.append(np.argmin(np.abs(d_ear[:, None] - wl["Dear"][None]),
                              axis=1))
-        gt.append(np.full(N_VOX, 4))
+        want.append(np.full(n, EAR_ATOM))
     ids = np.stack(ids, axis=1).astype(np.int64)
-    gt = np.stack(gt, axis=1)
-    diff = np.flatnonzero(np.any(ids != gt, axis=1))
+    want = np.stack(want, axis=1)
+    diff = np.flatnonzero(np.any(ids != want, axis=1))
     ysq = np.sum(ys_np ** 2, axis=1)
-    obj = fit.MSE.reshape(-1) * sch.shape[0]
+    obj = fit.MSE.reshape(-1) * S
     n_tie = 0
     if diff.size:
-        # objective of the planted atoms on the same rotated columns
-        rotate, perm = mfi.make_grouped_rotation_paired(wl["msinterp"],
-                                                        wl["plan"])
-        _x, ys, _c = wl["msinterp"].device_tables("cuda", torch.float32)
-        D = rotate(ys, torch.as_tensor(wl["peaks"][diff], dtype=torch.float32,
-                                       device="cuda"))
-        y = torch.as_tensor(ys_np[diff][:, perm], dtype=torch.float32,
-                            device="cuda")
-        csf = torch.as_tensor(wl["sig_csf"][perm], dtype=torch.float32,
-                              device="cuda")
-        cand = np.concatenate([gt[diff][:, :2], np.zeros((diff.size, 1)),
-                               gt[diff][:, 2:]], axis=1)
-        ear_d = (torch.as_tensor(sig_ear[perm], dtype=torch.float32,
-                                 device="cuda") if ear else None)
-        _w, obj_gt, _r2 = fit_mod._finalize_top1(
-            D, csf, y, torch.as_tensor(cand, dtype=torch.int64,
-                                       device="cuda"), ear_d)
-        obj_gt = obj_gt.double().cpu().numpy()
+        obj_gt = planted_objectives(wl, diff, ys_np, gt, K, csf, sig_ear)
         for k, v in enumerate(diff):
             tie = obj[v] <= obj_gt[k] + 2e-9 * ysq[v]
-            log("%s voxel %d: selected %s, planted %s, objective %.6e vs "
-                "planted %.6e -> %s" % (label, v, ids[v].tolist(),
-                                        gt[v].tolist(), obj[v], obj_gt[k],
-                                        "tie" if tie else "ERROR"))
+            log("%s voxel %d (K=%d, csf=%d): selected %s, planted %s, "
+                "objective %.6e vs planted %.6e -> %s" % (
+                    label, v, K[v], csf[v], ids[v].tolist(),
+                    want[v].tolist(), obj[v], obj_gt[k],
+                    "tie" if tie else "ERROR"))
             if not tie:
                 raise AssertionError("voxel %d selected a worse support" % v)
             n_tie += 1
     log("%s: planted atoms recovered in %d/%d voxels (%d equal-or-better "
         "objectives); min R2 %.9f; max MSE/||y||^2 %.3e" % (
-            label, N_VOX - diff.size, N_VOX, n_tie, r2.min(),
-            np.max(obj / ysq)))
+            label, n - diff.size, n, n_tie, r2.min(), np.max(obj / ysq)))
+    return n_tie, float(r2.min())
 
+
+def check_maps(label, fit, ear):
+    """The maps must reload identically (and hold the EAR maps)."""
+    from microstructure_fingerprinting_torch.utils import nifti
     with tempfile.TemporaryDirectory() as tmp:
         files = fit.write_nifti(os.path.join(tmp, "mf.nii.gz"),
                                 affine=np.eye(4))
@@ -622,23 +654,34 @@ def phase_fit(wl, sig_ear=None):
     log("%s: wrote and reloaded %d maps (%s)" % (label, len(files),
                                                 ", ".join(fit.param_names)))
 
-    # WARM_FITS warm fits, each under the stage timer (two event records a
-    # region, no synchronisation inside the fit): host wall clock around
-    # the fit for voxels/s, device time per stage. Each launch is a stage
-    # of its own inside the stage that holds it: what is left of "prep" and
-    # "re-scan" is their torch code (hoists). Every launch of the fit must
-    # lie inside that stage, or the split would understate the hoists
+
+def warm_fits(label, model, args, kw, launches, split=()):
+    """WARM_FITS warm fits, each under the stage timer (two event records
+    a region, no synchronisation inside the fit): host wall clock around
+    the fit for voxels/s, device time per stage, and per bucket its wall
+    time (its "pulled" line at verbose 2: a bucket's work all happens
+    there and ends in a copy to the host) and the device time of the
+    stages inside it. Each launch is a stage of its own inside the stage
+    that holds it: for each (stage, kernel) of ``split`` what is left of
+    the stage is its torch code (hoists), and every launch of the fit
+    must lie inside that stage, or the split would understate the
+    hoists. Returns the record of the runs."""
+    import torch
+    from microstructure_fingerprinting_torch.utils import profiling
+    n_vox = args[0][..., 0].size
     card = card_line()
-    warm_s, runs = [], []
+    warm_s, runs, buckets = [], [], []
     for _ in range(WARM_FITS):
-        with profiling.StageTimer() as st:
+        out = io.StringIO()
+        with profiling.StageTimer() as st, contextlib.redirect_stdout(out):
             t0 = time.time()
-            model.fit(data, mask, numfasc, **kw)
+            model.fit(*args, **dict(kw, verbose=2))
             torch.cuda.synchronize()
             warm_s.append(time.time() - t0)
-        stages = {k: v for k, v in st.totals_ms().items()
-                  if not k.startswith("kernel ")}
-        for stage_name, kernel in (("prep", path[0]), ("re-scan", path[2])):
+        totals = st.totals_ms()
+        stages = {k: v for k, v in totals.items()
+                  if not k.startswith(("kernel ", "bucket "))}
+        for stage_name, kernel in split:
             k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
             if n != launches[kernel]:
                 raise AssertionError(
@@ -647,7 +690,16 @@ def phase_fit(wl, sig_ear=None):
             stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
             stages[stage_name + ": torch hoists"] = stages[stage_name] - k_ms
         runs.append(stages)
-    vps = spread([N_VOX / s for s in warm_s])
+        per = {}
+        for m in re.finditer(r"Bucket (K=\d csf=\d ear=\d) \(\d+ voxels\) "
+                             r"pulled in (\S+) second", out.getvalue()):
+            per["%s: wall ms" % m.group(1)] = 1e3 * float(m.group(2))
+        for name in totals:
+            if name.startswith("bucket "):
+                for inner, (ms, _n) in st.inside(name).items():
+                    per["%s: %s ms" % (name[len("bucket "):], inner)] = ms
+        buckets.append(per)
+    vps = spread([n_vox / s for s in warm_s])
     log("%s: %d warm fits: %s s; voxels/s median %.1f (min %.1f, max %.1f) "
         "[%s]" % (label, WARM_FITS, ", ".join("%.3f" % s for s in warm_s),
                   vps["median"], vps["min"], vps["max"], card))
@@ -656,11 +708,183 @@ def phase_fit(wl, sig_ear=None):
         label, WARM_FITS) + ", ".join(
             "%s %.1f (%.1f-%.1f)" % (k, v["median"], v["min"], v["max"])
             for k, v in stages.items()))
-    RECORD[label] = dict(cold_fit_s=cold_s, warm_fit_s=warm_s,
-                         voxels_per_s=vps, stages_ms=stages,
-                         launches=launches, n_ties=n_tie,
-                         min_r2=float(r2.min()), card=card)
+    per_bucket = {k: spread([b.get(k, 0.0) for b in buckets])
+                  for k in buckets[0]}
+    log("%s: buckets, wall ms and device ms of their stages, median "
+        "(min-max) of %d fits: " % (label, WARM_FITS) + ", ".join(
+            "%s %.1f (%.1f-%.1f)" % (k, v["median"], v["min"], v["max"])
+            for k, v in sorted(per_bucket.items())))
+    return dict(warm_fit_s=warm_s, voxels_per_s=vps, stages_ms=stages,
+                buckets_ms=per_bucket, card=card)
+
+
+def phase_fit(wl, sig_ear=None):
+    """One main path through MFModel.fit, cold (launch counts) and
+    WARM_FITS times warm (voxels/s, stages): the flagship volume, or with
+    ``sig_ear`` the EAR volume (csf_mask = ear_mask = 1). Every voxel must
+    recover its planted atoms (with EAR: also ie = 4) or an objective at
+    most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6; the maps
+    must reload identically."""
+    import microstructure_fingerprinting_torch as mft
+    ear = sig_ear is not None
+    label = "EAR" if ear else "flagship"
+    ys_np = wl["y_ear"] if ear else wl["y"]
+    data, mask, numfasc, peaks = make_volume(wl, ys_np)
+    model = mft.MFModel(fit_dictionary(wl, sig_ear))
+    kw = dict(peaks=peaks, pgse_scheme=wl["sch_mat"], csf_mask=1, verbose=0)
+    if ear:
+        kw["ear_mask"] = 1
+    path = ("prep_block", "rowmin4", "rescan4") if ear else (
+        "prep_block", "rowmin3", "rescan3")
+    args = (data, mask, numfasc)
+    fit, launches, cold_s = cold_fit(label, model, args, kw, path)
+    n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
+                                   np.full(N_VOX, 2), np.ones(N_VOX, bool),
+                                   sig_ear)
+    check_maps(label, fit, ear)
+    RECORD[label] = dict(
+        cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
+        **warm_fits(label, model, args, kw, launches,
+                    split=(("prep", path[0]), ("re-scan", path[2]))))
     return launches
+
+
+def check_rescan3_ear_grid(wl, mix, sig_ear):
+    """Kernel 3 on the one-fascicle + CSF + EAR bucket's full
+    [782, 10, 1] grid (the EAR atoms as the second axis, CSF the fixed
+    third block), on the chunk of that bucket's CHUNK voxels that the fit
+    gives it, against its plain version; timed. Returns its row."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import interp as mfi
+    from microstructure_fingerprinting_torch.ops import rescan
+    vox = mix["buckets"][(1, True)][:CHUNK]
+    D, y, a3 = voxel_inputs(wl, vox, mix["y"], "cuda")
+    A1 = D[:, 0].contiguous()
+    del D
+    B, S = y.shape
+    _r, perm = mfi.make_grouped_rotation_paired(wl["msinterp"], wl["plan"])
+    a4 = torch.as_tensor(sig_ear[perm], dtype=torch.float32, device="cuda")
+    a4 = a4[None].expand(B, -1, -1)
+    ops, segw, _yn = rescan.row_scan_df3_operands(A1, a4, a3, y)
+    kern = lambda: rescan.rescan3_rows(*ops, n2=N_EAR, segw=segw)
+    plain = lambda: plain_sliced(
+        lambda *o: rescan.rescan3_twin(*o, n2=N_EAR, segw=segw), ops,
+        SLICE["rescan3_ear"])
+    seg = rescan.n_segments(N_EAR)
+    top1 = lambda o: rescan.candidates_from_rows(
+        o[0].reshape(B, -1), o[1].reshape(B, -1), segments=seg)[0]
+    err, outs = check_rescan("rescan3 EAR grid", kern, plain, top1, B,
+                             N_ATOM, N_EAR)
+    # the bound counts the grid's real points, not its padded columns
+    r = row(err, timed(kern), timed(plain), nbytes(ops, outs),
+            scan_ops("rescan3", B, S, N_ATOM, N_EAR))
+    RECORD["rescan3_ear_grid"] = dict(r, voxels=B, padded_columns=
+                                      ops[4].shape[2])
+    log("rescan3 on the %d x %d EAR grid, %d voxels: %.3f ms vs plain "
+        "%.3f (bound %.3f, %s)" % (N_ATOM, N_EAR, B, r["ms"],
+                                   r["plain_ms"], r["bound_ms"],
+                                   r["bound_by"]))
+    return r
+
+
+def df2_chunk_cost(wl):
+    """The eager-torch df2 scan (``dfscan.df2_candidates``, M = 1) on one
+    CHUNK-voxel chunk at both of its shapes, [782, 782] (two fascicles
+    without CSF) and [782, 1] (one fascicle + CSF): device ms a chunk and
+    the most memory it allocates above what was held before it."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import dfscan
+    D, y, a3 = voxel_inputs(wl, np.arange(CHUNK), wl["y"], "cuda")
+    out = {}
+    for name, A2 in (("782 x 782", D[:, 1]), ("782 x 1", a3)):
+        scan = lambda: dfscan.df2_candidates(D[:, 0], A2, y, M=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scan()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = timed(scan, reps=2)
+        out[name] = {"ms": ms, "peak_bytes": peak}
+        log("df2 scan %s, %d voxels: %.3f ms a chunk, peak %.2f GB above "
+            "its inputs" % (name, CHUNK, ms, peak / 1e9))
+    RECORD["df2_chunk"] = out
+    del D, y, a3
+    torch.cuda.empty_cache()
+
+
+def cross_check(label, wl, mix, buckets, sig_ear):
+    """CROSS_VOX voxels of each of ``buckets`` ((K, csf) pairs) through
+    run_bucket_fast on the card and on the CPU (the plain versions): ids
+    equal, objectives within 2e-9 ||y||^2."""
+    import torch
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    ear = sig_ear is not None
+    ms = wl["msinterp"]
+    for K, csf in buckets:
+        vox = mix["buckets"][(K, csf)][:CROSS_VOX]
+        y = mix["y"][vox]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            _x, ys, _c = ms.device_tables(dev, torch.float32)
+            out[dev] = fit_mod.run_bucket_fast(
+                ms, wl["plan"], ys, mix["peaks"][vox, :3 * K], y,
+                wl["sig_csf"], K, csf, batch=CROSS_VOX, sig_ear=sig_ear,
+                ear_on=ear)
+        g, c = out["cuda"], out["cpu"]
+        err = float(np.max(np.abs(g[2] - c[2]) / np.sum(y ** 2, axis=1)))
+        what = "K=%d csf=%d ear=%d" % (K, csf, ear)
+        log("%s: %d voxels of bucket %s on the card and the CPU: ids %s; "
+            "objective max|card - plain|/||y||^2 %.3e" % (
+                label, vox.size, what, g[1].tolist(), err))
+        RECORD.setdefault("card_vs_cpu", {})[what] = err
+        if not np.array_equal(g[1], c[1]) or err > 2e-9:
+            raise AssertionError("bucket %s: card and CPU disagree" % what)
+
+
+def phase_mixed(wl, sig_ear=None):
+    """A volume that mixes the fast path's buckets at the flagship's
+    widths through MFModel.fit: MIXED, or with ``sig_ear`` EAR_MIXED
+    (ear_mask = 1), cold (launch counts: with EAR kernel 3 must run, on
+    the one-fascicle bucket's grid, beside kernels 4 and 5) and WARM_FITS
+    times warm, held as the main paths are; then kernel 3 on that grid
+    against its plain version (with EAR) or the df2 scan's cost a chunk,
+    and CROSS_VOX voxels of each newer bucket on the card and the CPU."""
+    import microstructure_fingerprinting_torch as mft
+    ear = sig_ear is not None
+    label, spec = ("ear_mixed", EAR_MIXED) if ear else ("mixed", MIXED)
+    mix = mft.testing.make_mixed(wl, spec["groups"], sig_ear,
+                                 ear_atom=EAR_ATOM)
+    shape, S = spec["shape"], wl["sch_mat"].shape[0]
+    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
+            mix["numfasc"].reshape(shape).astype(float))
+    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"],
+              csf_mask=mix["csf_mask"].reshape(shape).astype(float),
+              verbose=0)
+    if ear:
+        kw["ear_mask"] = 1
+    path = ("prep_block", "rowmin4", "rescan4", "rescan3") if ear else (
+        "prep_block", "rowmin3", "rescan3")
+    model = mft.MFModel(fit_dictionary(wl, sig_ear))
+    fit, launches, cold_s = cold_fit(label, model, args, kw, path)
+    n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
+                                   mix["numfasc"], mix["csf_mask"], sig_ear)
+    check_maps(label, fit, ear)
+    RECORD[label] = dict(
+        cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
+        voxels={"K=%d csf=%d" % k: len(v) for k, v in mix["buckets"].items()},
+        **warm_fits(label, model, args, kw, launches))
+    del fit, model
+    if ear:
+        rescan3_ear = check_rescan3_ear_grid(wl, mix, sig_ear)
+    else:
+        rescan3_ear = None
+        df2_chunk_cost(wl)
+    cross_check(label, wl, mix, [(1, True)] if ear else [(1, True),
+                                                         (2, False)],
+                sig_ear)
+    return launches, rescan3_ear
 
 
 def phase_overflow(ear=False):
@@ -755,23 +979,38 @@ def main():
     sig_ear, wl["y_ear"] = mft.testing.make_ear(wl, N_EAR)
     wl["Dear"] = np.linspace(0.8e-9, 2.6e-9, N_EAR)
     log("workload synthesized in %.1f s" % (time.time() - t0))
-    # kernel rows, and the launches of each main path's cold fit: kernel 1
-    # has a row per path (2 rhs columns on the flagship, 12 on the EAR one)
+    # kernel rows, and the launches of each fit summed per row: kernel 1
+    # has a row per rhs width (2 columns without EAR, 12 with), kernel 3
+    # runs in the flagship and mixed fits and, on the EAR grid, in the
+    # EAR-mixed one
     rows, launches = {}, {}
+    plain3 = {"prep_block": "prep_block", "rowmin3": "rowmin3",
+              "rescan3": "rescan3"}
+    plain4 = {"prep_block_ear": "prep_block", "rowmin4": "rowmin4",
+              "rescan4": "rescan4"}
 
-    def ear_fit():
-        n = phase_fit(wl, sig_ear)
-        launches.update(prep_block_ear=n["prep_block"], rowmin4=n["rowmin4"],
-                        rescan4=n["rescan4"])
+    def counted(label, counts, by_row):
+        RECORD.setdefault("launches_by_fit", {})[label] = counts
+        for name, kernel in by_row.items():
+            launches[name] = launches.get(name, 0) + counts[kernel]
+
+    def ear_mixed():
+        counts, r3 = phase_mixed(wl, sig_ear)
+        counted("ear_mixed", counts, dict(plain4, rescan3="rescan3"))
+        rows["rescan3"]["max_abs_err"] = max(rows["rescan3"]["max_abs_err"],
+                                             r3["max_abs_err"])
 
     for name, step in (
             ("kernels", lambda: rows.update(phase_kernels(wl))),
-            ("fit", lambda: launches.update(phase_fit(wl))),
+            ("fit", lambda: counted("flagship", phase_fit(wl), plain3)),
             ("overflow", phase_overflow),
+            ("mixed", lambda: counted("mixed", phase_mixed(wl)[0], plain3)),
             ("ear_kernels", lambda: rows.update(phase_ear_kernels(wl,
                                                                   sig_ear))),
-            ("ear_fit", ear_fit),
-            ("ear_overflow", lambda: phase_overflow(ear=True))):
+            ("ear_fit", lambda: counted("EAR", phase_fit(wl, sig_ear),
+                                        plain4)),
+            ("ear_overflow", lambda: phase_overflow(ear=True)),
+            ("ear_mixed", ear_mixed)):
         t0 = time.time()
         step()
         RECORD.setdefault("phase_s", {})[name] = time.time() - t0

@@ -1,11 +1,23 @@
-"""Bucket fit steps: rotation -> two-pass exact scan -> double-float
-finalize, for the 2-fascicle + CSF configuration with or without the EAR
-block; closed-form host solve for fascicle-free (CSF and/or EAR) voxels.
+"""Bucket fit steps: rotation -> exact double-float scan -> double-float
+finalize for the fast path's buckets with fascicles; closed-form host
+solve for fascicle-free (CSF and/or EAR) voxels.
 
 PyTorch counterpart of ``_r_squared``, ``_finalize_top1``,
-``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast`` (the K=2 +
-CSF branches, with and without EAR) and ``run_bucket_trivial`` in
-``microstructure_fingerprinting_tpu/models/fit.py``.
+``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast`` and
+``run_bucket_trivial`` in ``microstructure_fingerprinting_tpu/models/fit.py``.
+``run_bucket_fast`` covers the JAX package's fast-path buckets, each by
+the scan the JAX package runs for it:
+
+  * 2 fascicles + CSF: two-pass scan (kernels 1-3) or, for N <= 2R, the
+    full-grid re-scan (kernel 3);
+  * 2 fascicles + CSF + EAR: the 4-block two-pass scan (kernels 1, 4, 5)
+    or its full-grid re-scan (kernel 5);
+  * 1 fascicle + CSF: ``dfscan.df2_candidates`` with the CSF column as
+    the second axis;
+  * 1 fascicle + CSF + EAR: kernel 3 on the full [N, E, 1] grid, the EAR
+    atoms as the second axis and CSF the fixed third block;
+  * 2 fascicles without CSF: ``dfscan.df2_candidates`` on [N, N].
+
 The winner's weights and metrics are always computed on the device
 (double-float finalize); the float64 host refine is not part of this
 package yet (see ROADMAP.md).
@@ -39,20 +51,24 @@ def _r_squared(y, y_rec):
     return r * r
 
 
-def _finalize_top1(D, sig_csf, y, cand, sig_ear=None):
+def _finalize_top1(D, sig_csf, sig_ear, y, cand, csf_on=False,
+                   ear_on=False, K=2):
     """Double-float finalize of the scan winner.
 
-    D (B, 2, S, N) rotated fascicle blocks (raw scale); sig_csf (S,);
-    y (B, S) raw; cand (B, C') winner, the fascicle indices first and,
-    with ``sig_ear`` (S, E), the EAR atom last. Returns (w (B, C),
-    obj (B,), r2 (B,)) for the columns (fascicle 1, fascicle 2, CSF[,
-    EAR])."""
+    D (B, K, S, N) rotated fascicle blocks (raw scale); sig_csf (S,) and
+    sig_ear (S, E), each used only when its flag is set; y (B, S) raw;
+    cand (B, C') winner, the fascicle indices first and, with ``ear_on``,
+    the EAR atom last. Returns (w (B, C), obj (B,), r2 (B,)) for the
+    columns (fascicle 1[, fascicle 2][, CSF][, EAR]), C = K + csf_on +
+    ear_on."""
     B, S = y.shape
+    cand = cand.long()
     cols = [torch.gather(D[:, k], 2,
                          cand[:, None, k:k + 1].expand(B, S, 1))
-            for k in range(2)]
-    cols.append(sig_csf[None, :, None].expand(B, S, 1))
-    if sig_ear is not None:
+            for k in range(K)]
+    if csf_on:
+        cols.append(sig_csf[None, :, None].expand(B, S, 1))
+    if ear_on:
         cols.append(sig_ear.t()[cand[:, -1]][:, :, None])
     cols = torch.cat(cols, dim=2)                          # (B, S, C)
     w, res = dfscan.df_nnls_cols(cols, y)
@@ -62,6 +78,17 @@ def _finalize_top1(D, sig_csf, y, cand, sig_ear=None):
     return w, res, _r_squared(y.double(), y_rec)
 
 
+def _finalized(D, csf_d, ear_d, y, cand, K, csf_on, ear_on, ok=None):
+    """The finalize stage of a chunk step: (cand, w, obj, r2, ok), ``ok``
+    all true where the scan has no row budget to overflow."""
+    with stage("finalize", y.device):
+        w, obj, r2 = _finalize_top1(D, csf_d, ear_d, y, cand, csf_on,
+                                    ear_on, K)
+    if ok is None:
+        ok = torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
+    return cand, w, obj, r2, ok
+
+
 def _twopass_step3(D, csf_d, y, R):
     """One chunk of the production path: interval row pass -> row
     selection -> df re-scan -> winner finalize."""
@@ -69,9 +96,7 @@ def _twopass_step3(D, csf_d, y, R):
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
     cand, _vals, _ysq, ok = f32.df3_twopass(D[:, 0], D[:, 1], csf_blk, y,
                                             R=R)
-    with stage("finalize", y.device):
-        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0])
-    return cand[:, 0], w, obj, r2, ok
+    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False, ok)
 
 
 def _onepass_step3(D, csf_d, y):
@@ -82,10 +107,7 @@ def _onepass_step3(D, csf_d, y):
         rr, ri, _ysq = rescan.row_scan_df3(D[:, 0], D[:, 1], csf_blk, y)
         cand, _v = rescan.candidates_from_rows(
             rr, ri, segments=rescan.n_segments(D.shape[3]))
-    with stage("finalize", y.device):
-        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0])
-    return (cand[:, 0], w, obj, r2,
-            torch.ones(B, dtype=torch.bool, device=y.device))
+    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
 
 
 def _twopass_step4(D, csf_d, ear_d, y, R):
@@ -96,9 +118,7 @@ def _twopass_step4(D, csf_d, ear_d, y, R):
     ear_blk = ear_d[None].expand(B, S, ear_d.shape[1])
     cand, _vals, _ysq, ok = f32.df4_twopass(D[:, 0], D[:, 1], csf_blk,
                                             ear_blk, y, R=R)
-    with stage("finalize", y.device):
-        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0], ear_d)
-    return cand[:, 0], w, obj, r2, ok
+    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True, ok)
 
 
 def _onepass_step4(D, csf_d, ear_d, y):
@@ -112,37 +132,70 @@ def _onepass_step4(D, csf_d, ear_d, y):
                                            ear_blk, y)
         cand, _v = rescan.candidates_from_rows_df4(
             rr, rf, E, E, N2, segments_total=rescan.n_segments_df4(N2))
-    with stage("finalize", y.device):
-        w, obj, r2 = _finalize_top1(D, csf_d, y, cand[:, 0], ear_d)
-    return (cand[:, 0], w, obj, r2,
-            torch.ones(B, dtype=torch.bool, device=y.device))
+    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True)
+
+
+def _scan12_step(D, csf_d, y):
+    """One fascicle + CSF: the [N, 1] df2 scan (the CSF column as the
+    second axis) + finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    with stage("df2 scan", y.device):
+        cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], csf_blk, y, M=1)
+    return _finalized(D, csf_d, None, y, cand[:, 0], 1, True, False)
+
+
+def _scan13_step(D, csf_d, ear_d, y):
+    """One fascicle + CSF + EAR: kernel 3 on the full [N, E, 1] grid (the
+    EAR atoms as the second axis, CSF the fixed third block; first
+    minimum in (i1, e) order, E <= one segment of columns) + finalize."""
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    E = ear_d.shape[1]
+    ear_blk = ear_d[None].expand(B, S, E)
+    with stage("re-scan", y.device):
+        rr, ri, _ysq = rescan.row_scan_df3(D[:, 0], ear_blk, csf_blk, y)
+        cand, _v = rescan.candidates_from_rows(
+            rr, ri, segments=rescan.n_segments(E))
+    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 1, True, True)
+
+
+def _scan22_step(D, y):
+    """Two fascicles without CSF: the [N, N] df2 scan + finalize."""
+    with stage("df2 scan", y.device):
+        cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], D[:, 1], y, M=1)
+    return _finalized(D, None, None, y, cand[:, 0], 2, False, False)
 
 
 def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                     K, csf_on, batch=128, rotator=None, sig_ear=None,
                     ear_on=False):
-    """2-fascicle + CSF bucket, with or without the EAR block: rotation,
-    two-pass exact scan (or the full-grid re-scan for N <= 2R) and the
+    """One fast-path bucket with fascicles: rotation, exact scan and the
     double-float finalize, in ``batch``-voxel chunks on
     ``tables_ys.device``.
 
-    ``tables_ys`` (S_shells, Kmax, N) float32 knot tables; peaks (n, 6);
-    y (n, S); sig_csf (S,); sig_ear (S, E) with ``ear_on``. The EAR
-    two-pass runs at R = ``twopass_rows_ear``. Voxels whose row band
-    overflows R are re-solved at 2R (batch ``min(batch, 64)``), then at
-    R = N, so exact selection is unconditional. Returns NumPy (w (n, C),
-    ind (n, C), min_obj, mse, r2) with C = 3 [i1, i2, csf=0] or, with EAR,
-    C = 4 [i1, i2, csf=0, ie].
+    ``tables_ys`` (S_shells, Kmax, N) float32 knot tables; peaks (n, 3K);
+    y (n, S); sig_csf (S,) with ``csf_on``; sig_ear (S, E) with
+    ``ear_on``. K is 1 or 2; one fascicle needs the CSF block and EAR
+    needs it too, as in the JAX package (see the module docstring for
+    each bucket's scan). The two-pass scans (K = 2 + CSF) run at R =
+    ``twopass_rows`` (``twopass_rows_ear`` with EAR); voxels whose row
+    band overflows R are re-solved at 2R (batch ``min(batch, 64)``), then
+    at R = N, so exact selection is unconditional. The other buckets
+    scan their whole grid. Returns NumPy (w (n, C), ind (n, C), min_obj,
+    mse, r2), C = K + csf_on + ear_on, in the canonical index layout
+    [fascicles..., csf=0 (with CSF), ie (with EAR)].
     """
-    if K != 2 or not csf_on:
+    if K not in (1, 2) or (K == 1 and not csf_on) or (ear_on and not csf_on):
         raise NotImplementedError(
-            "the port covers the 2-fascicle + CSF bucket (with or without "
-            "EAR); K=1 and K=2 without CSF are queued in ROADMAP.md "
-            "(Queue 1, item 9)")
+            "the fast path covers 1 and 2 fascicles; one fascicle and the "
+            "EAR block need the CSF block (got K=%d, csf=%d, ear=%d): the "
+            "general path, ROADMAP.md (Queue 1, item 4)"
+            % (K, csf_on, ear_on))
     cfg = config.DEFAULTS["solver"]
     rows_R = cfg.twopass_rows_ear if ear_on else cfg.twopass_rows
     n_atom = tables_ys.shape[2]
-    twopass = n_atom > 2 * cfg.twopass_rows
+    twopass = K == 2 and csf_on and n_atom > 2 * cfg.twopass_rows
     if rotator is None:
         rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
     rotate, perm = rotator
@@ -150,14 +203,22 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     n, S = y.shape
     # the rotation emits sequences in group order: permute the signal and
     # the fixed columns alike (every result is permutation-invariant)
-    csf_d = torch.as_tensor(np.asarray(sig_csf)[perm], dtype=dt, device=dev)
-    ear_d = E = None
+    csf_d = ear_d = E = None
+    if csf_on:
+        csf_d = torch.as_tensor(np.asarray(sig_csf)[perm], dtype=dt,
+                                device=dev)
     if ear_on:
         ear_d = torch.as_tensor(np.asarray(sig_ear)[perm], dtype=dt,
                                 device=dev)
         E = ear_d.shape[1]
 
     def step(D, yy, R):
+        if K == 1:
+            if ear_on:
+                return _scan13_step(D, csf_d, ear_d, yy)
+            return _scan12_step(D, csf_d, yy)
+        if not csf_on:
+            return _scan22_step(D, yy)
         if ear_on:
             if R is None:
                 return _onepass_step4(D, csf_d, ear_d, yy)
@@ -227,8 +288,12 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         # atom: report the first index, as the reference's first-minimum
         # enumeration does
         ind[w_b[:, -1] <= 0, -1] = 0
-    else:
-        ind = np.concatenate([ind, np.zeros((n, 1), np.int32)], axis=1)
+    # canonical (fascicles..., csf, ear) index layout
+    zero = np.zeros((n, 1), np.int32)
+    if K == 1 and ear_on:                    # [i1, ie] -> [i1, csf=0, ie]
+        ind = np.concatenate([ind[:, :1], zero, ind[:, 1:]], axis=1)
+    elif K == 2 and csf_on and not ear_on:   # [i1, i2] -> + csf=0
+        ind = np.concatenate([ind, zero], axis=1)
     return w_b, ind, obj_b, obj_b / S, r2.double().cpu().numpy()
 
 

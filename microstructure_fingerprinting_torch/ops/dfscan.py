@@ -8,6 +8,9 @@ buckets run:
     normalized columns (X = s1*Q1 + s2*Q2 [+ s3*Q3] + R);
   * ``df_gram`` / ``df_gram_tile``: exact-product Grams combined
     error-free into (hi, lo) pairs;
+  * ``df2_candidates``: the [N1, N2] scan of one fascicle + CSF and of
+    two fascicles without CSF, in plain torch as the JAX package runs it
+    in plain XLA;
   * the df helpers and ``_two_var_cases`` shared with the re-scans
     (``ops/rescan.py``), and the 4-block sub-support residuals
     ``_sub1_df``/``_sub2_df``/``_sub3_df`` of the EAR re-scan's hoists;
@@ -25,10 +28,13 @@ package accumulates them in float32; the two differ by ~1 ulp of the
 ~1e-4-sized cross terms, far below the scans' resolution.)
 """
 
+import math
+
 import numpy as np
 import torch
 
 from . import df32
+from . import nnls as mfn
 
 _S1 = 2.0 ** -7
 _S2 = 2.0 ** -15
@@ -104,6 +110,80 @@ def df_gram_tile(qa_t, qb, n2):
     quantize2 block. Returns (hi, lo) of shape (B, T, N2)."""
     del n2  # the JAX signature's static width; the shapes carry it here
     return df_gram(qa_t, qb, "bst,bsn->btn")
+
+
+def df2_candidates(A1, A2, y, M=8, tile=256):
+    """Top-M candidates for [N1, N2] with double-float selection: the
+    supports {1}, {2}, {1, 2} and the empty one, by the reference's
+    2-variable case analysis with compensated residual values. It serves
+    one fascicle + CSF (the CSF column as the second axis) and two
+    fascicles without CSF.
+
+    A1 (B, S, N1), A2 (B, S, N2), y (B, S). The N1 axis is scanned in
+    ``tile``-atom tiles; a float32 (B, tile, N2) tensor of the chain is
+    410 MB at B = 512, tile = 256, N2 = 782 (the float64 Gram products
+    twice that). Candidates are merged tile by tile in the first-minimum
+    order of the flat rank i1 * N2 + i2 (``nnls._tile_topm`` /
+    ``_merge_topm``), which does not depend on the tile. Returns (cand
+    (B, M, 2) int32 [i1, i2], res (B, M) residuals of the normalized
+    problem, y_sq (B,) raw ||y||^2)."""
+    B, S, N1 = A1.shape
+    N2 = A2.shape[2]
+    A1p, _ = mfn._pad_cols(A1.float(), tile)
+    A1h, _an1 = mfn._normalize_block(A1p)
+    A2h, _an2 = mfn._normalize_block(A2.float())
+    yh, yn, _ys = mfn._normalize_y(y.float())
+    N1p = A1h.shape[2]
+    tile = min(tile, N1p)
+
+    qA1 = quantize2(A1h)
+    qA2 = quantize2(A2h)
+    qy = quantize2(yh)
+    vec, diag = "bsn,bs->bn", "bsn,bsn->bn"
+    d1 = df_gram(qA1, qA1, diag)
+    d2 = df_gram(qA2, qA2, diag)
+    p_ = df_gram(qA1, qy, vec)
+    q_ = df_gram(qA2, qy, vec)
+    w_ = df_gram(qy, qy, "bs,bs->b")
+    w_ = (w_[0][:, None], w_[1][:, None])
+
+    Rp2 = _mul(p_, p_)
+    res1_row = _val(_add(_mul(d1, w_), _neg(Rp2))) / _val(d1)
+    Cq2 = _mul(q_, q_)
+    res2_col = _val(_add(_mul(d2, w_), _neg(Cq2))) / _val(d2)
+    wf = _val(w_)[:, :, None]
+    wv = (w_[0][:, :, None], w_[1][:, :, None])
+    d2c = (d2[0][:, None, :], d2[1][:, None, :])
+    qc = (q_[0][:, None, :], q_[1][:, None, :])
+    d2w_q2 = _add(_mul(d2c, wv), _neg(_mul(qc, qc)))
+    d2cf, qcf = _val(d2c), _val(qc)
+    i2 = torch.arange(N2, device=y.device)
+
+    vals = torch.full((B, M), math.inf, device=y.device)
+    flats = torch.zeros((B, M), dtype=torch.int32, device=y.device)
+    for st in range(0, N1p, tile):
+        sl = slice(st, st + tile)
+        rowd = lambda x: (x[0][:, sl, None], x[1][:, sl, None])
+        aa = df_gram_tile(tuple(x[:, :, sl] for x in qA1), qA2, N2)
+        d1t, pt, Rp2t = rowd(d1), rowd(p_), rowd(Rp2)
+        num12 = _accumulate([
+            _mul(d1t, d2w_q2), _neg(_mul(Rp2t, d2c)),
+            _scale(_mul(aa, _mul(pt, qc)), 2.0),
+            _neg(_mul(_mul(aa, aa), wv))])
+        af, d1tf, ptf = _val(aa), _val(d1t), _val(pt)
+        det12 = d1tf * d2cf - af * af
+        w1D = d2cf * ptf - af * qcf
+        w2D = d1tf * qcf - af * ptf
+        res, _ = _two_var_cases(num12 / det12, w1D, w2D, ptf, qcf,
+                                res1_row[:, sl, None], res2_col[:, None, :],
+                                wf)
+        i1 = torch.arange(st, st + tile, device=y.device)[:, None]
+        res = torch.where(i1 < N1, res, math.inf)
+        gflat = (i1 * N2 + i2[None, :]).reshape(1, -1)
+        tv, tf = mfn._tile_topm(res.reshape(B, -1), gflat, M)
+        vals, flats = mfn._merge_topm(vals, flats, tv, tf, M)
+    cand = torch.stack([flats // N2, flats % N2], dim=2).to(torch.int32)
+    return cand, vals, yn * yn
 
 
 def _mul(x, y):

@@ -1,10 +1,11 @@
-"""Column normalization helpers of the exhaustive-NNLS scans, and the
-closed-form float64 host solvers of the fascicle-free buckets.
+"""Column normalization helpers of the exhaustive-NNLS scans, their
+top-M candidate pools, and the closed-form float64 host solvers of the
+fascicle-free buckets.
 
 PyTorch counterpart of ``_pad_cols``, ``_normalize_block``,
-``_normalize_y``, ``lsqnonneg_1var`` and ``lsqnonneg_2var`` in
-``microstructure_fingerprinting_tpu/ops/nnls.py`` (the two solvers in
-their NumPy form, bit for bit).
+``_normalize_y``, ``_tile_topm``, ``_merge_topm``, ``lsqnonneg_1var`` and
+``lsqnonneg_2var`` in ``microstructure_fingerprinting_tpu/ops/nnls.py``
+(the two solvers in their NumPy form, bit for bit).
 
 On unit-normalized atoms and signal every Gram entry is an O(1)
 correlation with a unit diagonal, so the float32 scans work at eps-level
@@ -59,6 +60,50 @@ def _normalize_y(y):
     yn = sqrt_f32(sumsq_f32(y, 1))
     yn_safe = torch.where(yn > 0, yn, torch.ones_like(yn))
     return y / yn_safe[:, None], yn, yn_safe
+
+
+# ---------------------------------------------------------------------------
+# Top-M candidate pools, in the JAX package's order
+# ---------------------------------------------------------------------------
+
+def _total_order_key(x):
+    """int32 keys of float32 values in IEEE total order: -NaN < -inf <
+    ... < -0 < +0 < ... < inf < +NaN (the order ``lax.top_k`` ranks by on
+    the CPU)."""
+    i = x.float().contiguous().view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def _tile_topm(res_flat, gflat, M):
+    """The M smallest residuals of each row of (B, L) ``res_flat`` and
+    their ``gflat`` ranks, as ``lax.top_k(-res_flat, M)`` picks them: by
+    total order (a NaN with its sign bit set first, one without last),
+    ties to the lowest position. Returns (vals (B, M), flats (B, M)
+    int32)."""
+    key = _total_order_key(res_flat)
+    if M == 1:
+        idx = torch.argmin(key, dim=1, keepdim=True)   # first minimum
+    else:
+        idx = torch.sort(key, dim=1, stable=True)[1][:, :M]
+    return (torch.gather(res_flat, 1, idx),
+            torch.gather(gflat.expand(res_flat.shape[0], -1), 1,
+                         idx).to(torch.int32))
+
+
+def _merge_topm(vals, flats, tile_vals, tile_flats, M):
+    """Merge a running top-M pool with a tile's, as the JAX package's
+    ``lexsort((flats, vals))``: by residual with every NaN last (of either
+    sign, and equal among themselves), ties to the lowest flat rank."""
+    allv = torch.cat([vals, tile_vals], dim=1)
+    allf = torch.cat([flats.to(torch.int32), tile_flats.to(torch.int32)],
+                     dim=1)
+    order = torch.sort(allf, dim=1, stable=True)[1]
+    for key in (lambda v: torch.where(torch.isnan(v), math.inf, v),
+                torch.isnan):
+        k = key(torch.gather(allv, 1, order)).float()
+        order = torch.gather(order, 1, torch.sort(k, dim=1, stable=True)[1])
+    order = order[:, :M]
+    return torch.gather(allv, 1, order), torch.gather(allf, 1, order)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ Same generators as ``microstructure_fingerprinting_tpu/testing.py``: an
 HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
 fingerprint dictionary (zeppelins with per-atom diffusivities), and the
 flagship 2-fascicle + CSF fit workload, whose noiseless signals are
-synthesized through this package's grouped rotation, and its EAR
-(UK-Biobank) variant. The random draws
-are the JAX package's, in the same order, for the same seed.
+synthesized through this package's grouped rotation, its EAR
+(UK-Biobank) variant, and volumes that mix the fast path's buckets. The
+random draws of the workload are the JAX package's, in the same order,
+for the same seed.
 """
 
 import numpy as np
@@ -145,7 +146,7 @@ def make_fit_workload(num_atom=782, n_vox=64, seed=0,
                + gt_nu[:, 2, None] * sig_csf[None, :])
     return {"sch_mat": sch, "msinterp": ms, "plan": plan, "peaks": peaks,
             "y": y, "sig_csf": sig_csf, "gt_ids": gt_ids, "gt_nu": gt_nu,
-            "dictionary": sig}
+            "dictionary": sig, "cols": cols}
 
 
 def make_ear(wl, n_ear=10):
@@ -160,3 +161,45 @@ def make_ear(wl, n_ear=10):
     sig_ear = np.exp(-TE / 0.8)[:, None] * np.exp(-b[:, None] * Dear[None])
     y_ear = wl["y"] + 35 * sig_ear[:, 4][None, :]
     return sig_ear, y_ear
+
+
+def make_mixed(wl, groups, sig_ear=None, ear_atom=4, ear_amp=35.0,
+               seed=0):
+    """Voxels of several buckets from a ``make_fit_workload`` workload.
+
+    ``groups``: a sequence of (count, K, csf): that many voxels with K in
+    {0, 1, 2} planted fascicles, with (csf) or without the CSF
+    compartment; the groups are shuffled over the voxels (``seed``).
+    Voxel v takes the workload's voxel v (directions, planted atoms,
+    weights): its noiseless signal is 400 * (nu1 D[:, i1] [+ nu2 D[:, i2]]
+    [+ nu3 csf]), plus ``ear_amp`` times EAR atom ``ear_atom`` of
+    ``sig_ear`` (S, E) where given. Directions of absent fascicles are
+    zero. Returns a dict: y (n, S), peaks (n, 6), numfasc (n,), csf_mask
+    (n,) bool, gt_ids (n, 2) (-1 where absent), and buckets: {(K, csf):
+    voxel indices}.
+    """
+    counts = [c for c, _k, _csf in groups]
+    n = int(sum(counts))
+    if n > wl["y"].shape[0]:
+        raise ValueError("%d voxels asked of a %d-voxel workload"
+                         % (n, wl["y"].shape[0]))
+    label = np.repeat(np.arange(len(groups)), counts)
+    np.random.RandomState(seed).shuffle(label)
+    K = np.array([g[1] for g in groups])[label]
+    csf = np.array([bool(g[2]) for g in groups])[label]
+    nu = wl["gt_nu"][:n]
+    cols = wl["cols"][:n]
+    y = (nu[:, 0, None] * cols[:, 0] * (K >= 1)[:, None]
+         + nu[:, 1, None] * cols[:, 1] * (K == 2)[:, None]
+         + nu[:, 2, None] * wl["sig_csf"][None] * csf[:, None])
+    y = 400 * y
+    if sig_ear is not None:
+        y = y + ear_amp * sig_ear[:, ear_atom][None, :]
+    present = np.arange(2)[None, :] < K[:, None]              # (n, 2)
+    peaks = wl["peaks"][:n] * present[:, :, None]
+    gt_ids = np.where(present, wl["gt_ids"][:n], -1)
+    buckets = {}
+    for k, c in sorted(set(zip(K.tolist(), csf.tolist()))):
+        buckets[(k, c)] = np.flatnonzero((K == k) & (csf == c))
+    return {"y": y, "peaks": peaks.reshape(n, 6), "numfasc": K,
+            "csf_mask": csf, "gt_ids": gt_ids, "buckets": buckets}

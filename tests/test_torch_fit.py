@@ -177,21 +177,22 @@ def test_model_fit_matches_jax(rows, tmp_path):
 
 
 def test_model_fit_unported_buckets_raise():
-    """Configurations outside the ported buckets raise
-    NotImplementedError naming their ROADMAP item (one fascicle, an EAR
-    block of more than 16 atoms, EAR without CSF, a mesh of two
-    devices); CUDA asked for without a card raises."""
+    """Configurations outside the fast path's buckets raise
+    NotImplementedError naming their ROADMAP item (one fascicle without
+    CSF, an EAR block of more than 16 atoms, EAR without CSF: the general
+    path, item 4; a mesh of two devices); CUDA asked for without a card
+    raises."""
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(data, mask, np.minimum(numfasc, 1), csf_mask=1, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
+        model.fit(data, mask, np.minimum(numfasc, 1), **kw)
     ear = mft.MFModel(dict(dic, T2_ear=0.8,
                            DIFF_ear=np.linspace(0.8e-9, 2.6e-9, 17)),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
         ear.fit(data, mask, numfasc, csf_mask=1, ear_mask=1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
         ear.fit(data, mask, numfasc, ear_mask=1, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit(data, mask, numfasc, csf_mask=1, parallel=True,
@@ -199,6 +200,30 @@ def test_model_fit_unported_buckets_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             model.fit(data, mask, numfasc, csf_mask=1, device="cuda", **kw)
+
+
+def test_model_fit_one_fascicle_bucket_fits(rows):
+    """The one-fascicle + CSF bucket, which raised before it was ported,
+    fits: numfasc 1 on the 2-fascicle + CSF volume gives the maps of one
+    fascicle, equal to run_bucket_fast's on the same voxels (the bucket
+    itself is held against the JAX package in test_torch_buckets.py)."""
+    rows(16)
+    dic, data, mask, numfasc, peaks, wl = _model_inputs()
+    one = np.minimum(numfasc, 1)
+    fit = mft.MFModel(dic, device="cpu").fit(
+        data, mask, one, peaks=peaks[..., :3], pgse_scheme=dic["sch_mat"],
+        csf_mask=1, verbose=0, batch_size=8)
+    assert "frac_f0" in fit.param_names and "frac_f1" not in fit.param_names
+    mt = tinterp.MultiShellInterp.from_numpy(wl["msinterp"])
+    _x, ys_t, _c = mt.device_tables("cpu", torch.float32)
+    S = dic["sch_mat"].shape[0]
+    w, ind, _obj, mse, r2 = tfit.run_bucket_fast(
+        mt, wl["plan"], ys_t, wl["peaks"][:, 0], data.reshape(-1, S)[:8],
+        wl["sig_csf"], 1, True, batch=8)
+    assert np.array_equal(fit.MSE.reshape(-1)[:8], mse)
+    assert np.array_equal(fit.R2.reshape(-1)[:8], r2)
+    assert np.array_equal(fit.dpar_f0.reshape(-1)[:8],
+                          dic["dpar"][ind[:, 0]] * (w[:, 0] > 0))
 
 
 def test_parallel_on_one_device_fits_as_batched(rows):
