@@ -14,7 +14,13 @@ CSF and 2 without) and "ear_mixed" (1024 voxels of 0, 1 and 2 fascicles
 + CSF + EAR, kernel 3 on the one-fascicle bucket's [782, 10, 1] grid).
 It writes and reloads their maps, drives the overflow tiers of the
 two-fascicle + CSF buckets, and fits a few voxels of each newer bucket
-on the card and on the CPU. Every phase runs; exits non-zero on any
+on the card and on the CPU. Then the general path (no kernel of its
+own): the "general" volume (1024 voxels of one fascicle without CSF,
+with and without EAR, and two fascicles + EAR without CSF), a 4-block
+bucket with 20 EAR atoms, the flagship's two-fascicle + CSF bucket with
+engine="xla" against the fast path, each bucket's stages, refine time
+and peak memory, and tests/golden/golden_fit.npz fitted with the default
+arguments and with engine="xla". Every phase runs; exits non-zero on any
 failure; needs one CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
@@ -90,6 +96,22 @@ EAR_MIXED = {"shape": (16, 8, 8), "groups": ((512, 1, True), (256, 2, True),
                                              (256, 0, True))}
 #: voxels of each newer bucket fitted on the card and on the CPU
 CROSS_VOX = 8
+#: the "general" volume: the buckets a brain fitted without a CSF mask
+#: falls into, at the flagship widths, as (voxels, fascicles, CSF, EAR)
+#: groups planted by ``testing.make_mixed`` (EAR atom 4 of the 10-atom
+#: block where EAR is on); the fast path covers none of them
+GENERAL = {"shape": (16, 8, 8), "groups": ((512, 1, False, False),
+                                           (256, 1, False, True),
+                                           (256, 2, False, True))}
+#: an EAR block wider than the fast path's 16 atoms: the 4-block general
+#: scan, on WIDE_VOX voxels of 2 fascicles + CSF + EAR
+N_EAR_WIDE = 20
+WIDE_VOX = 128
+#: flagship (2, CSF) voxels fitted with engine="xla" beside the fast path
+XLA_VOX = 512
+#: the repo's frozen end-to-end fixture (tests/test_golden.py)
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "golden_fit.npz")
 
 RECORD = {}
 
@@ -567,54 +589,61 @@ def cold_fit(label, model, args, kw, path):
     return fit, launches, cold_s
 
 
-def planted_objectives(wl, vox, ys_np, gt, K, csf, sig_ear):
+def planted_objectives(wl, vox, ys_np, gt, K, csf, sig_ear, ear):
     """Objectives of the planted supports of the workload's voxels
-    ``vox`` (fascicle ids ``gt``, CSF index 0, with ``sig_ear`` EAR atom
-    EAR_ATOM) on the rotated columns the fit used, by the double-float finalize
-    on the card, bucket by bucket (K and csf per voxel)."""
+    ``vox`` (fascicle ids ``gt``, CSF index 0, with EAR the atom EAR_ATOM
+    of ``sig_ear``) on the rotated columns the fit used, by the
+    double-float finalize on the card, bucket by bucket (K, csf and ear
+    per voxel)."""
     import torch
     from microstructure_fingerprinting_torch.models import fit as fit_mod
     from microstructure_fingerprinting_torch.ops import interp as mfi
-    ear = sig_ear is not None
     _r, perm = mfi.make_grouped_rotation_paired(wl["msinterp"], wl["plan"])
     on_card = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                         device="cuda")
-    ear_d = on_card(sig_ear[perm]) if ear else None
+    ear_d = on_card(sig_ear[perm]) if sig_ear is not None else None
     out = np.zeros(vox.size)
-    for k, c in sorted(set(zip(K[vox].tolist(), csf[vox].tolist()))):
-        sel = np.flatnonzero((K[vox] == k) & (csf[vox] == c))
+    for k, c, e in sorted(set(zip(K[vox].tolist(), csf[vox].tolist(),
+                                  ear[vox].tolist()))):
+        sel = np.flatnonzero((K[vox] == k) & (csf[vox] == c)
+                             & (ear[vox] == e))
         v = vox[sel]
         D, y, a3 = voxel_inputs(wl, v, ys_np, "cuda")
         cand = np.concatenate(
             [gt[v, :k], np.zeros((v.size, int(c))),
-             np.full((v.size, int(ear)), EAR_ATOM)], axis=1)
+             np.full((v.size, int(e)), EAR_ATOM)], axis=1)
         _w, obj, _r2 = fit_mod._finalize_top1(
-            D, a3[0, :, 0], ear_d, y,
+            D, a3[0, :, 0], ear_d if e else None, y,
             torch.as_tensor(cand, dtype=torch.int64, device="cuda"),
-            csf_on=bool(c), ear_on=ear, K=k)
+            csf_on=bool(c), ear_on=bool(e), K=k)
         out[sel] = obj.double().cpu().numpy()
     return out
 
 
-def check_recovery(label, wl, fit, ys_np, gt, K, csf, sig_ear):
+def check_recovery(label, wl, fit, ys_np, gt, K, csf, sig_ear, ear=None,
+                   dear=None):
     """Every voxel must recover its planted atoms (gt (n, 2), -1 where a
-    fascicle is absent; with ``sig_ear`` also ie = EAR_ATOM) or an objective at
-    most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6. K and
-    csf (n,) give each voxel's bucket. Returns (equal-or-better
+    fascicle is absent; with EAR also ie = EAR_ATOM) or an objective at
+    most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6. K, csf
+    and ear (n,) give each voxel's bucket; ear defaults to every voxel
+    when ``sig_ear`` is given, none otherwise, and ``dear`` (the EAR
+    diffusivities) to the workload's. Returns (equal-or-better
     objectives, min R^2)."""
-    ear = sig_ear is not None
     n, S = ys_np.shape
+    if ear is None:
+        ear = np.full(n, sig_ear is not None)
+    dear = wl["Dear"] if dear is None else dear
     r2 = fit.R2.reshape(-1)
     if not np.all(r2 >= 1 - 1e-6):
         raise AssertionError("R2 below 1 - 1e-6 in %d voxels (min %.9f)"
                              % (int(np.sum(r2 < 1 - 1e-6)), r2.min()))
     ids = [fit.atom_id_f0.reshape(-1), fit.atom_id_f1.reshape(-1)]
     want = [np.maximum(gt[:, 0], 0), np.maximum(gt[:, 1], 0)]
-    if ear:
+    if ear.any():
         d_ear = fit.D_ear.reshape(-1)
-        ids.append(np.argmin(np.abs(d_ear[:, None] - wl["Dear"][None]),
-                             axis=1))
-        want.append(np.full(n, EAR_ATOM))
+        ids.append(np.where(ear, np.argmin(
+            np.abs(d_ear[:, None] - dear[None]), axis=1), 0))
+        want.append(np.where(ear, EAR_ATOM, 0))
     ids = np.stack(ids, axis=1).astype(np.int64)
     want = np.stack(want, axis=1)
     diff = np.flatnonzero(np.any(ids != want, axis=1))
@@ -622,12 +651,13 @@ def check_recovery(label, wl, fit, ys_np, gt, K, csf, sig_ear):
     obj = fit.MSE.reshape(-1) * S
     n_tie = 0
     if diff.size:
-        obj_gt = planted_objectives(wl, diff, ys_np, gt, K, csf, sig_ear)
+        obj_gt = planted_objectives(wl, diff, ys_np, gt, K, csf, sig_ear,
+                                    ear)
         for k, v in enumerate(diff):
             tie = obj[v] <= obj_gt[k] + 2e-9 * ysq[v]
-            log("%s voxel %d (K=%d, csf=%d): selected %s, planted %s, "
-                "objective %.6e vs planted %.6e -> %s" % (
-                    label, v, K[v], csf[v], ids[v].tolist(),
+            log("%s voxel %d (K=%d, csf=%d, ear=%d): selected %s, planted "
+                "%s, objective %.6e vs planted %.6e -> %s" % (
+                    label, v, K[v], csf[v], ear[v], ids[v].tolist(),
                     want[v].tolist(), obj[v], obj_gt[k],
                     "tie" if tie else "ERROR"))
             if not tie:
@@ -955,6 +985,254 @@ def phase_overflow(ear=False):
         raise AssertionError("overflow tiers disagree with the plain path")
 
 
+def general_bucket(label, ms, plan, peaks, y, sig_csf, sig_ear, K, csf, ear):
+    """One bucket through ``fit.run_bucket`` on the card as MFModel.fit
+    runs it (FitConfig.batch chunks, top-16 pool, float64 refine): its
+    wall ms, the device ms of its stages (rotation, candidates), the host
+    ms of the refine, and the most memory it allocates above what was
+    held before it. Returns the record."""
+    import torch
+    from microstructure_fingerprinting_torch import config
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    from microstructure_fingerprinting_torch.utils import profiling
+    tables = ms.device_tables("cuda", torch.float32)
+    plan_t = fit_mod.plan_tensors(plan, torch.float32, "cuda")
+    refine_ms = []
+    orig = fit_mod.refine_mod.refine_candidates
+
+    def timed_refine(*a, **k):
+        t0 = time.time()
+        out = orig(*a, **k)
+        refine_ms.append(1e3 * (time.time() - t0))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fit_mod.refine_mod.refine_candidates = timed_refine
+    try:
+        with profiling.StageTimer() as st:
+            t0 = time.time()
+            fit_mod.run_bucket(tables, plan_t, peaks, y, sig_csf, sig_ear,
+                               K, csf, ear, batch=config.DEFAULTS["fit"].batch,
+                               refine=True, ms_host=ms, plan_host=plan,
+                               topm=16)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.time() - t0)
+    finally:
+        fit_mod.refine_mod.refine_candidates = orig
+    rec = {"voxels": int(y.shape[0]), "wall_ms": wall,
+           "refine_host_ms": sum(refine_ms),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    rec.update({k + "_ms": v for k, v in st.totals_ms().items()})
+    log("%s: bucket K=%d csf=%d ear=%d, %d voxels: wall %.1f ms; device "
+        "ms %s; refine %.1f ms on the host; peak %.2f GB above its inputs "
+        "[%s]" % (label, K, csf, ear, rec["voxels"], wall, ", ".join(
+            "%s %.1f" % (k, v) for k, v in st.totals_ms().items()),
+            rec["refine_host_ms"], rec["peak_bytes"] / 1e9, card_line()))
+    return rec
+
+
+def cross_check_general(label, wl, mix, sig_ear):
+    """CROSS_VOX voxels of each bucket of ``mix`` through ``run_bucket``
+    (top-16 pool, float64 refine) on the card and on the CPU (the same
+    torch code): ids equal, objectives within 2e-9 ||y||^2."""
+    import torch
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    ms, plan = wl["msinterp"], wl["plan"]
+    for (K, csf, ear), vox in mix["buckets"].items():
+        vox = vox[:CROSS_VOX]
+        y = mix["y"][vox]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            out[dev] = fit_mod.run_bucket(
+                ms.device_tables(dev, torch.float32),
+                fit_mod.plan_tensors(plan, torch.float32, dev),
+                mix["peaks"][vox, :3 * K], y, wl["sig_csf"], sig_ear, K,
+                csf, ear, batch=CROSS_VOX, refine=True, ms_host=ms,
+                plan_host=plan, topm=16)
+        g, c = out["cuda"], out["cpu"]
+        err = float(np.max(np.abs(g[2] - c[2]) / np.sum(y ** 2, axis=1)))
+        what = "K=%d csf=%d ear=%d" % (K, csf, ear)
+        log("%s: %d voxels of bucket %s on the card and the CPU: ids %s; "
+            "objective max|card - CPU|/||y||^2 %.3e" % (
+                label, vox.size, what, g[1].tolist(), err))
+        RECORD.setdefault("card_vs_cpu", {})["%s %s" % (label, what)] = err
+        if not np.array_equal(g[1], c[1]) or err > 2e-9:
+            raise AssertionError("bucket %s: card and CPU disagree" % what)
+
+
+def general_fit(label, model, args, kw):
+    """A fit that must take the general path only: no kernel of the fast
+    path launches. Returns (fit, seconds)."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    mft.reset_counts()
+    t0 = time.time()
+    fit = model.fit(*args, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    log("%s: cold fit of %d voxels: %.2f s" % (label, args[0][..., 0].size,
+                                               cold_s))
+    if any(mft.LAUNCHES.values()):
+        raise AssertionError("%s: a fast-path kernel launched: %s"
+                             % (label, mft.LAUNCHES))
+    return fit, cold_s
+
+
+def phase_general(wl, sig_ear):
+    """The general path at the flagship widths: the GENERAL volume
+    through MFModel.fit, cold and WARM_FITS times warm (voxels/s, each
+    bucket's stages), every voxel its planted atoms or an equal-or-better
+    objective at R^2 >= 1 - 1e-6, maps reloaded; each bucket once more
+    through run_bucket for its wall time, stages, refine time and peak
+    memory; CROSS_VOX voxels of each bucket on the card and the CPU."""
+    import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch.utils import native
+    ok = native.available()
+    log("general: native host helper available: %s" % ok)
+    RECORD["native_available"] = ok
+    if not ok:
+        raise AssertionError("the native host helper (csrc/mf_native.cpp) "
+                             "did not build")
+    label = "general"
+    mix = mft.testing.make_mixed(wl, GENERAL["groups"], sig_ear,
+                                 ear_atom=EAR_ATOM)
+    shape, S = GENERAL["shape"], wl["sch_mat"].shape[0]
+    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
+            mix["numfasc"].reshape(shape).astype(float))
+    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"], csf_mask=0,
+              ear_mask=mix["ear_mask"].reshape(shape).astype(float),
+              verbose=0)
+    model = mft.MFModel(fit_dictionary(wl, sig_ear))
+    fit, cold_s = general_fit(label, model, args, kw)
+    n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
+                                   mix["numfasc"], mix["csf_mask"], sig_ear,
+                                   ear=mix["ear_mask"])
+    check_maps(label, fit, True)
+    del fit
+    direct = {}
+    for (K, csf, ear), vox in mix["buckets"].items():
+        direct["K=%d csf=%d ear=%d" % (K, csf, ear)] = general_bucket(
+            label, wl["msinterp"], wl["plan"], mix["peaks"][vox, :3 * K],
+            mix["y"][vox], None, sig_ear if ear else None, K, csf, ear)
+    RECORD[label] = dict(
+        cold_fit_s=cold_s, n_ties=n_tie, min_r2=min_r2, buckets=direct,
+        voxels={"K=%d csf=%d ear=%d" % k: len(v)
+                for k, v in mix["buckets"].items()},
+        **warm_fits(label, model, args, kw, {}))
+    cross_check_general(label, wl, mix, sig_ear)
+
+
+def phase_general_wide(wl):
+    """The 4-block general scan: WIDE_VOX voxels of 2 fascicles + CSF +
+    EAR with an EAR block of N_EAR_WIDE atoms (more than the fast path's
+    16) through MFModel.fit, held as the general volume is; the bucket
+    once more through run_bucket (times, peak memory); CROSS_VOX voxels
+    on the card and the CPU."""
+    import microstructure_fingerprinting_torch as mft
+    label = "general_wide"
+    sig_ear, _y = mft.testing.make_ear(wl, N_EAR_WIDE)
+    dear = np.linspace(0.8e-9, 2.6e-9, N_EAR_WIDE)
+    mix = mft.testing.make_mixed(wl, [(WIDE_VOX, 2, True, True)], sig_ear,
+                                 ear_atom=EAR_ATOM)
+    shape, S = (8, 4, 4), wl["sch_mat"].shape[0]
+    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
+            np.full(shape, 2.0))
+    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"], csf_mask=1, ear_mask=1, verbose=0)
+    dic = dict(fit_dictionary(wl, sig_ear), DIFF_ear=dear,
+               num_ear=N_EAR_WIDE)
+    fit, cold_s = general_fit(label, mft.MFModel(dic), args, kw)
+    n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
+                                   mix["numfasc"], mix["csf_mask"], sig_ear,
+                                   dear=dear)
+    check_maps(label, fit, True)
+    del fit
+    vox = mix["buckets"][(2, True, True)]
+    RECORD[label] = dict(
+        cold_fit_s=cold_s, n_ties=n_tie, min_r2=min_r2, n_ear=N_EAR_WIDE,
+        bucket=general_bucket(label, wl["msinterp"], wl["plan"],
+                              mix["peaks"][vox], mix["y"][vox],
+                              wl["sig_csf"], sig_ear, 2, True, True))
+    cross_check_general(label, wl, mix, sig_ear)
+
+
+def phase_xla(wl):
+    """engine="xla" on XLA_VOX voxels of the flagship (2, CSF) bucket: on
+    every voxel the fast path's ids or an equal objective (2e-9
+    ||y||^2); the bucket once more through run_bucket (times, peak)."""
+    import microstructure_fingerprinting_torch as mft
+    label = "xla"
+    vox = np.arange(XLA_VOX)
+    shape, S = (8, 8, 8), wl["sch_mat"].shape[0]
+    args = (wl["y"][vox].reshape(shape + (S,)), np.ones(shape),
+            np.full(shape, 2.0))
+    kw = dict(peaks=wl["peaks"][vox].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"], csf_mask=1, verbose=0)
+    model = mft.MFModel(fit_dictionary(wl))
+    fx, cold_s = general_fit(label, model, args, dict(kw, engine="xla"))
+    ff = model.fit(*args, **kw)
+    ids = lambda f: np.stack([f.atom_id_f0.reshape(-1),
+                              f.atom_id_f1.reshape(-1)], axis=1)
+    diff = np.flatnonzero(np.any(ids(fx) != ids(ff), axis=1))
+    ysq = np.sum(wl["y"][vox] ** 2, axis=1)
+    gap = np.abs(fx.MSE.reshape(-1) - ff.MSE.reshape(-1)) * S / ysq
+    log("%s: %d voxels: ids of the fast path on %d, others within %.3e "
+        "||y||^2 of its objective; min R2 %.9f" % (
+            label, vox.size, vox.size - diff.size,
+            float(gap[diff].max()) if diff.size else 0.0, fx.R2.min()))
+    if diff.size and gap[diff].max() > 2e-9:
+        raise AssertionError("engine='xla' selected a worse support")
+    if fx.R2.min() < 1 - 1e-6:
+        raise AssertionError("engine='xla': R2 below 1 - 1e-6")
+    RECORD[label] = dict(
+        cold_fit_s=cold_s, n_ties=int(diff.size), min_r2=float(fx.R2.min()),
+        bucket=general_bucket(label, wl["msinterp"], wl["plan"],
+                              wl["peaks"][vox].reshape(-1, 6), wl["y"][vox],
+                              wl["sig_csf"], None, 2, True, False))
+
+
+def phase_golden():
+    """tests/golden/golden_fit.npz fitted on the card with the default
+    arguments and with engine="xla": every map within 1e-5 x max(1,
+    max|map|) of the fixture (tests/test_golden.py's check), the maps
+    reloaded exactly. The default fit's fast-path kernel launches are
+    recorded on their own, outside the kernel table's counts."""
+    import microstructure_fingerprinting_torch as mft
+    g = np.load(GOLDEN, allow_pickle=False)
+    dic = {"dictionary": g["dictionary"], "sch_mat": g["sch_mat"],
+           "orientation": g["orientation"],
+           "num_atom": g["dictionary"].shape[1],
+           "num_ear": g["DIFF_ear"].size, "fasc_propnames": ["dpar", "dperp"],
+           "dpar": g["dpar"], "dperp": g["dperp"], "T2_csf": 2.0,
+           "DIFF_csf": 3.0e-9, "T2_ear": 0.8, "DIFF_ear": g["DIFF_ear"]}
+    model = mft.MFModel(dic)
+    names = [str(p) for p in g["param_names"]]
+    for name, extra in (("default", {}), ("xla", {"engine": "xla"})):
+        mft.reset_counts()
+        fit = model.fit(g["data"], g["mask"], g["numfasc"], peaks=g["peaks"],
+                        pgse_scheme=g["sch_mat"], csf_mask=g["csf_mask"],
+                        ear_mask=g["ear_mask"], verbose=0, **extra)
+        launches = {k: v for k, v in mft.LAUNCHES.items() if v}
+        if fit.param_names != names:
+            raise AssertionError("golden %s: maps %s" % (name,
+                                                         fit.param_names))
+        err = {p: float(np.max(np.abs(getattr(fit, p) - g["map_" + p])))
+               / max(1.0, float(np.max(np.abs(g["map_" + p]))))
+               for p in names}
+        worst = max(err, key=err.get)
+        log("golden %s: worst map %s at %.3e of its scale (limit 1e-5); "
+            "fast-path launches %s" % (name, worst, err[worst], launches))
+        RECORD.setdefault("golden", {})[name] = dict(
+            worst_map=worst, worst_rel_err=err[worst], launches=launches)
+        if err[worst] > 1e-5:
+            raise AssertionError("golden %s: map %s off the fixture"
+                                 % (name, worst))
+        check_maps("golden " + name, fit, True)
+
+
 KERNEL_META = {
     "prep_block": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
     "prep_block_ear": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
@@ -1010,7 +1288,11 @@ def main():
             ("ear_fit", lambda: counted("EAR", phase_fit(wl, sig_ear),
                                         plain4)),
             ("ear_overflow", lambda: phase_overflow(ear=True)),
-            ("ear_mixed", ear_mixed)):
+            ("ear_mixed", ear_mixed),
+            ("general", lambda: phase_general(wl, sig_ear)),
+            ("general_wide", lambda: phase_general_wide(wl)),
+            ("xla", lambda: phase_xla(wl)),
+            ("golden", phase_golden)):
         t0 = time.time()
         step()
         RECORD.setdefault("phase_s", {})[name] = time.time() - t0

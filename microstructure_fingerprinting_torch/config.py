@@ -3,12 +3,12 @@
 ``SolverConfig`` and ``FitConfig`` hold the fields of the JAX package's
 dataclasses (``microstructure_fingerprinting_tpu/config.py``) that the
 ported buckets read, with the same defaults; the other knobs
-come with the code that reads them. Two of the JAX package's values live
-elsewhere, as they do there: the re-scan's 8 segments per column block
-are ``ops/rescan._SEGMENTS``, and the fit's voxel chunk is
-``MFModel.fit(batch_size=)``, 512 by default as on the JAX package's
-one-device path (its ``FitConfig.batch`` is the step of the multi-device
-path, which is not ported).
+come with the code that reads them. The re-scan's 8 segments per column
+block are ``ops/rescan._SEGMENTS``, and the general path's tile and
+tolerances are module constants of ``ops/nnls.py``, as they are in the
+JAX package. The fit's voxel chunk is ``MFModel.fit(batch_size=)``,
+which defaults to 512 on the fast path (as on the JAX package's
+one-device path) and to ``FitConfig.batch`` on the general path.
 
 The policy below is set once, when the package is imported:
 
@@ -64,6 +64,7 @@ class FitConfig:
     max_prog_lines: int = 100      # progress-print budget
     dft_disp_itvl: int = 5         # default progress interval
     gtol: float = 1e-3             # bval->G snapping tolerance [T/m]
+    batch: int = 128               # general-path voxel chunk
 
 
 DEFAULTS = {

@@ -1,12 +1,14 @@
-"""Bucket fit steps: rotation -> exact double-float scan -> double-float
-finalize for the fast path's buckets with fascicles; closed-form host
-solve for fascicle-free (CSF and/or EAR) voxels.
+"""Bucket fit steps.
 
 PyTorch counterpart of ``_r_squared``, ``_finalize_top1``,
-``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast`` and
-``run_bucket_trivial`` in ``microstructure_fingerprinting_tpu/models/fit.py``.
+``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast``,
+``run_bucket_trivial``, ``fit_step``, ``_build_blocks``,
+``fit_step_candidates`` and ``run_bucket`` in
+``microstructure_fingerprinting_tpu/models/fit.py``. Three routes:
+
 ``run_bucket_fast`` covers the JAX package's fast-path buckets, each by
-the scan the JAX package runs for it:
+the scan the JAX package runs for it, with an exact double-float scan and
+a double-float finalize of the winner on the device:
 
   * 2 fascicles + CSF: two-pass scan (kernels 1-3) or, for N <= 2R, the
     full-grid re-scan (kernel 3);
@@ -18,9 +20,15 @@ the scan the JAX package runs for it:
     atoms as the second axis and CSF the fixed third block;
   * 2 fascicles without CSF: ``dfscan.df2_candidates`` on [N, N].
 
-The winner's weights and metrics are always computed on the device
-(double-float finalize); the float64 host refine is not part of this
-package yet (see ROADMAP.md).
+``run_bucket`` is the general path (the JAX package's ``engine='xla'``)
+for any bucket of 1-4 blocks: the gather-and-lerp rotation
+(``interp.eval_rotation_batch``), the tiled exhaustive scans of
+``ops/nnls.py`` in the tables' dtype (plain torch on the device, as they
+are plain XLA there), and, with ``refine``, their top-M candidates
+re-scored exactly in float64 on the host (``models/refine.py``).
+
+``run_bucket_trivial`` solves the fascicle-free (CSF and/or EAR) voxels
+in closed form on the host.
 """
 
 import math
@@ -35,6 +43,7 @@ from ..ops import interp as mfi
 from ..ops import nnls as mfn
 from ..ops import rescan
 from ..utils.profiling import stage
+from . import refine as refine_mod
 
 
 def _r_squared(y, y_rec):
@@ -356,3 +365,150 @@ def _r2_np(y, y_rec):
     ok = (den > 0) & (n > 1)
     r = np.where(ok, num / np.where(ok, den, 1.0), 0.0)
     return r * r
+
+
+# ---------------------------------------------------------------------------
+# The general path (engine='xla'): gather-and-lerp rotation, tiled
+# exhaustive scans, float64 host refine
+# ---------------------------------------------------------------------------
+
+def plan_tensors(plan, dtype, device):
+    """(gdir, shell_lo, shell_hi, wG) of a ``TargetSchemePlan`` as tensors
+    on ``device``: the directions and blend weights in ``dtype``, the
+    shell indices int64."""
+    return (torch.as_tensor(plan.gdir, dtype=dtype, device=device),
+            torch.as_tensor(plan.shell_lo, dtype=torch.int64, device=device),
+            torch.as_tensor(plan.shell_hi, dtype=torch.int64, device=device),
+            torch.as_tensor(plan.wG, dtype=dtype, device=device))
+
+
+def _build_blocks(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+                  peaks, y, sig_csf, sig_ear, K, csf_on, ear_on):
+    """The voxel batch's sub-dictionaries: K rotated fascicle blocks
+    (B, S, N), then the CSF column (B, S, 1) and the EAR block (B, S, E),
+    each broadcast over the voxels (no copy)."""
+    B, S = y.shape
+    blocks = []
+    if K > 0:
+        with stage("rotation", y.device):
+            D = mfi.eval_rotation_batch(xs, ys, cnt, gdir, shell_lo,
+                                        shell_hi, wG, peaks)
+        blocks.extend(D[:, k] for k in range(K))
+    if csf_on:
+        blocks.append(sig_csf[None, :, None].expand(B, S, 1))
+    if ear_on:
+        blocks.append(sig_ear[None].expand(B, S, sig_ear.shape[1]))
+    if not blocks:
+        raise ValueError("Empty configuration: no compartments to fit.")
+    return blocks
+
+
+def fit_step(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+             peaks, y, sig_csf, sig_ear, *, K, csf_on, ear_on):
+    """One fit step for a (K, csf_on, ear_on) voxel bucket: rotation,
+    exhaustive scan and quality metrics, on the tensors' device.
+
+    Args:
+      xs, ys, cnt: dictionary knot tables (``device_tables``).
+      gdir, shell_lo, shell_hi, wG: target-scheme plan tensors.
+      peaks: (B, K, 3) fascicle directions (zero-size K axis allowed).
+      y: (B, S) measured DWI signals.
+      sig_csf: (S,) CSF fingerprint; sig_ear: (S, E) EAR fingerprints
+        (read only when their compartment is on).
+
+    Returns dict with w (B, C), ind (B, C), min_obj (B,), mse (B,), r2 (B,)
+    where C = K + csf_on + ear_on is the number of compartments.
+    """
+    S = y.shape[1]
+    blocks = _build_blocks(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+                           peaks, y, sig_csf, sig_ear, K, csf_on, ear_on)
+    with stage("scan", y.device):
+        w, ind, min_obj = mfn.exhaustive_nnls_blocks(tuple(blocks), y)
+
+    # y_hat = sum_k w_k * block_k[:, :, ind_k]
+    y_rec = torch.zeros_like(y)
+    for j, blk in enumerate(blocks):
+        col = torch.gather(blk, 2, ind[:, j].long()[:, None, None].expand(
+            -1, S, 1))[:, :, 0]
+        y_rec = y_rec + w[:, j][:, None] * col
+    return {"w": w, "ind": ind, "min_obj": min_obj, "mse": min_obj / S,
+            "r2": _r_squared(y, y_rec)}
+
+
+def fit_step_candidates(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+                        peaks, y, sig_csf, sig_ear, *,
+                        K, csf_on, ear_on, M=8):
+    """Top-M candidate indices per voxel for the float64 host re-scoring
+    (models/refine.py). Returns (B, M, C) int32."""
+    blocks = _build_blocks(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+                           peaks, y, sig_csf, sig_ear, K, csf_on, ear_on)
+    with stage("candidates", y.device):
+        return mfn.exhaustive_candidates_blocks(tuple(blocks), y, M=M)
+
+
+def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
+               K, csf_on, ear_on, batch=128, dtype=None,
+               refine=False, ms_host=None, plan_host=None, topm=8):
+    """Run the general path's fit step over a bucket of voxels in
+    ``batch``-voxel chunks on the tables' device.
+
+    ``tables`` (xs, ys, cnt) from ``MultiShellInterp.device_tables`` and
+    ``plan`` (gdir, shell_lo, shell_hi, wG) tensors on one device;
+    ``peaks`` (n, 3*K) and ``y`` (n, S) NumPy arrays of one bucket.
+    ``dtype`` (the tables' by default) is the scan's arithmetic. The
+    bucket is pushed to the device once, its results are pulled once,
+    and pad rows replicate voxel 0. With ``refine`` the scan keeps its
+    ``topm`` best candidates per voxel and the float64 host re-scorer
+    picks among them (``ms_host``, ``plan_host``: the host tables and
+    plan). Returns NumPy (w, ind, min_obj, mse, r2); objectives are
+    clipped at 0.
+    """
+    xs, ys, cnt = tables
+    dev = ys.device
+    if dtype is None:
+        dtype = xs.dtype
+    n, S = y.shape
+    sig_csf_d = torch.as_tensor(sig_csf if csf_on else np.zeros(S),
+                                dtype=dtype, device=dev)
+    sig_ear_d = torch.as_tensor(sig_ear if ear_on else np.zeros((S, 1)),
+                                dtype=dtype, device=dev)
+    gdir, lo, hi, wG = plan
+
+    n_pad = int(math.ceil(n / batch) * batch)
+    # float64 peaks for the host refine; the device copy in the scan dtype
+    pk64 = np.zeros((n_pad, max(K, 1), 3), dtype=np.float64)
+    y_all = np.zeros((n_pad, S), dtype=np.float64)
+    if K > 0:
+        pk64[:n] = np.asarray(peaks).reshape(n, K, 3)
+    y_all[:n] = y
+    if n_pad > n:  # pad rows replicate voxel 0 to keep the scans NaN-free
+        pk64[n:] = pk64[0]
+        y_all[n:] = y_all[0]
+    pk_d_all = torch.as_tensor(pk64[:, :K], dtype=dtype, device=dev)
+    y_d_all = torch.as_tensor(y_all, dtype=dtype, device=dev)
+
+    step = fit_step_candidates if refine else fit_step
+    extra = dict(M=topm) if refine else {}
+    chunks = [step(xs, ys, cnt, gdir, lo, hi, wG,
+                   pk_d_all[st:st + batch], y_d_all[st:st + batch],
+                   sig_csf_d, sig_ear_d, K=K, csf_on=bool(csf_on),
+                   ear_on=bool(ear_on), **extra)
+              for st in range(0, n_pad, batch)]
+
+    if refine:
+        # float32 device scan -> top-M candidates -> exact float64 re-score
+        cand = torch.cat(chunks).cpu().numpy()[:n]
+        y64 = np.asarray(y, dtype=np.float64)
+        w_b, ind_b, obj_b, y_rec = refine_mod.refine_candidates(
+            ms_host, plan_host, pk64[:n, :K], y64,
+            np.asarray(sig_csf, dtype=np.float64) if csf_on else None,
+            np.asarray(sig_ear, dtype=np.float64) if ear_on else None,
+            cand, K, bool(csf_on), bool(ear_on))
+        obj_b = np.maximum(obj_b, 0.0)   # never report a negative residual
+        return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
+
+    stacked = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()[:n]
+               for k in ("w", "ind", "min_obj", "mse", "r2")}
+    return (stacked["w"], stacked["ind"],
+            np.maximum(stacked["min_obj"], 0.0),
+            np.maximum(stacked["mse"], 0.0), stacked["r2"])

@@ -11,11 +11,14 @@ pairs or diffusion tensors), groups masked voxels by configuration
     CSF and 2 fascicles with or without CSF, each with or without EAR
     where CSF is present and the EAR block has at most 16 atoms:
     ``fit.run_bucket_fast`` on the model's device;
+  * every other bucket with fascicles (one fascicle without CSF, EAR
+    without CSF, an EAR block of more than 16 atoms), and every bucket
+    with fascicles under ``engine="xla"``: the general path
+    ``fit.run_bucket``, a float32 scan on the model's device whose
+    top-``topm`` candidates are re-scored in float64 on the host
+    (``refine``, on by default);
   * CSF and/or EAR only: ``fit.run_bucket_trivial`` (closed form, host
-    float64);
-  * anything else (one fascicle without CSF, EAR without CSF, an EAR
-    block of more than 16 atoms: the JAX package's general path) raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    float64).
 """
 
 import os
@@ -111,25 +114,27 @@ class MFModel(object):
         ``tensors`` (one volume or a list of one per fascicle).
         ``device`` overrides the model's device for this fit.
         ``parallel=True`` with a single visible device fits as
-        ``parallel=False`` does, as in the JAX package. Of ``engine``
-        only the fast path is here (``"auto"``, ``"fast"``, its alias
-        ``"pallas"``), whose double-float selection needs no float64 host
-        re-scoring: ``refine=True``, ``engine="xla"``, another ``topm``
-        than the default, a ``mesh_shape`` of more than one device and
-        ``parallel=True`` on several devices raise ``NotImplementedError``.
-        Returns an :class:`MFModelFit`.
+        ``parallel=False`` does, as in the JAX package. ``engine="auto"``
+        (or ``"fast"``, or its alias ``"pallas"``) fits the fast path's
+        buckets by its exact double-float scans and every other bucket
+        by the general path; ``engine="xla"`` fits every bucket with
+        fascicles by the general path. There the device scan is float32
+        and keeps its ``topm`` best candidates per voxel for a float64
+        host re-score; ``refine=None`` means ``True``, as on a float32
+        accelerator in the JAX package, and ``refine=False`` takes the
+        float32 scan's winner. ``batch_size`` is the voxel chunk: 512 on
+        the fast path and ``FitConfig.batch`` (128) on the general path
+        by default. A ``mesh_shape`` of more than one device and
+        ``parallel=True`` on several devices raise
+        ``NotImplementedError``. Returns an :class:`MFModelFit`.
         """
         if engine not in ("auto", "fast", "pallas", "xla"):
             raise ValueError("engine should be 'auto', 'fast' (alias "
                              "'pallas') or 'xla', got %r." % (engine,))
-        if engine == "xla" or topm != 16:
-            raise NotImplementedError(
-                "engine='xla' and its topm-deep candidate pool (the general "
-                "tiled scan): " + _ROADMAP % 4)
-        if refine:
-            raise NotImplementedError(
-                "float64 host re-scoring of the candidates (refine=True): "
-                + _ROADMAP % 5)
+        if refine is None:
+            # the device scans are float32 (config.DTYPE): float64-exact
+            # selection on the general path needs the host re-score
+            refine = True
         dev = config.resolve_device(device or self.device)
         n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
         if (parallel and n_dev > 1) or (
@@ -277,8 +282,8 @@ class MFModel(object):
                        * np.exp(-b[:, None] * DIFF_ear[None, :]))
 
         plan_h = mfi.plan_target_scheme(self.ms_interpolator, pgse_scheme)
-        _xs, tables_ys, _cnt = self.ms_interpolator.device_tables(
-            dev, config.DTYPE)
+        tables = self.ms_interpolator.device_tables(dev, config.DTYPE)
+        plan = fit_mod.plan_tensors(plan_h, config.DTYPE, dev)
 
         # ---- bucket voxels by configuration and run them ----
         y_roi = data_arr[in_mask]  # (ROI_size, Nseq), np.where ordering
@@ -316,11 +321,6 @@ class MFModel(object):
                    bool(ear_mask_roi[i]))
             if key == (0, False, False):
                 continue  # stays all-zero
-            if key[0] != 0 and not fast_covers(key):
-                raise NotImplementedError(
-                    "bucket with %d fascicle(s), csf=%d, ear=%d (num_ear "
-                    "%d): the general path, " % (key + (self.num_ear,))
-                    + _ROADMAP % 4)
             configs.setdefault(key, []).append(i)
 
         # progress cadence (reference mf.py:948-949, 455-460): at verbose
@@ -356,11 +356,22 @@ class MFModel(object):
                 # a stage a bucket: under a timer, its stages split by bucket
                 with stage("bucket K=%d csf=%d ear=%d"
                            % (K, has_csf, has_ear), dev):
-                    w, ind, obj, mse, r2 = fit_mod.run_bucket_fast(
-                        self.ms_interpolator, plan_h, tables_ys,
-                        peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
-                        has_csf, batch=batch_size or 512, rotator=rotator,
-                        sig_ear=sig_ear, ear_on=has_ear)
+                    if engine != "xla" and fast_covers((K, has_csf,
+                                                        has_ear)):
+                        w, ind, obj, mse, r2 = fit_mod.run_bucket_fast(
+                            self.ms_interpolator, plan_h, tables[1],
+                            peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
+                            has_csf, batch=batch_size or 512,
+                            rotator=rotator, sig_ear=sig_ear,
+                            ear_on=has_ear)
+                    else:
+                        w, ind, obj, mse, r2 = fit_mod.run_bucket(
+                            tables, plan, peaks_roi[idx, :3 * K],
+                            y_roi[idx], sig_csf, sig_ear, K, has_csf,
+                            has_ear,
+                            batch=batch_size or config.DEFAULTS["fit"].batch,
+                            refine=refine, ms_host=self.ms_interpolator,
+                            plan_host=plan_h, topm=topm)
             if VRB >= 2:
                 print("Bucket K=%d csf=%d ear=%d (%d voxels) pulled in "
                       "%g second(s)." % (K, has_csf, has_ear, idx.size,

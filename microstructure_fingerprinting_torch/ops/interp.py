@@ -5,9 +5,11 @@ The host-side table construction (shell discovery, knot dedup,
 near-perpendicular cluster smoothing, virtual edge knots, G-shell
 bracketing) is the JAX package's NumPy code, carried over unchanged, so
 both packages build bitwise-equal tables for the same dictionary. The
-device side is the grouped rotation (``make_grouped_rotation_paired``):
-per (shell_lo, shell_hi) group of target sequences one float32 matmul of
-lerp weights against the stacked knot tables, TF32 off.
+device side has two rotations: the fast path's grouped rotation
+(``make_grouped_rotation_paired``: per (shell_lo, shell_hi) group of
+target sequences one float32 matmul of lerp weights against the stacked
+knot tables, TF32 off), and the general path's gather-and-lerp
+(``eval_rotation_batch``, the JAX package's ``eval_rotation``).
 
 Interpolation semantics match scipy's ``interp1d(kind='linear',
 fill_value='extrapolate', assume_sorted=True)``.
@@ -362,3 +364,45 @@ def make_grouped_rotation_paired(msinterp, plan):
         return D.reshape(B, K, perm.size, -1)
 
     return rotate, perm
+
+
+def _shell_lerp(xs, ys, cnt, s_idx, x):
+    """Per-sequence shell interpolation, as the JAX package's
+    ``_shell_lerp``, batched over the leading axes of ``x``.
+
+    xs (S, Kmax), ys (S, Kmax, N), cnt (S,), s_idx (Q,), x (..., Q)
+    -> (..., Q, N).
+    """
+    xs_r = xs[s_idx]                                      # (Q, Kmax)
+    cnt_r = cnt[s_idx].long()                             # (Q,)
+    j = torch.minimum(torch.clamp((x[..., None] >= xs_r).sum(-1) - 1,
+                                  min=0), cnt_r - 2)      # (..., Q)
+    q = torch.arange(s_idx.shape[0], device=x.device)
+    x0 = xs_r[q, j]
+    x1 = xs_r[q, j + 1]
+    denom = x1 - x0
+    pos = denom > 0
+    t = torch.where(pos, (x - x0) / torch.where(pos, denom, 1.0), 0.0)
+    y0 = ys[s_idx, j]                                     # (..., Q, N)
+    y1 = ys[s_idx, j + 1]
+    return y0 + t[..., None] * (y1 - y0)
+
+
+def eval_rotation_batch(xs, ys, cnt, gdir, shell_lo, shell_hi, wG, newdirs):
+    """Rotated/resampled fascicle dictionaries for a batch of directions.
+
+    The gather-and-lerp rotation of the JAX package's ``eval_rotation``
+    (vmapped there into ``eval_rotation_batch``): per sequence, linear
+    interpolation at x = |g . n| on the bracketing dense shells, blended
+    linearly in G. Tables (xs, ys, cnt) as ``MultiShellInterp.
+    device_tables`` gives them, plan arrays (gdir (Nseq, 3), shell_lo,
+    shell_hi (Nseq,), wG (Nseq,)) on the same device; newdirs (B, K, 3).
+    Returns (B, K, Nseq, N) in the plan's sequence order.
+    """
+    nd = newdirs.to(gdir.dtype)
+    # |g . n| as a fixed-order three-term sum (no reduction kernel)
+    x = torch.abs(nd[..., None, 0] * gdir[:, 0] + nd[..., None, 1]
+                  * gdir[:, 1] + nd[..., None, 2] * gdir[:, 2])
+    lo = _shell_lerp(xs, ys, cnt, shell_lo, x)
+    hi = _shell_lerp(xs, ys, cnt, shell_hi, x)
+    return lo + wG[:, None] * (hi - lo)

@@ -6,7 +6,7 @@ HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
 fingerprint dictionary (zeppelins with per-atom diffusivities), and the
 flagship 2-fascicle + CSF fit workload, whose noiseless signals are
 synthesized through this package's grouped rotation, its EAR
-(UK-Biobank) variant, and volumes that mix the fast path's buckets. The
+(UK-Biobank) variant, and volumes that mix buckets. The
 random draws of the workload are the JAX package's, in the same order,
 for the same seed.
 """
@@ -167,18 +167,20 @@ def make_mixed(wl, groups, sig_ear=None, ear_atom=4, ear_amp=35.0,
                seed=0):
     """Voxels of several buckets from a ``make_fit_workload`` workload.
 
-    ``groups``: a sequence of (count, K, csf): that many voxels with K in
-    {0, 1, 2} planted fascicles, with (csf) or without the CSF
-    compartment; the groups are shuffled over the voxels (``seed``).
+    ``groups``: a sequence of (count, K, csf) or (count, K, csf, ear):
+    that many voxels with K in {0, 1, 2} planted fascicles, with (csf) or
+    without the CSF compartment, and with (ear) or without the EAR
+    compartment (with it wherever ``sig_ear`` is given, when the group
+    does not say); the groups are shuffled over the voxels (``seed``).
     Voxel v takes the workload's voxel v (directions, planted atoms,
     weights): its noiseless signal is 400 * (nu1 D[:, i1] [+ nu2 D[:, i2]]
     [+ nu3 csf]), plus ``ear_amp`` times EAR atom ``ear_atom`` of
-    ``sig_ear`` (S, E) where given. Directions of absent fascicles are
-    zero. Returns a dict: y (n, S), peaks (n, 6), numfasc (n,), csf_mask
-    (n,) bool, gt_ids (n, 2) (-1 where absent), and buckets: {(K, csf):
-    voxel indices}.
+    ``sig_ear`` (S, E) with EAR. Directions of absent fascicles are zero.
+    Returns a dict: y (n, S), peaks (n, 6), numfasc (n,), csf_mask and
+    ear_mask (n,) bool, gt_ids (n, 2) (-1 where absent), and buckets:
+    {a group without its count: its voxel indices}.
     """
-    counts = [c for c, _k, _csf in groups]
+    counts = [g[0] for g in groups]
     n = int(sum(counts))
     if n > wl["y"].shape[0]:
         raise ValueError("%d voxels asked of a %d-voxel workload"
@@ -187,6 +189,8 @@ def make_mixed(wl, groups, sig_ear=None, ear_atom=4, ear_amp=35.0,
     np.random.RandomState(seed).shuffle(label)
     K = np.array([g[1] for g in groups])[label]
     csf = np.array([bool(g[2]) for g in groups])[label]
+    ear = np.array([bool(g[3]) if len(g) > 3 else sig_ear is not None
+                    for g in groups])[label]
     nu = wl["gt_nu"][:n]
     cols = wl["cols"][:n]
     y = (nu[:, 0, None] * cols[:, 0] * (K >= 1)[:, None]
@@ -194,12 +198,16 @@ def make_mixed(wl, groups, sig_ear=None, ear_atom=4, ear_amp=35.0,
          + nu[:, 2, None] * wl["sig_csf"][None] * csf[:, None])
     y = 400 * y
     if sig_ear is not None:
-        y = y + ear_amp * sig_ear[:, ear_atom][None, :]
+        y = y + ear_amp * sig_ear[:, ear_atom][None, :] * ear[:, None]
     present = np.arange(2)[None, :] < K[:, None]              # (n, 2)
     peaks = wl["peaks"][:n] * present[:, :, None]
     gt_ids = np.where(present, wl["gt_ids"][:n], -1)
     buckets = {}
-    for k, c in sorted(set(zip(K.tolist(), csf.tolist()))):
-        buckets[(k, c)] = np.flatnonzero((K == k) & (csf == c))
+    for i, g in enumerate(groups):
+        key = (int(g[1]),) + tuple(bool(x) for x in g[2:])
+        buckets[key] = np.sort(np.concatenate(
+            [buckets.get(key, np.zeros(0, np.int64)),
+             np.flatnonzero(label == i)]))
     return {"y": y, "peaks": peaks.reshape(n, 6), "numfasc": K,
-            "csf_mask": csf, "gt_ids": gt_ids, "buckets": buckets}
+            "csf_mask": csf, "ear_mask": ear, "gt_ids": gt_ids,
+            "buckets": dict(sorted(buckets.items()))}

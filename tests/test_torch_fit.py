@@ -177,23 +177,38 @@ def test_model_fit_matches_jax(rows, tmp_path):
 
 
 def test_model_fit_unported_buckets_raise():
-    """Configurations outside the fast path's buckets raise
-    NotImplementedError naming their ROADMAP item (one fascicle without
-    CSF, an EAR block of more than 16 atoms, EAR without CSF: the general
-    path, item 4; a mesh of two devices); CUDA asked for without a card
-    raises."""
-    dic, data, mask, numfasc, peaks, _wl = _model_inputs()
+    """The buckets that raised before the general path was ported now
+    fit (each bucket is held against the JAX package in
+    tests/test_torch_general.py): one fascicle without CSF, with the maps
+    of ``run_bucket`` on its voxels; an EAR block of more than 16 atoms,
+    with and without CSF. What stays unported raises NotImplementedError
+    naming its ROADMAP item (a mesh of two devices), and CUDA asked for
+    without a card raises."""
+    dic, data, mask, numfasc, peaks, wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
-    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        model.fit(data, mask, np.minimum(numfasc, 1), **kw)
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0,
+              batch_size=8)
+    fit = model.fit(data, mask, np.minimum(numfasc, 1), **kw)
+    mt = tinterp.MultiShellInterp.from_numpy(wl["msinterp"])
+    plan = wl["plan"]
+    S = dic["sch_mat"].shape[0]
+    w, ind, _obj, mse, r2 = tfit.run_bucket(
+        mt.device_tables("cpu", torch.float32),
+        tfit.plan_tensors(plan, torch.float32, "cpu"), wl["peaks"][:, 0], data.reshape(-1, S)[:8], None,
+        None, 1, False, False, batch=8, refine=True, ms_host=mt,
+        plan_host=plan, topm=16)
+    assert np.array_equal(fit.MSE.reshape(-1)[:8], mse)
+    assert np.array_equal(fit.R2.reshape(-1)[:8], r2)
+    assert np.array_equal(fit.dpar_f0.reshape(-1)[:8],
+                          dic["dpar"][ind[:, 0]] * (w[:, 0] > 0))
+    assert np.all(r2 > 0.9)
     ear = mft.MFModel(dict(dic, T2_ear=0.8,
                            DIFF_ear=np.linspace(0.8e-9, 2.6e-9, 17)),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        ear.fit(data, mask, numfasc, csf_mask=1, ear_mask=1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        ear.fit(data, mask, numfasc, ear_mask=1, **kw)
+    for csf in (1, 0):
+        fit = ear.fit(data, mask, numfasc, csf_mask=csf, ear_mask=1, **kw)
+        assert {"frac_ear", "D_ear"} <= set(fit.param_names)
+        assert np.all(np.isfinite(fit.MSE)) and np.all(fit.MSE >= 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.fit(data, mask, numfasc, csf_mask=1, parallel=True,
                   mesh_shape=(2, 1), **kw)
@@ -259,13 +274,12 @@ def test_parallel_on_several_devices_raises(monkeypatch):
                   parallel=True, device="cuda")
 
 
-@pytest.mark.parametrize("extra,item", [
-    (dict(engine="xla"), "item 4"), (dict(topm=4), "item 4"),
-    (dict(refine=True), "item 5"), (dict(mesh_shape=(1, 2)), "item 6")])
+@pytest.mark.parametrize("extra,item", [(dict(mesh_shape=(1, 2)), "item 6")])
 def test_unported_fit_arguments_raise(extra, item):
-    """``refine=``, ``topm=``, ``engine=`` and ``mesh_shape=`` are
-    accepted; a value that asks for what is not ported raises
-    NotImplementedError naming its ROADMAP item, not a TypeError."""
+    """``mesh_shape=`` is accepted; a mesh of several devices, which is
+    not ported, raises NotImplementedError naming its ROADMAP item, not a
+    TypeError (``engine="xla"``, ``topm=`` and ``refine=True`` fit: see
+    test_default_fit_arguments_are_accepted)."""
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0)
@@ -277,7 +291,9 @@ def test_default_fit_arguments_are_accepted(rows):
     """The JAX package's defaults (``refine=None``, ``topm=16``,
     ``engine="auto"``, ``mesh_shape=None``) and the fast path's names
     (``"fast"``, ``"pallas"``, ``refine=False``) fit as no argument does;
-    an unknown engine is a ValueError."""
+    ``engine="xla"`` with another ``topm`` and ``refine=True`` fits every
+    voxel by the general path, recovering the planted atoms; an unknown
+    engine is a ValueError."""
     rows(16)
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
@@ -289,5 +305,9 @@ def test_default_fit_arguments_are_accepted(rows):
                   dict(engine="pallas", refine=False), dict(engine="fast")):
         got = model.fit(data, mask, numfasc, **kw, **extra)
         assert np.array_equal(got.MSE, ref.MSE)
+    got = model.fit(data, mask, numfasc, engine="xla", topm=4, refine=True,
+                    **kw)
+    assert np.array_equal(got.dpar_f0, ref.dpar_f0)
+    assert np.array_equal(got.dpar_f1, ref.dpar_f1)
     with pytest.raises(ValueError, match="engine"):
         model.fit(data, mask, numfasc, engine="triton", **kw)
