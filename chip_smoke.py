@@ -20,8 +20,16 @@ with and without EAR, and two fascicles + EAR without CSF), a 4-block
 bucket with 20 EAR atoms, the flagship's two-fascicle + CSF bucket with
 engine="xla" against the fast path, each bucket's stages, refine time
 and peak memory, and tests/golden/golden_fit.npz fitted with the default
-arguments and with engine="xla". Every phase runs; exits non-zero on any
-failure; needs one CUDA device. The last line of standard output is the
+arguments and with engine="xla". Then the user's workflow from the
+shell, through ``cli.main``: the flagship volume (and 1024 voxels of the
+EAR one) written as a user's files (dictionary .mat, NIfTI volumes, a
+scheme text file), ``cleanup`` on its planted directions and fractions,
+and ``fit`` on cleanup's output, each held against the same steps in
+process (files equal, maps equal, launches equal); and the reference
+surface (``monte_carlo_average``, ``interp_PGSE_from_multishell``,
+``eval_rotation``) on the card against the CPU, and ``mf_utils`` without
+matplotlib. Every phase runs; exits non-zero on any failure; needs one
+CUDA device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
 rhs width (its launches in the fits at that width, its times at that
@@ -43,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -109,6 +118,13 @@ N_EAR_WIDE = 20
 WIDE_VOX = 128
 #: flagship (2, CSF) voxels fitted with engine="xla" beside the fast path
 XLA_VOX = 512
+#: voxels of the EAR volume fitted from the shell (the cli_ear phase)
+CLI_EAR_VOX = 1024
+#: the Monte-Carlo average of the surface phase: reference sequences and
+#: spins, mapped to the flagship protocol's sequences
+MC_REF, MC_SPINS = 2, 100000
+#: fascicle directions of the surface phase's rotations
+N_DIRS = 16
 #: the repo's frozen end-to-end fixture (tests/test_golden.py)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_fit.npz")
@@ -1233,6 +1249,277 @@ def phase_golden():
         check_maps("golden " + name, fit, True)
 
 
+def phase_cli(wl, sig_ear=None):
+    """The user's workflow from the shell on the flagship volume (with
+    ``sig_ear``: the first CLI_EAR_VOX voxels of the EAR volume, csf_mask
+    = ear_mask = 1). The workload is written as a user's files (the
+    dictionary .mat, the DWI, mask, mu1/mu2 = the planted directions and
+    frac1/frac2 = the planted fractions as NIfTI, a VERSION: 1 scheme);
+    ``cli.main(["cleanup", ...])`` must write what an in-process
+    ``cleanup_2fascicles`` gives; ``cli.main(["fit", ...])`` on cleanup's
+    files must write every map equal to that of an in-process
+    ``MFModel.fit`` on the same arrays (after the same write and read),
+    with the same launches. Where cleanup kept both planted fascicles,
+    every voxel must recover its planted atoms (the fit phase's gate)."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch import cli
+    from microstructure_fingerprinting_torch.utils import io as mfio
+    from microstructure_fingerprinting_torch.utils import nifti
+    from microstructure_fingerprinting_torch.utils.scheme import (
+        load_scheme_text)
+    ear = sig_ear is not None
+    label = "cli_ear" if ear else "cli"
+    n = CLI_EAR_VOX if ear else N_VOX
+    side = round(n ** (1 / 3))
+    shape = (n // 64, 8, 8) if ear else (side, side, side)
+    ys_np = (wl["y_ear"] if ear else wl["y"])[:n]
+    S = ys_np.shape[1]
+    planted = wl["peaks"][:n]
+    arrays = {"dwi": ys_np.reshape(shape + (S,)), "mask": np.ones(shape),
+              "mu1": planted[:, 0].reshape(shape + (3,)),
+              "mu2": planted[:, 1].reshape(shape + (3,)),
+              "frac1": wl["gt_nu"][:n, 0].reshape(shape),
+              "frac2": wl["gt_nu"][:n, 1].reshape(shape)}
+    aff = np.diag([2.0, 2.0, 2.0, 1.0])
+    path = ("prep_block", "rowmin4", "rescan4") if ear else (
+        "prep_block", "rowmin3", "rescan3")
+    rec = {"voxels": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)
+        t0 = time.time()
+        mfio.savemat(p("dic.mat"), fit_dictionary(wl, sig_ear))
+        with open(p("scheme.txt"), "w") as f:
+            f.write("VERSION: 1\n")
+            np.savetxt(f, wl["sch_mat"], fmt="%.17g")
+        for name, arr in arrays.items():
+            nifti.save(nifti.Nifti1Image(arr, aff), p(name + ".nii.gz"))
+        rec["write_inputs_s"] = time.time() - t0
+        t0 = time.time()
+        dwi = nifti.load(p("dwi.nii.gz")).get_fdata()
+        rec["read_dwi_s"] = time.time() - t0
+        if not (np.array_equal(dwi, arrays["dwi"]) and np.array_equal(
+                load_scheme_text(p("scheme.txt")), wl["sch_mat"])):
+            raise AssertionError("%s: the DWI or the scheme did not read "
+                                 "back exactly" % label)
+
+        # cleanup: from the shell and in process
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["cleanup", "--peakmode", "peaks"] + sum(
+                (["--" + k, p(k + ".nii.gz")] for k in
+                 ("mu1", "mu2", "frac1", "frac2", "mask")), [])
+                + ["--out", p("clean.nii.gz")])
+        rec["cleanup_cli_s"] = time.time() - t0
+        t0 = time.time()
+        pk, nf = mft.cleanup_2fascicles(arrays["frac1"], arrays["frac2"],
+                                        "peaks", arrays["mu1"], arrays["mu2"],
+                                        arrays["mask"])
+        rec["cleanup_s"] = time.time() - t0
+        if rc != 0 or not (
+                np.array_equal(nifti.load(p("clean_peaks.nii.gz"))
+                               .get_fdata(), pk)
+                and np.array_equal(nifti.load(p("clean_numfasc.nii.gz"))
+                                   .get_fdata(), nf)):
+            raise AssertionError("%s: the cleanup files differ from "
+                                 "cleanup_2fascicles" % label)
+        counts = np.bincount(nf.reshape(-1).astype(int), minlength=3)
+        rec["numfasc_after_cleanup"] = counts.tolist()
+
+        # fit: from the shell, then in process on the same arrays
+        argv = ["fit", "--dictionary", p("dic.mat"), "--data",
+                p("dwi.nii.gz"), "--mask", p("mask.nii.gz"), "--numfasc",
+                p("clean_numfasc.nii.gz"), "--peaks", p("clean_peaks.nii.gz"),
+                "--pgse-scheme", p("scheme.txt"), "--csf-mask", "1",
+                "--out", p("cli/mf.nii.gz"), "--verbose", "1"]
+        if ear:
+            argv += ["--ear-mask", "1"]
+        mft.reset_counts()
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        rec["cli_fit_s"] = time.time() - t0
+        cli_launches = dict(mft.LAUNCHES)
+        if rc != 0:
+            raise AssertionError("%s: fit returned %d" % (label, rc))
+        model = mft.MFModel(fit_dictionary(wl, sig_ear))
+        mft.reset_counts()
+        t0 = time.time()
+        fit = model.fit(arrays["dwi"], arrays["mask"], nf, peaks=pk,
+                        pgse_scheme=wl["sch_mat"], csf_mask=1,
+                        ear_mask=1 if ear else None, verbose=0)
+        torch.cuda.synchronize()
+        rec["fit_s"] = time.time() - t0
+        launches = dict(mft.LAUNCHES)
+        t0 = time.time()
+        files = fit.write_nifti(p("mine/mf.nii.gz"), affine=aff)
+        rec["write_maps_s"] = time.time() - t0
+        t0 = time.time()
+        mine = [nifti.load(f).get_fdata() for f in files]
+        rec["read_maps_s"] = time.time() - t0
+        written = sorted(os.listdir(p("cli")))
+        want = sorted("mf_%s.nii.gz" % m for m in fit.param_names)
+        if written != want:
+            raise AssertionError("%s: the command line wrote %s, not %s"
+                                 % (label, written, want))
+        diff = {m: float(np.max(np.abs(
+            nifti.load(p("cli/mf_%s.nii.gz" % m)).get_fdata() - a)))
+            for m, a in zip(fit.param_names, mine)}
+    worst = max(diff, key=diff.get)
+    rec.update(launches=cli_launches, max_map_diff=diff[worst],
+               card=card_line())
+    log("%s: %d voxels, fascicle counts after cleanup %s; cleanup %.3f s "
+        "from the shell (%.3f s in process); fit %.3f s from the shell "
+        "(.mat, NIfTI reads, model, fit, %d map writes) vs %.3f s in "
+        "process; NIfTI: inputs written in %.3f s, DWI read in %.3f s, maps "
+        "written in %.3f s and read in %.3f s; largest map difference %.3e "
+        "(%s); launches %s from the shell, %s in process [%s]" % (
+            label, n, counts.tolist(), rec["cleanup_cli_s"], rec["cleanup_s"],
+            rec["cli_fit_s"], len(files), rec["fit_s"],
+            rec["write_inputs_s"], rec["read_dwi_s"], rec["write_maps_s"],
+            rec["read_maps_s"], diff[worst], worst, cli_launches, launches,
+            rec["card"]))
+    if diff[worst] != 0.0:
+        raise AssertionError("%s: map %s differs from the in-process fit's "
+                             "by %.3e" % (label, worst, diff[worst]))
+    if cli_launches != launches:
+        raise AssertionError("%s: launches %s from the shell, %s in process"
+                             % (label, cli_launches, launches))
+    if min(cli_launches[k] for k in path) <= 0:
+        raise AssertionError("a kernel of the %s path was never launched: "
+                             "%s" % (label, cli_launches))
+
+    # recovery where cleanup kept both planted fascicles (their order is
+    # cleanup's: by descending fraction)
+    kept = np.flatnonzero(nf.reshape(-1) == 2)
+    clean = pk.reshape(-1, 2, 3)[kept]
+    swapped = np.all(clean[:, 0] == planted[kept, 1], axis=1)
+    gt = wl["gt_ids"][:n][kept]
+    gt = np.where(swapped[:, None], gt[:, ::-1], gt)
+    maps = ("R2", "MSE", "atom_id_f0", "atom_id_f1") + (
+        ("D_ear",) if ear else ())
+    sub = types.SimpleNamespace(**{m: getattr(fit, m).reshape(-1)[kept]
+                                   for m in maps})
+    rec["n_ties"], rec["min_r2"] = check_recovery(
+        label, dict(wl, peaks=clean), sub, ys_np[kept], gt,
+        np.full(kept.size, 2), np.ones(kept.size, bool), sig_ear)
+    rec["kept_voxels"] = int(kept.size)
+    RECORD[label] = rec
+    return cli_launches
+
+
+def phase_surface(wl):
+    """The reference surface on the card against the CPU: the Monte-Carlo
+    average of MC_REF reference sequences x MC_SPINS spins x 3 axes
+    mapped to the flagship's 552 sequences (float64, rtol 1e-12), and the
+    flagship dictionary's 782 atoms rotated to N_DIRS directions by
+    interp_PGSE_from_multishell and eval_rotation (float64, 1e-12 of the
+    scale); mf_utils imports without matplotlib, whose plotters are then
+    tripwires; nothing of JAX was imported in this run."""
+    import importlib.util
+    import torch
+    import microstructure_fingerprinting_torch.mf_utils  # noqa: F401
+    from microstructure_fingerprinting_torch import viz
+    from microstructure_fingerprinting_torch.ops import interp as mfi
+    from microstructure_fingerprinting_torch.ops import mc
+    from microstructure_fingerprinting_torch.tripwire import (
+        TripWireError, is_tripwire)
+    rec = {"card": card_line()}
+    rng = np.random.RandomState(0)
+    sch = wl["sch_mat"]
+    S = sch.shape[0]
+
+    # Monte-Carlo average: card vs CPU (each once warm, host clock)
+    ph = rng.randn(MC_REF * MC_SPINS, 3)
+    dmap = rng.randint(0, MC_REF, S)
+    gsc = rng.rand(S, 3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mc.monte_carlo_average(ph[:MC_REF * 1000], dmap, gsc, 1.0, 1000,
+                               device=dev)
+        t0 = time.time()
+        out[dev] = mc.monte_carlo_average(ph, dmap, gsc, 1.0, MC_SPINS,
+                                          device=dev)
+        rec["mc_%s_ms" % dev] = 1e3 * (time.time() - t0)
+    rel = float(np.max(np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"])))
+    rec["mc_max_rel_diff"] = rel
+    log("surface: monte_carlo_average, %d x %d spins -> %d sequences: card "
+        "%.1f ms, CPU %.1f ms, max relative difference %.3e (limit 1e-12) "
+        "[%s]" % (MC_REF, MC_SPINS, S, rec["mc_cuda_ms"], rec["mc_cpu_ms"],
+                  rel, rec["card"]))
+    if not rel <= 1e-12:
+        raise AssertionError("monte_carlo_average: card and CPU differ")
+
+    # rotations of the flagship dictionary: card vs CPU
+    ms = wl["msinterp"]
+    dirs = rng.randn(N_DIRS, 3)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    plan = mfi.plan_target_scheme(ms, sch)
+    sig, ev = {}, {}
+    for dev in ("cuda", "cpu"):
+        mfi.interp_PGSE_from_multishell(sch, dirs[0], msinterp=ms,
+                                        device=dev)
+        t0 = time.time()
+        sig[dev] = np.stack([mfi.interp_PGSE_from_multishell(
+            sch, d, msinterp=ms, device=dev) for d in dirs])
+        rec["interp_%s_ms" % dev] = 1e3 * (time.time() - t0) / N_DIRS
+        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        xs, ys, cnt = ms.device_tables(dev, torch.float64)
+        ev[dev] = np.stack([mfi.eval_rotation(
+            xs, ys, cnt, f64(plan.gdir),
+            torch.as_tensor(plan.shell_lo, device=dev),
+            torch.as_tensor(plan.shell_hi, device=dev), f64(plan.wG),
+            f64(d)).cpu().numpy() for d in dirs])
+    t0 = time.time()
+    one_shot = mfi.interp_PGSE_from_multishell(
+        sch, dirs[0], sig_ms=wl["dictionary"], sch_mat_ms=sch,
+        ordir=np.array([0.0, 0.0, 1.0]))
+    rec["interp_one_shot_ms"] = 1e3 * (time.time() - t0)
+    scale = float(np.abs(sig["cpu"]).max())
+    rec["interp_max_diff"] = float(np.max(np.abs(sig["cuda"] - sig["cpu"])))
+    rec["eval_rotation_max_diff"] = float(np.max(np.abs(ev["cuda"]
+                                                        - ev["cpu"])))
+    rec["one_shot_max_diff"] = float(np.max(np.abs(one_shot
+                                                   - sig["cuda"][0])))
+    log("surface: %d atoms to %d directions on %d sequences: "
+        "interp_PGSE_from_multishell %.2f ms a direction on the card, %.2f "
+        "on the CPU, one-shot (tables rebuilt) %.1f ms; max|card - CPU| "
+        "%.3e (interp), %.3e (eval_rotation), one-shot vs tables %.3e, of a "
+        "scale %.3e (limit 1e-12 x scale)" % (
+            N_ATOM, N_DIRS, S, rec["interp_cuda_ms"], rec["interp_cpu_ms"],
+            rec["interp_one_shot_ms"], rec["interp_max_diff"],
+            rec["eval_rotation_max_diff"], rec["one_shot_max_diff"], scale))
+    if sig["cuda"].shape != (N_DIRS, S, N_ATOM) or max(
+            rec["interp_max_diff"], rec["eval_rotation_max_diff"],
+            rec["one_shot_max_diff"]) > 1e-12 * scale:
+        raise AssertionError("rotations: card and CPU differ")
+
+    # mf_utils without matplotlib; no JAX in this process
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    rec["matplotlib_installed"] = has_mpl
+    if "matplotlib" in sys.modules:
+        raise AssertionError("importing mf_utils imported matplotlib")
+    if not has_mpl:
+        if not is_tripwire(viz.pyplot()):
+            raise AssertionError("viz.pyplot() is not a tripwire")
+        try:
+            viz.plot_multi_shell_signal(wl["dictionary"][:, :2], sch,
+                                        [0.0, 0.0, 1.0])
+            raise AssertionError("a plotter ran without matplotlib")
+        except TripWireError:
+            pass
+    jax_mods = sorted(m for m in sys.modules if m == "jax"
+                      or m.startswith(("jax.", "microstructure_fingerprinting_tpu")))
+    log("surface: mf_utils imported; matplotlib installed: %s (plotters %s); "
+        "JAX modules imported in this run: %s" % (
+            has_mpl, "draw" if has_mpl else "are tripwires", jax_mods))
+    if jax_mods:
+        raise AssertionError("this run imported %s" % jax_mods)
+    RECORD["surface"] = rec
+
+
 KERNEL_META = {
     "prep_block": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
     "prep_block_ear": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
@@ -1292,7 +1579,12 @@ def main():
             ("general", lambda: phase_general(wl, sig_ear)),
             ("general_wide", lambda: phase_general_wide(wl)),
             ("xla", lambda: phase_xla(wl)),
-            ("golden", phase_golden)):
+            ("golden", phase_golden),
+            ("cli", lambda: RECORD["launches_by_fit"].update(
+                cli=phase_cli(wl))),
+            ("cli_ear", lambda: RECORD["launches_by_fit"].update(
+                cli_ear=phase_cli(wl, sig_ear))),
+            ("surface", lambda: phase_surface(wl))):
         t0 = time.time()
         step()
         RECORD.setdefault("phase_s", {})[name] = time.time() - t0

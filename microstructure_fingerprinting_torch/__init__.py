@@ -2,22 +2,46 @@
 kernels for NVIDIA Hopper.
 
 A port of ``microstructure_fingerprinting_tpu`` (the JAX reference,
-which this package never imports). It covers the 2-fascicle + CSF fit
-path end to end, with or without the EAR compartment:
+which this package never imports), with its user surface:
 
     import microstructure_fingerprinting_torch as mft
+    peaks, numfasc = mft.cleanup_2fascicles(frac1, frac2, 'peaks',
+                                            mu1, mu2, mask)
     model = mft.MFModel(dictionary)               # device="cuda"
-    fit = model.fit(data, mask, numfasc, peaks=..., pgse_scheme=...,
+    fit = model.fit(data, mask, numfasc, peaks=peaks, pgse_scheme=...,
                     csf_mask=1, ear_mask=1)
     fit.write_nifti('out.nii.gz')
+    mft.mf_utils  # the reference's flat namespace of utilities
+
+and the same workflow from the shell: ``python -m
+microstructure_fingerprinting_torch fit|cleanup ...`` (``cli.py``).
 
 Five CUDA kernels carry the scans (ops/prep.py, ops/f32scan.py,
 ops/rescan.py); ``LAUNCHES`` counts their launches. Each has a plain
 PyTorch twin that runs for CPU tensors.
+
+The names below are imported on first use, so that the command line's
+``--help`` imports no torch.
 """
 
-from . import config, ops, testing, utils  # noqa: F401
-from .models.mf import MFModel, MFModelFit  # noqa: F401
-from .ops.kernels import LAUNCHES, reset_counts  # noqa: F401
+import importlib
+
+from .tripwire import TripWire, TripWireError, is_tripwire  # noqa: F401
 
 __version__ = "0.1.0"
+
+_SUBMODULES = ("cli", "config", "mf_utils", "models", "ops", "testing",
+               "utils", "viz")
+#: public name -> the module that defines it
+_NAMES = {"MFModel": "models.mf", "MFModelFit": "models.mf",
+          "cleanup_2fascicles": "models.mf", "LAUNCHES": "ops.kernels",
+          "reset_counts": "ops.kernels"}
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module("." + name, __name__)
+    if name in _NAMES:
+        module = importlib.import_module("." + _NAMES[name], __name__)
+        return getattr(module, name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

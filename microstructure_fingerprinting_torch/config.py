@@ -1,5 +1,6 @@
 """Framework configuration and the device / precision policy.
 
+``CleanupConfig`` is the JAX package's, field for field.
 ``SolverConfig`` and ``FitConfig`` hold the fields of the JAX package's
 dataclasses (``microstructure_fingerprinting_tpu/config.py``) that the
 ported buckets read, with the same defaults; the other knobs
@@ -10,7 +11,8 @@ JAX package. The fit's voxel chunk is ``MFModel.fit(batch_size=)``,
 which defaults to 512 on the fast path (as on the JAX package's
 one-device path) and to ``FitConfig.batch`` on the general path.
 
-The policy below is set once, when the package is imported:
+The policy below is set once, when this module is first imported (by
+the model, the fit steps, the rotations and the Monte-Carlo average):
 
   * production arithmetic is float32 (``DTYPE``);
   * TF32 is off for every matmul and convolution — the rotation is a
@@ -41,6 +43,15 @@ def resolve_device(device):
 
 
 @dataclasses.dataclass(frozen=True)
+class CleanupConfig:
+    """Spurious-peak cleanup thresholds (reference mf.py:89-94)."""
+    ratio: float = 2.5       # big/small fraction ratio that discards small
+    w_keep: float = 0.20     # relative weight that always survives
+    w_small: float = 0.075   # absolute weight below which a peak is dropped
+    ang_min_deg: float = 15  # merge angle
+
+
+@dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Exhaustive-NNLS solver knobs.
 
@@ -68,6 +79,7 @@ class FitConfig:
 
 
 DEFAULTS = {
+    "cleanup": CleanupConfig(),
     "solver": SolverConfig(),
     "fit": FitConfig(),
 }

@@ -11,6 +11,13 @@ target sequences one float32 matmul of lerp weights against the stacked
 knot tables, TF32 off), and the general path's gather-and-lerp
 (``eval_rotation_batch``, the JAX package's ``eval_rotation``).
 
+The reference-compatible functions of the JAX module are here too:
+``eval_rotation`` (one direction) and ``make_grouped_rotation`` (the
+unpaired per-shell matmul rotation), torch on the device of their
+inputs; ``interp_PGSE_from_multishell`` (float64 on ``device``, the card
+by default); ``rotate_atom`` and ``rotate_atom_2Dprotocol``, NumPy on
+the host as in the JAX package.
+
 Interpolation semantics match scipy's ``interp1d(kind='linear',
 fill_value='extrapolate', assume_sorted=True)``.
 """
@@ -20,6 +27,10 @@ from functools import partial
 
 import numpy as np
 import torch
+
+from .. import config
+from ..utils.scheme import get_gyromagnetic_ratio
+from .math3d import rotate_scheme_mat
 
 _PERP_CLUSTER_TOL = 1e-3  # dot-product width of the near-perpendicular cluster
 
@@ -299,6 +310,72 @@ def plan_target_scheme(msinterp, sch_mat):
 # Device rotation
 # ---------------------------------------------------------------------------
 
+def _abs_gdotn(gdir, newdirs, dt, dev):
+    """|g . n| (B*K, Nseq) of the target directions ``gdir`` (Nseq, 3)
+    and the directions ``newdirs`` (B, K, 3), as a fixed-order three-term
+    sum (no reduction kernel)."""
+    nd = newdirs.reshape(-1, 3).to(dt)
+    g = torch.as_tensor(gdir, dtype=dt, device=dev)
+    return torch.abs(nd[:, None, 0] * g[None, :, 0]
+                     + nd[:, None, 1] * g[None, :, 1]
+                     + nd[:, None, 2] * g[None, :, 2])
+
+
+def _lerp_weights(msinterp, s, xq, kiota):
+    """One-hot lerp weights (..., q, Kmax) of the queries ``xq`` (..., q)
+    on dense shell ``s``'s knots, in ``xq``'s dtype and device."""
+    xs_s = torch.as_tensor(msinterp.xs[s], dtype=xq.dtype, device=xq.device)
+    j = torch.clamp((xq[..., None] >= xs_s).sum(-1) - 1,
+                    0, int(msinterp.cnt[s]) - 2)
+    x0 = xs_s[j]
+    x1 = xs_s[j + 1]
+    denom = x1 - x0
+    pos = denom > 0
+    t = torch.where(pos, (xq - x0) / torch.where(
+        pos, denom, torch.ones_like(denom)), torch.zeros_like(xq))
+    return ((1.0 - t)[..., None] * (kiota == j[..., None])
+            + t[..., None] * (kiota == (j[..., None] + 1)))
+
+
+def make_grouped_rotation(msinterp, plan):
+    """Per-shell grouped rotation (the JAX package's unpaired variant).
+
+    Target sequences are grouped by dense shell: each shell's
+    contribution is one matmul of one-hot lerp weights W_s (q_s, Kmax)
+    against ys[s], once for the lower and once for the upper bracketing
+    shell, and two inverse permutations put the sequences back in the
+    plan's order before the blend in G. Equal to :func:`eval_rotation`
+    up to matmul rounding. Returns ``rotate(tables_ys (S, Kmax, N),
+    newdirs (B, K, 3)) -> (B, K, Nseq, N)``.
+    """
+    S = msinterp.Gms_un.size
+    Kmax = msinterp.xs.shape[1]
+    groups, inv = {}, {}
+    for role, shell in (("lo", plan.shell_lo), ("hi", plan.shell_hi)):
+        groups[role] = [(s, np.flatnonzero(shell == s)) for s in range(S)
+                        if np.any(shell == s)]
+        inv[role] = np.argsort(np.concatenate(
+            [ids for _s, ids in groups[role]]))
+
+    def rotate(tables_ys, newdirs):
+        B, K, _ = newdirs.shape
+        dt, dev = tables_ys.dtype, tables_ys.device
+        x = _abs_gdotn(plan.gdir, newdirs, dt, dev)           # (BK, Nseq)
+        kiota = torch.arange(Kmax, device=dev)
+        R = {}
+        for role, grp in groups.items():
+            outs = [torch.matmul(_lerp_weights(
+                msinterp, s, x[:, torch.as_tensor(ids, device=dev)], kiota),
+                tables_ys[s]) for s, ids in grp]
+            R[role] = torch.cat(outs, dim=1)[
+                :, torch.as_tensor(inv[role], device=dev)]
+        w = torch.as_tensor(plan.wG, dtype=dt, device=dev)[None, :, None]
+        D = R["lo"] + w * (R["hi"] - R["lo"])
+        return D.reshape(B, K, plan.gdir.shape[0], -1)
+
+    return rotate
+
+
 def make_grouped_rotation_paired(msinterp, plan):
     """Permutation-free grouped rotation.
 
@@ -321,35 +398,17 @@ def make_grouped_rotation_paired(msinterp, plan):
     pairs = [(sl, sh, np.asarray(ids, np.int64))
              for (sl, sh), ids in sorted(pair_ids.items())]
     perm = np.concatenate([ids for _sl, _sh, ids in pairs]).astype(np.int32)
-    xs_h = msinterp.xs
-    cnt_h = msinterp.cnt
-    gdir_h = plan.gdir
     wG_h = plan.wG
 
     def rotate(tables_ys, newdirs):
         B, K, _ = newdirs.shape
         dt, dev = tables_ys.dtype, tables_ys.device
-        nd = newdirs.reshape(B * K, 3).to(dt)
-        g = torch.as_tensor(gdir_h, dtype=dt, device=dev)
-        # |g . n| as a fixed-order three-term sum (no reduction kernel)
-        x = torch.abs(nd[:, None, 0] * g[None, :, 0]
-                      + nd[:, None, 1] * g[None, :, 1]
-                      + nd[:, None, 2] * g[None, :, 2])       # (BK, Nseq)
+        x = _abs_gdotn(plan.gdir, newdirs, dt, dev)           # (BK, Nseq)
         kiota = torch.arange(Kmax, device=dev)
 
         def weights(xq, s, scale):
-            xs_s = torch.as_tensor(xs_h[s], dtype=dt, device=dev)
-            j = torch.clamp((xq[..., None] >= xs_s).sum(-1) - 1,
-                            0, int(cnt_h[s]) - 2)
-            x0 = xs_s[j]
-            x1 = xs_s[j + 1]
-            denom = x1 - x0
-            pos = denom > 0
-            t = torch.where(pos, (xq - x0) / torch.where(
-                pos, denom, torch.ones_like(denom)), torch.zeros_like(xq))
-            W = ((1.0 - t)[..., None] * (kiota == j[..., None])
-                 + t[..., None] * (kiota == (j[..., None] + 1)))
-            return W * scale[None, :, None]
+            return (_lerp_weights(msinterp, s, xq, kiota)
+                    * scale[None, :, None])
 
         outs = []
         for sl, sh, ids in pairs:
@@ -406,3 +465,307 @@ def eval_rotation_batch(xs, ys, cnt, gdir, shell_lo, shell_hi, wG, newdirs):
     lo = _shell_lerp(xs, ys, cnt, shell_lo, x)
     hi = _shell_lerp(xs, ys, cnt, shell_hi, x)
     return lo + wG[:, None] * (hi - lo)
+
+
+def eval_rotation(xs, ys, cnt, gdir, shell_lo, shell_hi, wG, newdir):
+    """Rotated/resampled single-fascicle dictionary for one direction
+    ``newdir`` (3,): (Nseq, N), as :func:`eval_rotation_batch` gives it
+    for a batch of one, on the device and in the dtype of its inputs."""
+    return eval_rotation_batch(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
+                               newdir.reshape(1, 1, 3))[0, 0]
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible wrappers
+# ---------------------------------------------------------------------------
+
+def interp_PGSE_from_multishell(sch_mat, newdir,
+                                sig_ms=None, sch_mat_ms=None, ordir=None,
+                                msinterp=None, device="cuda"):
+    """Single-fascicle PGSE signal interpolated from a dense multi-HARDI
+    sampling (reference mf_utils.py:1693-1956).
+
+    FAST mode (``msinterp`` given) and one-shot mode (the tables built
+    from ``sig_ms``, ``sch_mat_ms`` and ``ordir`` on every call) share
+    :func:`eval_rotation`, in float64 on ``device``: the card unless the
+    caller asks for the CPU.
+    """
+    dev = config.resolve_device(device)
+    if msinterp is None:
+        if sig_ms is None or sch_mat_ms is None or ordir is None:
+            raise ValueError("If msinterp is not specified, sig_ms, "
+                             "sch_mat_ms and ordir must all be specified.")
+        msinterp = init_PGSE_multishell_interp(sig_ms, sch_mat_ms, ordir)
+    newdir = np.squeeze(np.asarray(newdir, dtype=np.float64))
+    if newdir.size != 3:
+        raise ValueError("Direction of fascicle for new signal (newdir)"
+                         " should have 3 entries.")
+    newdirnorm = np.sqrt((newdir ** 2).sum())
+    if np.abs(1 - newdirnorm) > 1e-3:
+        raise ValueError("Orientation vector of the new signal must have"
+                         " unit norm. Detected %g." % (newdirnorm,))
+    plan = plan_target_scheme(msinterp, sch_mat)
+    xs, ys, cnt = msinterp.device_tables(dev, torch.float64)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    sig_new = eval_rotation(xs, ys, cnt, f64(plan.gdir),
+                            torch.as_tensor(plan.shell_lo, device=dev),
+                            torch.as_tensor(plan.shell_hi, device=dev),
+                            f64(plan.wG), f64(newdir))
+    return np.squeeze(sig_new.cpu().numpy())
+
+
+def rotate_atom(sig, sch_mat, ordir, newdir, DIFF, S0, warnings=True):
+    """Rotate HARDI single-fascicle signals to a new fascicle direction.
+
+    Behavioral equivalent of reference mf_utils.py:1205-1437: per unique
+    (G, Delta, delta) shell, re-express the signal as a function of |g.n|,
+    append the free-diffusion anchor point (1, exp(-b*DIFF)*S0) when absent,
+    smooth the near-perpendicular cluster, then linearly interpolate at the
+    new direction's dot products. b0 shells pass through unchanged.
+
+    Host-level utility (used for dictionary generation and tests); the fit
+    hot path uses the precomputed-table kernel instead.
+    """
+    assert isinstance(sig, np.ndarray), "Input sig should be a NumPy ndarray"
+    assert isinstance(sch_mat, np.ndarray), ("Input sch_mat should be a "
+                                             "NumPy ndarray")
+    assert isinstance(ordir, np.ndarray), ("Input ordir should be a NumPy "
+                                           "ndarray")
+    assert isinstance(newdir, np.ndarray), ("Input newdir should be a "
+                                            "NumPy ndarray")
+    sig_shape = sig.shape
+    if sig.ndim == 1:
+        sig = sig.reshape((sig.size, 1))
+    DIFF = float(np.asarray(DIFF).reshape(-1)[0])
+    assert isinstance(S0, np.ndarray), "Input S0 should be a NumPy ndarray"
+    if S0.ndim == 1:
+        S0 = S0[:, np.newaxis]
+    if sch_mat.shape[1] < 6:
+        raise ValueError('sch_mat must be a N-by-6 or7 matrix')
+    if sch_mat.shape[0] != sig.shape[0]:
+        raise ValueError('sch_mat and sig must have the same number of rows')
+    assert sig.shape == S0.shape, ("The S0 matrix should have the same size "
+                                   "as the signal matrix")
+
+    gam = get_gyromagnetic_ratio('H')
+    ordir_u = ordir / np.sqrt((ordir ** 2).sum())
+    newdir_u = newdir / np.sqrt((newdir ** 2).sum())
+
+    Gdir_norm = np.sqrt((sch_mat[:, 0:3] ** 2).sum(axis=1, keepdims=True))
+    Gdir_norm[Gdir_norm == 0] = np.inf  # b0 rows -> zero dot products
+    orcyldotG_all = np.abs(np.dot(sch_mat[:, 0:3] / Gdir_norm, ordir_u))
+    newcyldotG_all = np.abs(np.dot(sch_mat[:, 0:3] / Gdir_norm, newdir_u))
+
+    bvals = ((gam * sch_mat[:, 3] * sch_mat[:, 5]) ** 2
+             * (sch_mat[:, 4] - sch_mat[:, 5] / 3))
+    sig_rot = np.zeros(sig.shape)
+    GdD_un, i_un = np.unique(sch_mat[:, 3:6], return_inverse=True, axis=0)
+    num_shells = GdD_un.shape[0]
+
+    for i in range(num_shells):
+        ind_sh = np.where(i_un == i)[0]
+        bval = bvals[ind_sh[0]]
+        if bval == 0:
+            sig_rot[ind_sh, :] = sig[ind_sh, :]
+            continue
+        if ind_sh.size < 2:
+            raise ValueError("Fewer than 2 identical (G, Del, del) triplets "
+                             "detected for triplet %d/%d (%g, %g, %g), b=%g"
+                             " s/mm^2, probably not a HARDI shell." %
+                             (i + 1, num_shells, GdD_un[i, 0], GdD_un[i, 1],
+                              GdD_un[i, 2], bval / 1e6))
+        if ind_sh.size < 10 and warnings:
+            print("WARNING: rotate_atom: fewer than 10 data points detected"
+                  " for acquisition parameters (G, Del, del) %d/%d "
+                  "(%g, %g, %g), b=%g s/mm^2.\n"
+                  "Quality of approximation may be poor."
+                  % (i + 1, num_shells, GdD_un[i, 0], GdD_un[i, 1],
+                     GdD_un[i, 2], bval / 1e6))
+        # S0 must be constant within the shell for each substrate
+        S0_sh_ok = np.all(np.isclose(S0[ind_sh, :], S0[ind_sh[0], :]), axis=0)
+        if np.any(~S0_sh_ok):
+            bad_subs = np.where(~S0_sh_ok)[0]
+            raise ValueError('Distinct values in provided S0 image '
+                             'for shell  %d/%d (b=%g s/mm^2) '
+                             'for %d substrate(s) [%s]' %
+                             (i + 1, num_shells, bval / 1e6,
+                              bad_subs.shape[0],
+                              " ".join("{:d}".format(b) for b in bad_subs)))
+
+        xs, first_idx = np.unique(orcyldotG_all[ind_sh], return_index=True)
+        ys = sig[ind_sh, :][first_idx, :]
+
+        # free-diffusion anchor at |g.n| = 1 stabilizes the interpolation
+        if not np.any(xs == 1):
+            xs = np.append(xs, [1.0])
+            free_diff = np.exp(-bval * DIFF) * S0[ind_sh[0], :]
+            ys = np.concatenate([ys, free_diff[np.newaxis, :]], axis=0)
+
+        almost_perp = np.abs(xs - xs[0]) < _PERP_CLUSTER_TOL
+        cluster_size = int(np.sum(almost_perp))
+        if cluster_size > 1:
+            xs = np.concatenate(([np.mean(xs[almost_perp])],
+                                 xs[cluster_size:]))
+            ys = np.concatenate((np.mean(ys[almost_perp, :], axis=0,
+                                         keepdims=True),
+                                 ys[cluster_size:, :]), axis=0)
+        if xs.size != ys.shape[0] and warnings:
+            print("WARNING: rotate_atom: problem with shapes and/or sizes"
+                  " before 1D interpolation at shell %d/%d "
+                  "(G=%g Del=%g del=%g)" %
+                  (i + 1, num_shells,
+                   GdD_un[i, 0], GdD_un[i, 1], GdD_un[i, 2]))
+
+        sig_rot[ind_sh, :] = _lerp_eval_np(xs, ys, newcyldotG_all[ind_sh])
+        if np.any(np.isnan(sig_rot[ind_sh, :])):
+            sub_has_nan = np.any(np.isnan(sig_rot[ind_sh, :]), axis=0)
+            bad_subs = np.where(sub_has_nan)[0]
+            raise ValueError('Nan detected after rotation of substrate(s) '
+                             'for sequence(s) {%d...%d} (bval=%g s/mm^2) '
+                             'for %d substrate(s): [%s]' %
+                             (ind_sh[0], ind_sh[-1], bval / 1e6,
+                              bad_subs.shape[0],
+                              " ".join("%d" % b for b in bad_subs)))
+    return np.reshape(sig_rot, sig_shape)
+
+
+def rotate_atom_2Dprotocol(sig, sch_mat, refdir, newdir, DIFF):
+    """Rotate signals acquired with a 2D AxCaliber-like protocol.
+
+    Behavioral equivalent of reference mf_utils.py:1440-1690. The signal is
+    factorized as S = S_par * S_perp with analytic free diffusion along the
+    fascicle (S_par = exp(-b_par * DIFF)); per (Delta, delta) pair the two
+    opposite-polarity acquisition "lines" are identified in the plane
+    perpendicular to each fascicle, and S_perp is linearly interpolated over
+    *signed* gradient intensity along the closest reference line.
+    """
+    sig_shape = sig.shape
+    if sig.ndim == 1:
+        sig = sig[:, np.newaxis]
+    if np.any(sch_mat[:, 2] != 0):
+        raise ValueError("Use the original schemefile with zeros for gz.\n"
+                         "Specify the reference and new orientations "
+                         "separately.")
+    if sig_shape[0] != sch_mat.shape[0]:
+        raise ValueError("Signal and scheme matrix must have the same "
+                         "number of elements (sequences) along their first"
+                         " dimension. Detected %d and %d." %
+                         (sig_shape[0], sch_mat.shape[0]))
+    zdir = np.array([0, 0, 1.0])
+    gam = get_gyromagnetic_ratio('H')
+    G = sch_mat[:, 3]
+    Delta = sch_mat[:, 4]
+    delta = sch_mat[:, 5]
+    is_b0 = G == 0
+    is_b = G != 0
+
+    def _perp_par(direction):
+        """Perpendicular unit dirs, perpendicular and parallel G components
+        in the frame of a fascicle along ``direction``."""
+        sm_eff = rotate_scheme_mat(sch_mat, zdir, direction)
+        g_perp = sm_eff[:, 0:2].copy()
+        g_norm = np.sqrt(np.sum(g_perp ** 2, axis=1))
+        nnz = g_norm > 0
+        g_perp[nnz, :] = sm_eff[nnz, 0:2] / g_norm[nnz][:, np.newaxis]
+        G_perp = G * g_norm
+        G_par = np.abs(sm_eff[:, 2]) * G
+        assert np.all(np.isclose(G ** 2, G_perp ** 2 + G_par ** 2)), (
+            "Inconsistency in parallel and perpendicular gradient"
+            " components.")
+        return g_perp, G_perp, G_par, nnz
+
+    g_perp_ref, G_perp_ref, G_par_ref, nnz_gref = _perp_par(refdir)
+    b_par_ref = (gam * delta * G_par_ref) ** 2 * (Delta - delta / 3)
+    S_par_ref = np.exp(-b_par_ref * DIFF)
+    S_perp_ref = sig / S_par_ref[:, np.newaxis]
+    assert np.all(np.isclose(S_par_ref[is_b0], 1)), (
+        "Reference fascicle: parallel signal should be one in b0 sequences.")
+
+    g_perp_new, G_perp_new, G_par_new, nnz_gnew = _perp_par(newdir)
+    b_par_new = (gam * delta * G_par_new) ** 2 * (Delta - delta / 3)
+    S_par_new = np.exp(-b_par_new * DIFF)[:, np.newaxis] * np.ones(
+        (1, sig.shape[1]))
+    S_perp_new = np.zeros(sig.shape)
+    S_perp_new[is_b0, :] = sig[is_b0, :]
+    assert np.all(np.isclose(S_par_new[is_b0, :], 1)), (
+        "New fascicle: parallel signal should be equal to 1 in b0"
+        " sequences.")
+
+    Deldel_un, i_un = np.unique(sch_mat[:, 4:6], return_inverse=True, axis=0)
+    num_Deldels = Deldel_un.shape[0]
+
+    for idel in range(num_Deldels):
+        is_shell = i_un == idel
+        ind_del = np.where(is_shell)[0]
+
+        # unique perpendicular directions (pairs of opposite polarities plus
+        # the zero direction): 3 or 5 expected
+        gdir_ref_un, ig_ref_un = np.unique(g_perp_ref[ind_del, :],
+                                           return_inverse=True, axis=0)
+        assert gdir_ref_un.shape[0] in (3, 5), (
+            "Problem at delta pair %d/%d: found %d unique gradient"
+            " directions in plane perpendicular to reference fascicle"
+            " (including b0 zero dirs)."
+            % (idel + 1, num_Deldels, gdir_ref_un.shape[0]))
+        cross_dp = gdir_ref_un @ gdir_ref_un.T
+        ig, ig_op = np.where(np.isclose(cross_dp, -1))
+        assert ig.size in (2, 4), (
+            "Problem at delta pair %d/%d: found %d instead of 4 (2x2,"
+            " redundant) pairs of opposite directions in plane perpendicular"
+            " to reference fascicle." % (idel + 1, num_Deldels, ig.size))
+
+        gdir_new_un, ig_new_un = np.unique(g_perp_new[ind_del, :],
+                                           return_inverse=True, axis=0)
+        assert gdir_new_un.shape[0] in (3, 5), (
+            "Problem at delta pair %d/%d: found %d unique gradient"
+            " directions in plane perpendicular to new fascicle (including"
+            " b0 zero dirs)." % (idel + 1, num_Deldels,
+                                 gdir_new_un.shape[0]))
+        cross_dp_new = gdir_new_un @ gdir_new_un.T
+        ipairs_new, ig_op_new = np.where(np.isclose(cross_dp_new, -1))
+        is_upper = ipairs_new < ig_op_new
+        ipairs_new = ipairs_new[is_upper]
+        ig_op_new = ig_op_new[is_upper]
+        assert ipairs_new.size in (1, 2), (
+            "Problem at delta pair %d/%d: found %d instead of 2 pairs of"
+            " opposite directions, in plane perpendicular to new fascicle."
+            % (idel + 1, num_Deldels, ipairs_new.size))
+
+        # sequences whose perpendicular gradient vanishes for the new
+        # fascicle see free diffusion: use the shell's b0 level
+        is_vanished_new = ~nnz_gnew & is_b & is_shell
+        is_sh_b0_ref = is_b0 & is_shell
+        if np.sum(is_vanished_new) > 0:
+            assert np.sum(is_sh_b0_ref) > 0, (
+                "Shell %d/%d: some new line directions are completely"
+                " parallel to new fascicle, implying free diffusion. However,"
+                " no b0 measurements in the reference signal are available"
+                " for this shell." % (idel + 1, num_Deldels))
+            S_perp_new[is_vanished_new, :] = np.mean(
+                sig[is_sh_b0_ref, :], axis=0)
+
+        for i_line in range(ipairs_new.size):
+            linedir_new = gdir_new_un[ipairs_new[i_line], :]
+            ind_new = ind_del[(ig_new_un == ipairs_new[i_line])
+                              | (ig_new_un == ig_op_new[i_line])]
+            assert np.all(is_b[ind_new]), (
+                "Problem at delta pair %d/%d, new line direction %d/%d:"
+                " trying to interpolate b0 sequences."
+                % (idel + 1, num_Deldels, i_line, ipairs_new.size))
+            G_signed_new = (G_perp_new[ind_new] *
+                            np.sign(g_perp_new[ind_new, :] @ linedir_new))
+            # closest reference line to the new line
+            i_max = np.argmax(gdir_ref_un @ linedir_new)
+            line_ref = gdir_ref_un[i_max, :]
+            idirref = np.where(i_max == ig)[0]
+            ind_ref = ind_del[(ig_ref_un == ig[idirref])
+                              | (ig_ref_un == ig_op[idirref])]
+            G_signed_ref = (G_perp_ref[ind_ref] *
+                            np.sign(g_perp_ref[ind_ref, :] @ line_ref))
+            order = np.argsort(G_signed_ref)
+            S_perp_new[ind_new, :] = _lerp_eval_np(
+                G_signed_ref[order], S_perp_ref[ind_ref, :][order, :],
+                G_signed_new)
+    S_par_new = np.reshape(S_par_new, sig_shape)
+    S_perp_new = np.reshape(S_perp_new, sig_shape)
+    return S_par_new * S_perp_new

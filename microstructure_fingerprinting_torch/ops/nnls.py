@@ -9,9 +9,12 @@ up to ``exhaustive_nnls_blocks``: ``_pad_cols``, ``_normalize_block``,
 (``_sub1_res``, ``_sub2_res``, ``_nnls4_sweep_res``, ``_det_tol``,
 ``_scan4_grid``), ``exhaustive_{1,2,3,4}_batched``,
 ``exhaustive_{2,3,4}_candidates``, ``exhaustive_candidates_blocks`` and
-``exhaustive_nnls_blocks``. The closed-form solvers have one body over an
-array module: NumPy (bit for bit the JAX package's ``xp=np`` form) or
-``TORCH``.
+``exhaustive_nnls_blocks``, and the reference-compatible single-problem
+API after it (``solve_exhaustive_posweights`` and its family,
+``lsqnonneg_2var_opt``, ``nnls_underdetermined``: NumPy in and out,
+float64 on the host, as in the JAX package). The closed-form solvers
+have one body over an array module: NumPy (bit for bit the JAX
+package's ``xp=np`` form) or ``TORCH``.
 
 On unit-normalized atoms and signal every Gram entry is an O(1)
 correlation with a unit diagonal, so the float32 scans work at eps-level
@@ -23,6 +26,8 @@ by ~1 ulp of the norm).
 """
 
 import math
+import warnings
+from itertools import islice
 
 import numpy as np
 import torch
@@ -950,3 +955,332 @@ def exhaustive_nnls_blocks(blocks, y):
         return exhaustive_4_batched(*blocks, y)
     raise NotImplementedError(
         "Batched exhaustive NNLS supports up to 4 sub-dictionaries.")
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible public API (single problem, NumPy in/out)
+# ---------------------------------------------------------------------------
+
+def solve_exhaustive_posweights(A, y, dicsizes, printmsg=None):
+    """Solves NNLS with 1-sparsity constraints combinatorially.
+
+    Drop-in equivalent of the reference dispatcher (mf_utils.py:115-214):
+    same arguments, validation, and 5-tuple return
+    ``(w_nneg, ind_atoms_subdic, ind_atoms_totdic, min_obj, y_recons)``.
+    Solved in float64 on the host, as in the JAX package: K in {1, 2, 3,
+    4} by the closed-form grid scans, K > 4 by the combinatorial loop.
+    """
+    if printmsg is not None:
+        print(printmsg, end="")
+
+    # --- Check inputs (reference semantics, mf_utils.py:157-195) ---
+    assert isinstance(A, np.ndarray), "A should be a NumPy ndarray"
+    assert A.ndim == 2, "A should be a 2D array"
+    assert not np.any(np.all(A == 0, axis=0)), "All-zero columns detected in A"
+    A = A.astype(np.float64, copy=False)
+    assert isinstance(y, np.ndarray), "y should be a NumPy ndarray"
+    y = np.array(y, dtype=np.float64)  # writeable copy
+    assert A.size > 0 and y.size > 0, "A and y should not be empty arrays"
+    msg = ("Number of rows in A (%d) should match number of elements in y"
+           " (%d)" % (A.shape[0], y.size))
+    assert A.shape[0] == y.size, msg
+    assert isinstance(dicsizes, np.ndarray), ("dicsizes should be a "
+                                              "NumPy ndarray")
+    assert np.all(dicsizes > 0), "All entries of dicsizes should be > 0"
+    dicsizes = dicsizes.astype(np.int64, copy=False)
+    msg = ("Number of columns of A (%d) does not equal sum of size of "
+           "sub-matrices in diclengths array (%d)"
+           % (A.shape[1], np.sum(dicsizes)))
+    assert A.shape[1] == np.sum(dicsizes), msg
+
+    Nvars = dicsizes.size
+    if Nvars > 4:
+        return _solve_exhaustive_posweights_general(A, y, dicsizes)
+    # float64 on the host: bit-comparable to the reference's float64
+    # kernels, and no host-device round trip a call. Batched device
+    # execution lives in MFModel.fit / exhaustive_nnls_blocks.
+    return _solve_exhaustive_host(A, y, dicsizes)
+
+
+def _solve_exhaustive_host(A, y, dicsizes):
+    """Vectorized float64 exhaustive solve on the host (K <= 4).
+
+    Same closed-form case analysis as the device kernels (lsqnonneg_*
+    with xp=numpy), evaluated over the full candidate grid in float64;
+    candidate ranking and strict-improvement tie-breaking match the
+    reference loop orders (mf_utils.py:252-273, 329-386, 540-601, 637).
+    """
+    K = dicsizes.size
+    st = np.zeros(K, dtype=np.int64)
+    st[1:] = np.cumsum(dicsizes)[:-1]
+    blocks = [A[:, st[k]:st[k] + dicsizes[k]] for k in range(K)]
+    y_sq = float(y @ y)
+    Yk = [b.T @ y for b in blocks]
+    dk = [np.einsum("sn,sn->n", b, b) for b in blocks]
+
+    if K == 1:
+        w, res = lsqnonneg_1var(y_sq, dk[0], Yk[0], xp=np)
+        i = int(np.argmin(_sanitize(res, np)))
+        w_out = np.array([w[i]])
+        ind = np.array([i], dtype=np.int32)
+        min_obj = float(res[i])
+    elif K == 2:
+        G12 = blocks[0].T @ blocks[1]
+        w1, w2, res = lsqnonneg_2var(
+            y_sq, dk[0][:, None], G12, dk[1][None, :],
+            Yk[0][:, None], Yk[1][None, :], xp=np)
+        flat = int(np.argmin(res))
+        i1, i2 = divmod(flat, int(dicsizes[1]))
+        w_out = np.array([w1[i1, i2], w2[i1, i2]])
+        ind = np.array([i1, i2], dtype=np.int32)
+        min_obj = float(res[i1, i2])
+    elif K == 3:
+        G12 = blocks[0].T @ blocks[1]
+        G13 = blocks[0].T @ blocks[2]
+        G23 = blocks[1].T @ blocks[2]
+        N1, N2, N3 = (int(n) for n in dicsizes)
+        # reference init (mf_utils.py:536): w=0 at indices (0,0,0) unless a
+        # candidate strictly beats ||y||^2
+        best = (y_sq, 0, (0.0, 0.0, 0.0, 0, 0))
+        for i3 in range(N3):                      # reference order: i3 outer
+            w1, w2, w3, res = lsqnonneg_3var(
+                y_sq, dk[0][:, None], dk[1][None, :], dk[2][i3],
+                G12, G13[:, i3][:, None], G23[None, :, i3],
+                Yk[0][:, None], Yk[1][None, :], Yk[2][i3], xp=np)
+            flat = int(np.argmin(res))
+            i1, i2 = divmod(flat, N2)
+            if res[i1, i2] < best[0]:
+                best = (float(res[i1, i2]), i3,
+                        (w1[i1, i2], w2[i1, i2], w3[i1, i2], i1, i2))
+        min_obj, i3, (w1v, w2v, w3v, i1, i2) = best
+        w_out = np.array([w1v, w2v, w3v])
+        ind = np.array([i1, i2, i3], dtype=np.int32)
+    else:  # K == 4: Schur sweeps over the small trailing blocks
+        N1, N2, N3, N4 = (int(n) for n in dicsizes)
+        nb = [b / np.sqrt(d)[None, :] for b, d in zip(blocks, dk)]
+        yn = y / np.sqrt(y_sq) if y_sq > 0 else y
+        Ykn = [b.T @ yn for b in nb]
+        G12 = nb[0].T @ nb[1]
+        G13, G14 = nb[0].T @ nb[2], nb[0].T @ nb[3]
+        G23, G24 = nb[1].T @ nb[2], nb[1].T @ nb[3]
+        G34 = nb[2].T @ nb[3]
+        tol = 100 * np.finfo(np.float64).eps
+        best_res = np.full((N1, N2), y_sq)
+        best_s = np.zeros((N1, N2), dtype=np.int64)
+        for s in range(N3 * N4):
+            i3, i4 = divmod(s, N4)
+            res_s = _nnls4_sweep_res(
+                G12, G13[:, i3][:, None], G14[:, i4][:, None],
+                G23[None, :, i3], G24[None, :, i4], G34[i3, i4],
+                Ykn[0][:, None], Ykn[1][None, :], Ykn[2][i3], Ykn[3][i4],
+                tol, xp=np) * y_sq
+            upd = res_s < best_res
+            best_res[upd] = res_s[upd]
+            best_s[upd] = s
+        flat = int(np.argmin(best_res))           # product order (i1-major)
+        i1, i2 = divmod(flat, N2)
+        i3, i4 = divmod(int(best_s[i1, i2]), N4)
+        cols = np.stack([blocks[0][:, i1], blocks[1][:, i2],
+                         blocks[2][:, i3], blocks[3][:, i4]], axis=1)
+        G = cols.T @ cols
+        Yc = cols.T @ y
+        w1, w2, w3, w4, min_obj = lsqnonneg_4var(
+            y_sq, tuple(tuple(G[a, b_] for b_ in range(4))
+                        for a in range(4)), tuple(Yc), xp=np)
+        w_out = np.array([w1, w2, w3, w4])
+        ind = np.array([i1, i2, i3, i4], dtype=np.int32)
+        min_obj = float(min_obj)
+
+    ind_totdic = (st + ind).astype(np.int32)
+    y_recons = A[:, ind_totdic] @ w_out
+    return (w_out, ind, ind_totdic, min_obj, y_recons)
+
+
+def solve_exhaustive_posweights_1(A, y):
+    """1-sub-dictionary exhaustive NNLS (reference mf_utils.py:218-278
+    signature): returns scalars (w, ind_subdic, ind_totdic, min_obj) plus
+    y_recons, like the Numba kernel. Solved in float64 on the host, like
+    the dispatcher: a float32 device scan would degrade the selection to
+    float32 grade."""
+    A = np.asarray(A, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    w, ind, ind_tot, min_obj, y_recons = _solve_exhaustive_host(
+        A, y, np.array([A.shape[1]], dtype=np.int64))
+    return (float(w[0]), int(ind[0]), int(ind_tot[0]), float(min_obj),
+            y_recons)
+
+
+def solve_exhaustive_posweights_2(A, y, diclengths):
+    """2-sub-dictionary exhaustive NNLS (reference mf_utils.py:284-392
+    signature). float64 host solve (see solve_exhaustive_posweights_1)."""
+    A = np.asarray(A, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    w, ind_subdic, ind_totdic, min_obj, y_recons = _solve_exhaustive_host(
+        A, y, np.asarray(diclengths[:2], dtype=np.int64))
+    return (w, ind_subdic, ind_totdic, float(min_obj), y_recons)
+
+
+def solve_exhaustive_posweights_3(A, y, diclengths):
+    """3-sub-dictionary exhaustive NNLS (reference mf_utils.py:466-607
+    signature). float64 host solve (see solve_exhaustive_posweights_1)."""
+    A = np.asarray(A, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    w, ind_subdic, ind_totdic, min_obj, y_recons = _solve_exhaustive_host(
+        A, y, np.asarray(diclengths[:3], dtype=np.int64))
+    return (w, ind_subdic, ind_totdic, float(min_obj), y_recons)
+
+
+def lsqnonneg_2var_opt(y_sq, A11, A12, A22, Y1, Y2):
+    """2-variable NNLS from precomputed scalars (reference
+    mf_utils.py:399-459 signature): returns (w (2,), resnorm)."""
+    w1, w2, res = lsqnonneg_2var(y_sq, A11, A12, A22, Y1, Y2, xp=np)
+    return np.array([w1, w2], dtype=np.float64), float(res)
+
+
+def solve_exhaustive_posweights_4up(A, y, diclengths):
+    """Host combinatorial path for >= 4 sub-dictionaries (same contract as
+    reference mf_utils.py:612-657, which runs one scipy.optimize.nnls per
+    atom combination; here combinations are solved in vectorized chunks)."""
+    return _solve_exhaustive_posweights_general(A, y, diclengths)
+
+
+def _solve_exhaustive_posweights_general(A, y, diclengths, chunk=2048):
+    """General K-sub-dictionary exhaustive NNLS (host, vectorized).
+
+    Covers the K > 4 dispatch branch (reference mf_utils.py:612-657 calls
+    scipy.optimize.nnls once per atom combination; here whole chunks of
+    combinations are solved at once). Uses the support-enumeration identity:
+    the NNLS optimum over K columns equals the minimum over the 2^K - 1
+    non-empty supports S of the unconstrained least-squares solution on S,
+    restricted to solutions with non-negative weights. Each support is a
+    batched ``np.linalg.solve`` on the (chunk, |S|, |S|) Gram stack.
+    Combination order is lexicographic (i1-major) and improvement is strict,
+    so tie-breaking matches itertools.product + ``<``.
+    """
+    K = diclengths.size
+    starts = np.concatenate([[0], np.cumsum(diclengths)[:-1]]).astype(np.int64)
+    y_sq = float(y @ y)
+
+    best_obj = y_sq
+    best_w = np.zeros(K)
+    best_combo = np.zeros(K, dtype=np.int64)
+
+    supports = [np.flatnonzero([m >> i & 1 for i in range(K)])
+                for m in range(1, 1 << K)]
+
+    combo_iter = np.ndindex(*diclengths)  # lexicographic = product order
+    while True:
+        combos = np.array(list(islice(combo_iter, chunk)), dtype=np.int64)
+        if combos.size == 0:
+            break
+        n = combos.shape[0]
+        cols = A[:, combos + starts[None, :]]          # (S, n, K)
+        # unit-normalize columns so the determinant guard below is
+        # scale-invariant (like the K <= 4 paths): without it, supports of
+        # well-conditioned but small-magnitude columns (diag ~ 1e-6) would
+        # be wrongly rejected, and huge columns could mask true collinearity
+        nrm = np.sqrt(np.einsum("snk,snk->nk", cols, cols))   # (n, K)
+        nrm = np.where(nrm > 0, nrm, 1.0)
+        colsn = cols / nrm[None, :, :]
+        G = np.einsum("snk,snl->nkl", colsn, colsn)    # (n, K, K) unit diag
+        b = np.einsum("snk,s->nk", colsn, y)           # (n, K)
+
+        obj = np.full(n, y_sq)
+        w_opt = np.zeros((n, K))
+        for S in supports:
+            GS = G[:, S[:, None], S[None, :]]
+            bS = b[:, S]
+            ok = np.abs(np.linalg.det(GS)) > (_EPS * 100) ** len(S)
+            GS_safe = np.where(ok[:, None, None], GS, np.eye(len(S)))
+            wS = np.linalg.solve(GS_safe, bS[:, :, None])[:, :, 0]
+            feas = ok & np.all(wS >= 0, axis=1) & np.all(np.isfinite(wS),
+                                                         axis=1)
+            # full quadratic form: robust to inexact solves on
+            # near-collinear supports
+            r = (y_sq - 2 * np.einsum("nk,nk->n", wS, bS)
+                 + np.einsum("nk,nkl,nl->n", wS, GS, wS))
+            r = np.where(feas, r, np.inf)
+            upd = r < obj
+            if np.any(upd):
+                obj[upd] = r[upd]
+                w_full = np.zeros((int(upd.sum()), K))
+                w_full[:, S] = wS[upd] / nrm[upd][:, S]  # raw-scale weights
+                w_opt[upd] = w_full
+        j = int(np.argmin(obj))                        # first minimum
+        if obj[j] < best_obj:
+            best_obj = float(obj[j])
+            best_w = w_opt[j]
+            best_combo = combos[j]
+
+    totdic = starts + best_combo
+    y_recons = A[:, totdic] @ best_w
+    return (best_w, best_combo, totdic, best_obj, y_recons)
+
+
+def nnls_underdetermined(X, y, max_outer=None):
+    """Active-set NNLS for wide ("underdetermined") systems.
+
+    Lawson-Hanson/FNNLS-style algorithm with the reference's return
+    contract (mf_utils.py:663-760): a 3-tuple of the non-negative
+    solution, the passive-set indices, and the gradient-based optimality
+    vector A'y - A'Ax.
+    ``max_outer`` caps the outer active-set passes (default 30 * n); hitting
+    the cap emits a RuntimeWarning and returns the current feasible iterate.
+    """
+    (m, n) = X.shape
+    Xty = np.dot(X.T, y)
+    # Lawson-Hanson scaled tolerance: robust when the passive set saturates
+    # the row rank (wide systems), where the reference's fixed 10*eps can
+    # cycle on numerically-singular normal equations.
+    tol = 10 * _EPS * max(np.linalg.norm(X, 1), 1.0) * max(m, n)
+    if max_outer is None:
+        max_outer = 30 * n
+
+    passive = np.zeros(n, bool)  # True = passive (positive), False = active
+    passive_idx = np.zeros(0, dtype=np.int64)
+    trial = np.zeros(n, np.float64)   # unconstrained solve on passive set
+    sol = np.zeros(n, np.float64)     # current feasible iterate
+    grad = Xty.copy()                 # optimality vector A'y - A'A sol
+
+    def _solve_passive():
+        idx = np.where(passive)[0]
+        rhs = Xty[idx]
+        if idx.size == 1:
+            trial[idx] = rhs / np.sum(X[:, idx] ** 2)
+        elif idx.size > 0:
+            gram = X[:, idx].T @ X[:, idx]
+            trial[idx] = np.linalg.lstsq(gram, rhs, rcond=None)[0]
+        return idx
+
+    outer = 0
+    while (np.any(~passive) and np.any(grad[~passive] > tol)
+           and outer < max_outer):
+        outer += 1
+        t = np.argmax(grad[~passive])
+        t = np.where(~passive)[0][t]
+        passive[t] = True
+        trial[t] = 0
+        passive_idx = _solve_passive()
+        inner = 0
+        while np.any(trial[passive] <= tol) and inner < max_outer:
+            inner += 1
+            clipped = (trial <= tol) & passive
+            with np.errstate(divide="ignore", invalid="ignore"):
+                steps = sol[clipped] / (sol[clipped] - trial[clipped])
+            steps[~np.isfinite(steps)] = 0.0
+            alpha = np.min(steps)
+            sol += alpha * (trial - sol)
+            dropped = passive & (np.abs(sol) < tol)
+            passive[dropped] = False
+            trial[dropped] = 0
+            passive_idx = _solve_passive()
+        sol[:] = trial
+        grad = Xty - np.dot(X.T, np.dot(X[:, passive_idx],
+                                        sol[passive_idx]))
+    if outer >= max_outer:
+        warnings.warn(
+            "nnls_underdetermined hit its iteration cap (%d outer passes) "
+            "before reaching optimality; the returned solution is feasible "
+            "but may be suboptimal (ill-conditioned or cycling system)."
+            % max_outer, RuntimeWarning)
+    return sol, passive_idx, grad

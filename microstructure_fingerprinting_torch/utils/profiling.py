@@ -7,9 +7,14 @@ the sums are device time between the events, without host
 synchronisation inside the path. CPU regions are not timed. A region
 also records the region it was opened in, so that a stage can be split
 exactly into the regions nested in it (``StageTimer.inside``).
+
+``device_trace(log_dir)`` captures a ``torch.profiler`` trace (the
+counterpart of the JAX package's ``jax.profiler`` capture) and
+``annotate(name)`` labels a function's work in it.
 """
 
 import contextlib
+import functools
 
 import torch
 
@@ -68,3 +73,34 @@ def stage(name, device):
         timer.open.pop()
     e.record()
     timer.events.append((name, s, e, parent))
+
+
+@contextlib.contextmanager
+def device_trace(log_dir):
+    """Capture a ``torch.profiler`` trace of the host and, where CUDA is
+    available, the card, written under ``log_dir`` as a Chrome trace
+    (a ``*.pt.trace.json`` file, readable in Perfetto or
+    TensorBoard). Yields the profiler.
+
+    >>> with device_trace('traces'):
+    ...     model.fit(...)
+    """
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(log_dir))) as prof:
+        yield prof
+
+
+def annotate(name):
+    """Decorator: label a function's work ``name`` in profiler traces."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
