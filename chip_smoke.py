@@ -28,8 +28,19 @@ and ``fit`` on cleanup's output, each held against the same steps in
 process (files equal, maps equal, launches equal); and the reference
 surface (``monte_carlo_average``, ``interp_PGSE_from_multishell``,
 ``eval_rotation``) on the card against the CPU, and ``mf_utils`` without
-matplotlib. Every phase runs; exits non-zero on any failure; needs one
-CUDA device. The last line of standard output is the
+matplotlib. Then the modules of the last slice: the MCF simulators
+(``MCF_PGSE`` on the 552 sequences for three cylinder sizes, ``MCF_DDE``
+on a 64-row DDE scheme) on the card against the CPU; device meshes of
+two slots on the one card, (2, 1) through ``run_bucket_fast(mesh=)`` and
+``MFModel.fit(parallel=True, mesh_shape=(2, 1))`` on flagship and EAR
+voxels (bit for bit the serial fit, the same launches) and (1, 2) with
+the atoms axis; two processes of this script joined by
+``parallel/mesh.init_distributed`` (gloo) each fitting half of 512
+flagship voxels, gathered and held bit for bit against one process
+(``python3 chip_smoke.py --multihost-worker ...`` is that worker); and
+the examples ``demo_synthetic`` and ``exactness_check`` with their
+gates. Every phase runs; exits non-zero on any failure; needs one CUDA
+device. The last line of standard output is the
 JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
 line before the card's name and power limit, with kernel 1 in a row per
 rhs width (its launches in the fits at that width, its times at that
@@ -125,6 +136,24 @@ CLI_EAR_VOX = 1024
 MC_REF, MC_SPINS = 2, 100000
 #: fascicle directions of the surface phase's rotations
 N_DIRS = 16
+#: the MCF phase: cylinder diameters [m] and the rows of its DDE scheme
+MCF_SIZES = (2e-6, 5e-6, 8e-6)
+DDE_ROWS = 64
+#: card against CPU, per value: at L = 2 um the exponentials' arguments
+#: reach a norm of ~2000, where scaling and squaring in float64 leaves
+#: ~1e-12 of relative error on values of ~0.2 (the port and the JAX
+#: package differ by 2.1e-12 there on one CPU)
+MCF_RTOL = 1e-11
+#: the mesh phase: flagship and EAR voxels on the (2, 1) mesh, flagship
+#: voxels on the (1, 2) mesh (one chunk)
+MESH_VOX, MESH_EAR_VOX, ATOMS_VOX = 1024, 512, 256
+#: the multihost phase: flagship voxels over two processes, the kernels
+#: each must launch, and the seconds before a process is killed
+MH_VOX = 512
+MH_KERNELS = ("prep_block", "rowmin3", "rescan3")
+MH_TIMEOUT = 240
+#: voxels of the exactness_check example
+EXACT_VOX = 256
 #: the repo's frozen end-to-end fixture (tests/test_golden.py)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_fit.npz")
@@ -1520,6 +1549,343 @@ def phase_surface(wl):
     RECORD["surface"] = rec
 
 
+def phase_mcf(wl):
+    """The MCF simulators on the card against the CPU (float64): MCF_PGSE
+    for a cylinder of each diameter in MCF_SIZES on the flagship's 552
+    sequences, and MCF_DDE on a DDE_ROWS-row DDE scheme; every value
+    within relative MCF_RTOL of the CPU's; host ms of each, once warm."""
+    import microstructure_fingerprinting_torch as mft
+    rec = {"card": card_line()}
+    sch, dde = wl["sch_mat"], mft.testing.make_dde_scheme(DDE_ROWS)
+    runs = [("pgse L=%g um" % (1e6 * L),
+             lambda dev, L=L: mft.mcf.MCF_PGSE("cylinder", L, 2e-9,
+                                               scheme=sch, device=dev))
+            for L in MCF_SIZES]
+    runs.append(("dde L=5 um, %d rows" % DDE_ROWS,
+                 lambda dev: mft.mcf.MCF_DDE("cylinder", 5e-6, 2e-9, dde,
+                                             device=dev)))
+    for name, run in runs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            run(dev)
+            t0 = time.time()
+            out[dev] = run(dev)
+            rec["%s: %s ms" % (name, dev)] = 1e3 * (time.time() - t0)
+        rel = float(np.max(np.abs(out["cuda"] - out["cpu"])
+                           / np.abs(out["cpu"])))
+        rec["%s: max rel diff" % name] = rel
+        log("mcf %s: %d sequences, card %.2f ms, CPU %.2f ms, max relative "
+            "difference %.3e (limit %.0e), E in [%.3e, %.3e] [%s]" % (
+                name, out["cpu"].size, rec["%s: cuda ms" % name],
+                rec["%s: cpu ms" % name], rel, MCF_RTOL, out["cpu"].min(),
+                out["cpu"].max(), rec["card"]))
+        if not (rel <= MCF_RTOL and np.all(np.isfinite(out["cuda"]))):
+            raise AssertionError("mcf %s: card and CPU differ" % name)
+    RECORD["mcf"] = rec
+
+
+def _counted(fn):
+    """fn() with every launch count set to 0 just before it: (result,
+    launches of this call, host seconds)."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    mft.reset_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in mft.LAUNCHES.items() if v}, \
+        time.time() - t0
+
+
+def _abba(runs):
+    """Two warm runs {name: fn} timed in turns A, B, B, A (each once
+    before, to warm): {name: (result, launches of its last call, [host
+    seconds of its two timed calls])}."""
+    (a, run_a), (b, run_b) = runs.items()
+    run_a()
+    run_b()
+    out = {a: [None, None, []], b: [None, None, []]}
+    for name, run in ((a, run_a), (b, run_b), (b, run_b), (a, run_a)):
+        res, launches, sec = _counted(run)
+        out[name][0], out[name][1] = res, launches
+        out[name][2].append(sec)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _vps(n, secs):
+    """voxels/s of each timed call."""
+    return [n / t for t in secs]
+
+
+def _fmt(xs):
+    return "/".join("%.1f" % x for x in xs)
+
+
+def _same(label, got, ref):
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if not np.array_equal(a, b):
+            raise AssertionError("%s: output %d differs from the serial "
+                                 "fit's" % (label, k))
+
+
+def phase_mesh(wl, sig_ear):
+    """Meshes of two slots on cuda:0 (one card: a check of the mesh code,
+    not a speed-up). (2, 1): MESH_VOX flagship voxels and MESH_EAR_VOX
+    EAR voxels (two chunks) through run_bucket_fast(mesh=) and
+    MFModel.fit(parallel=True, mesh_shape=(2, 1)), each timed warm in
+    turns with the serial run (serial, mesh, mesh, serial): outputs and
+    maps bit for bit the serial fit's, the same launches. (1, 2):
+    ATOMS_VOX flagship voxels with the second block's atoms split over
+    the two slots (df3_candidates on [782, 391, 1] a slot): ids equal to
+    the serial fit's, objectives within 2e-9 ||y||^2; ms and peak memory
+    of the atoms-split scan on one chunk."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    from microstructure_fingerprinting_torch.parallel import mesh as pmesh
+    rec = {"card": card_line()}
+    ms, plan = wl["msinterp"], wl["plan"]
+    _x, ys, _c = ms.device_tables("cuda", torch.float32)
+    rotator = mft.ops.interp.make_grouped_rotation_paired(ms, plan)
+    slots = [torch.device("cuda", 0)] * 2
+    data2 = pmesh.build_mesh(2, 1, devices=slots)
+    for label, n, kw, y in (
+            ("flagship", MESH_VOX, {}, wl["y"]),
+            ("EAR", MESH_EAR_VOX, dict(sig_ear=sig_ear, ear_on=True),
+             wl["y_ear"])):
+        # two chunks: one a slot
+        batch = n // 2
+        args = (ms, plan, ys, wl["peaks"][:n].reshape(n, 6), y[:n],
+                wl["sig_csf"], 2, True)
+        kw = dict(kw, batch=batch, rotator=rotator)
+        res = _abba({
+            "serial": lambda: fit_mod.run_bucket_fast(*args, **kw),
+            "mesh (2, 1)": lambda: fit_mod.run_bucket_fast(
+                *args, mesh=data2, **kw)})
+        _same("run_bucket_fast %s (2, 1)" % label, res["mesh (2, 1)"][0],
+              res["serial"][0])
+        path = ("prep_block", "rowmin4", "rescan4") if kw.get("ear_on") \
+            else ("prep_block", "rowmin3", "rescan3")
+        if res["mesh (2, 1)"][1] != res["serial"][1] or min(
+                res["mesh (2, 1)"][1].get(k, 0) for k in path) <= 0:
+            raise AssertionError("mesh %s: launches %s, serial %s" % (
+                label, res["mesh (2, 1)"][1], res["serial"][1]))
+        RECORD.setdefault("launches_by_fit", {})[
+            "mesh (2, 1) %s" % label] = res["mesh (2, 1)"][1]
+        rec["run_bucket_fast %s" % label] = {
+            name: dict(voxels_per_s=_vps(n, r[2]), launches=r[1])
+            for name, r in res.items()}
+        log("mesh (2, 1) %s: run_bucket_fast on %d voxels equals the serial "
+            "run bit for bit, launches %s; voxels/s serial %s, mesh %s "
+            "[%s]" % (label, n, res["serial"][1],
+                      _fmt(_vps(n, res["serial"][2])),
+                      _fmt(_vps(n, res["mesh (2, 1)"][2])), rec["card"]))
+
+        # the same voxels as a volume through MFModel.fit
+        shape = (n, 1, 1)
+        model = mft.MFModel(fit_dictionary(wl, sig_ear if kw.get("ear_on")
+                                           else None))
+        fargs = (y[:n].reshape(shape + (-1,)), np.ones(shape),
+                 np.full(shape, 2.0))
+        fkw = dict(peaks=wl["peaks"][:n].reshape(shape + (6,)),
+                   pgse_scheme=wl["sch_mat"], csf_mask=1, verbose=0,
+                   ear_mask=1 if kw.get("ear_on") else None,
+                   batch_size=batch)
+        fits = _abba({
+            "serial": lambda: model.fit(*fargs, **fkw),
+            "mesh (2, 1)": lambda: model.fit(*fargs, parallel=True,
+                                             mesh_shape=(2, 1), **fkw)})
+        a, b = fits["mesh (2, 1)"][0], fits["serial"][0]
+        for p in b.param_names:
+            if not np.array_equal(getattr(a, p), getattr(b, p)):
+                raise AssertionError("MFModel.fit %s on the (2, 1) mesh: "
+                                     "map %s differs" % (label, p))
+        if fits["mesh (2, 1)"][1] != fits["serial"][1]:
+            raise AssertionError("mesh fit %s: launches differ" % label)
+        rec["MFModel.fit %s" % label] = {
+            name: dict(voxels_per_s=_vps(n, r[2]), launches=r[1])
+            for name, r in fits.items()}
+        log("mesh (2, 1) %s: MFModel.fit(parallel=True, mesh_shape=(2, 1)) "
+            "on %d voxels: every map equal to the serial fit's, launches "
+            "%s; voxels/s serial %s, mesh %s [%s]" % (
+                label, n, fits["serial"][1],
+                _fmt(_vps(n, fits["serial"][2])),
+                _fmt(_vps(n, fits["mesh (2, 1)"][2])), rec["card"]))
+        del model, fits, res
+        torch.cuda.empty_cache()
+
+    # (1, 2): the atoms axis
+    n = ATOMS_VOX
+    atoms2 = pmesh.build_mesh(1, 2, devices=slots)
+    args = (ms, plan, ys, wl["peaks"][:n].reshape(n, 6), wl["y"][:n],
+            wl["sig_csf"], 2, True)
+    res = {}
+    for name, mesh in (("serial", None), ("mesh (1, 2)", atoms2)):
+        run = lambda: fit_mod.run_bucket_fast(*args, batch=n, mesh=mesh,
+                                              rotator=rotator)
+        run()
+        res[name] = _counted(run)
+    got, ref = res["mesh (1, 2)"][0], res["serial"][0]
+    ysq = np.sum(wl["y"][:n] ** 2, axis=1)
+    gap = float(np.max(np.abs(got[2] - ref[2]) / ysq))
+    if not np.array_equal(got[1], ref[1]) or gap > 2e-9:
+        raise AssertionError("atoms axis: ids or objectives differ (%.3e)"
+                             % gap)
+    D, y, a3 = voxel_inputs(wl, np.arange(n), wl["y"], "cuda")
+    scan = lambda: pmesh.atoms_df3_candidates(slots, D[:, 0], D[:, 1], a3,
+                                              y, M=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    scan()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    scan_ms = timed(scan, reps=2)
+    rec["atoms"] = dict(
+        voxels=n, max_obj_gap=gap, launches=res["mesh (1, 2)"][1],
+        voxels_per_s={k: n / r[2] for k, r in res.items()},
+        scan_ms=scan_ms, scan_peak_bytes=peak)
+    log("mesh (1, 2): %d flagship voxels with the atoms split over two "
+        "slots: ids equal to the serial fit's, objectives within %.3e "
+        "||y||^2 (limit 2e-9); voxels/s serial %.1f, mesh %.1f; the "
+        "atoms-split scan (df3_candidates on [782, 391, 1] a slot) %.1f ms "
+        "a %d-voxel chunk, peak %.2f GB above its inputs [%s]" % (
+            n, gap, n / res["serial"][2], n / res["mesh (1, 2)"][2],
+            scan_ms, n, peak / 1e9, rec["card"]))
+    RECORD["mesh"] = rec
+    del D, y, a3
+    torch.cuda.empty_cache()
+
+
+def multihost_worker(rank, port, tmp):
+    """One of the multihost phase's two processes: joins the gloo group,
+    fits its half of the MH_VOX voxels that the parent wrote to ``tmp``
+    on cuda:0 with run_bucket_fast (one chunk), and gathers every
+    process's results; rank 0 writes them with each rank's launches."""
+    import torch
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    from microstructure_fingerprinting_torch.ops import interp as mfi
+    from microstructure_fingerprinting_torch.parallel import mesh as pmesh
+    rank = int(rank)
+    devices = pmesh.init_distributed("localhost:%s" % port, 2, rank,
+                                     local_device_ids=[0], backend="gloo")
+    ins = np.load(os.path.join(tmp, "inputs.npz"))
+    ms = mfi.MultiShellInterp.load(os.path.join(tmp, "tables.npz"))
+    plan = mfi.plan_target_scheme(ms, ins["sch_mat"])
+    half = MH_VOX // 2
+    sl = slice(rank * half, (rank + 1) * half)
+    _x, ys, _c = ms.device_tables(devices[0], torch.float32)
+    run = lambda: fit_mod.run_bucket_fast(
+        ms, plan, ys, ins["peaks"][sl], ins["y"][sl], ins["sig_csf"], 2,
+        True, batch=half)
+    (w, ind, obj, _mse, r2), launches, sec = _counted(run)
+    got = {k: pmesh.gather_to_host(v) for k, v in
+           (("w", w), ("ind", ind), ("obj", obj), ("r2", r2))}
+    got["launches"] = pmesh.gather_to_host(
+        np.array([[launches.get(k, 0) for k in MH_KERNELS]]))
+    got["seconds"] = pmesh.gather_to_host(np.array([sec]))
+    if rank == 0:
+        np.savez(os.path.join(tmp, "out.npz"), **got)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multihost(wl):
+    """Two processes of this script on cuda:0 joined by init_distributed
+    (gloo: NCCL takes one card a process), each fitting half of MH_VOX
+    flagship voxels with kernels 1-3; what gather_to_host hands rank 0
+    must equal the single-process fit in the same chunks bit for bit.
+    Each process is killed after MH_TIMEOUT s."""
+    import socket
+    import torch
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    torch.cuda.empty_cache()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ms = wl["msinterp"]
+    peaks = wl["peaks"][:MH_VOX].reshape(MH_VOX, 6)
+    with tempfile.TemporaryDirectory() as tmp:
+        ms.save(os.path.join(tmp, "tables.npz"))
+        np.savez(os.path.join(tmp, "inputs.npz"), sch_mat=wl["sch_mat"],
+                 peaks=peaks, y=wl["y"][:MH_VOX], sig_csf=wl["sig_csf"])
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+             str(rank), str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError("multihost: a worker timed out")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        for p, text in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError("multihost worker failed:\n" + text)
+        got = dict(np.load(os.path.join(tmp, "out.npz")))
+    half = MH_VOX // 2
+    _x, ys, _c = ms.device_tables("cuda", torch.float32)
+    ref = fit_mod.run_bucket_fast(ms, wl["plan"], ys, peaks,
+                                  wl["y"][:MH_VOX], wl["sig_csf"], 2, True,
+                                  batch=half)
+    _same("multihost", (got["w"], got["ind"], got["obj"], got["r2"]),
+          ref[:3] + ref[4:])
+    launches = {r: dict(zip(MH_KERNELS, got["launches"][r].tolist()))
+                for r in range(2)}
+    if min(min(v.values()) for v in launches.values()) <= 0:
+        raise AssertionError("multihost: a kernel did not launch in a "
+                             "process: %s" % launches)
+    RECORD["multihost"] = dict(wall_s=wall, launches=launches,
+                               fit_s=got["seconds"].tolist(),
+                               card=card_line())
+    log("multihost: 2 gloo processes on cuda:0, %d voxels each: gathered "
+        "results equal the single-process fit bit for bit; launches a "
+        "process %s; fit %.2f / %.2f s, the phase %.1f s [%s]" % (
+            half, launches[0], got["seconds"][0], got["seconds"][1], wall,
+            card_line()))
+
+
+def phase_examples():
+    """The examples on the card: demo_synthetic (its gates: the first
+    fascicle's d_par exact in the median voxel, median R^2 > 0.999) and
+    exactness_check on EXACT_VOX voxels of 986 atoms (exact fascicle ids
+    with and without EAR, residuals below 1e-9 ||y||^2)."""
+    from microstructure_fingerprinting_torch.examples import (
+        demo_synthetic, exactness_check)
+    rec = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (
+                ("demo_synthetic", lambda: demo_synthetic.main(
+                    ["--device", "cuda", "--out", tmp])),
+                ("exactness_check", lambda: exactness_check.main(
+                    [str(EXACT_VOX), "--device", "cuda"]))):
+            try:
+                out, launches, sec = _counted(run)
+            except SystemExit as e:
+                raise AssertionError("%s: %s" % (name, e))
+            # 128 atoms take the full-grid re-scan; 986 every kernel
+            path = (("rescan3",) if name == "demo_synthetic" else
+                    ("prep_block", "rowmin3", "rescan3", "rowmin4",
+                     "rescan4"))
+            if min(launches.get(k, 0) for k in path) <= 0:
+                raise AssertionError("%s: a kernel of its path did not "
+                                     "launch: %s" % (name, launches))
+            out.pop("files", None)
+            rec[name] = dict(out, launches=launches, seconds=sec)
+            log("example %s: %s; launches %s; %.2f s [%s]" % (
+                name, out, launches, sec, rec["card"]))
+    RECORD["examples"] = rec
+
+
 KERNEL_META = {
     "prep_block": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
     "prep_block_ear": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
@@ -1584,7 +1950,11 @@ def main():
                 cli=phase_cli(wl))),
             ("cli_ear", lambda: RECORD["launches_by_fit"].update(
                 cli_ear=phase_cli(wl, sig_ear))),
-            ("surface", lambda: phase_surface(wl))):
+            ("surface", lambda: phase_surface(wl)),
+            ("mcf", lambda: phase_mcf(wl)),
+            ("mesh", lambda: phase_mesh(wl, sig_ear)),
+            ("multihost", lambda: phase_multihost(wl)),
+            ("examples", phase_examples)):
         t0 = time.time()
         step()
         RECORD.setdefault("phase_s", {})[name] = time.time() - t0
@@ -1606,4 +1976,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -12,6 +12,7 @@ which this package never imports), with its user surface:
                     csf_mask=1, ear_mask=1)
     fit.write_nifti('out.nii.gz')
     mft.mf_utils  # the reference's flat namespace of utilities
+    mft.mcf       # analytic matrix-formalism (MCF) simulators
 
 and the same workflow from the shell: ``python -m
 microstructure_fingerprinting_torch fit|cleanup ...`` (``cli.py``).
@@ -30,8 +31,10 @@ from .tripwire import TripWire, TripWireError, is_tripwire  # noqa: F401
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("cli", "config", "mf_utils", "models", "ops", "testing",
-               "utils", "viz")
+_SUBMODULES = ("cli", "config", "mf_utils", "models", "ops", "parallel",
+               "testing", "utils", "viz")
+#: public module name -> the module
+_MODULES = {"mcf": "models.mcf"}
 #: public name -> the module that defines it
 _NAMES = {"MFModel": "models.mf", "MFModelFit": "models.mf",
           "cleanup_2fascicles": "models.mf", "LAUNCHES": "ops.kernels",
@@ -39,8 +42,9 @@ _NAMES = {"MFModel": "models.mf", "MFModelFit": "models.mf",
 
 
 def __getattr__(name):
-    if name in _SUBMODULES:
-        return importlib.import_module("." + name, __name__)
+    if name in _SUBMODULES or name in _MODULES:
+        return importlib.import_module("." + _MODULES.get(name, name),
+                                       __name__)
     if name in _NAMES:
         module = importlib.import_module("." + _NAMES[name], __name__)
         return getattr(module, name)

@@ -78,8 +78,15 @@ class FitConfig:
     batch: int = 128               # general-path voxel chunk
 
 
+@dataclasses.dataclass(frozen=True)
+class MCFConfig:
+    """Matrix-formalism simulator knobs (reference mcf.py:326)."""
+    max_modes: int = 60            # Laplace eigenbasis truncation
+
+
 DEFAULTS = {
     "cleanup": CleanupConfig(),
     "solver": SolverConfig(),
     "fit": FitConfig(),
+    "mcf": MCFConfig(),
 }

@@ -1,0 +1,17 @@
+"""Runnable examples, each ``python -m
+microstructure_fingerprinting_torch.examples.<name> [n] [--device cpu]``:
+
+  * ``demo_synthetic``: a small noisy 2-fascicle + CSF volume through
+    ``MFModel.fit``, its recovery, its NIfTI maps;
+  * ``exactness_check``: planted atoms of a 986-atom dictionary recovered
+    exactly by ``run_bucket_fast``, with and without EAR;
+  * ``whole_brain``: a whole-brain-sized volume of mixed buckets, its
+    bucket mix and voxels/s on one card and on every card in sight;
+  * ``profile_stages``: device time of each stage of the flagship and
+    EAR chunks (``utils/profiling.StageTimer``);
+  * ``ear_rsweep``: the EAR two-pass scan + finalize at several row
+    budgets R, time and overflow.
+
+Each runs on the card unless ``--device cpu`` is given; its numbers are
+the device's own.
+"""

@@ -29,6 +29,10 @@ re-scored exactly in float64 on the host (``models/refine.py``).
 
 ``run_bucket_trivial`` solves the fascicle-free (CSF and/or EAR) voxels
 in closed form on the host.
+
+``run_bucket_fast`` and ``run_bucket`` take a device mesh
+(``parallel/mesh.py``): whole chunks are dealt to its data rows, so
+every voxel's result is the serial fit's.
 """
 
 import math
@@ -176,9 +180,36 @@ def _scan22_step(D, y):
     return _finalized(D, None, None, y, cand[:, 0], 2, False, False)
 
 
+def _deal(n_pad, batch, n_rows):
+    """Chunk c of ``batch`` voxels runs on data row c % n_rows. Returns
+    each row's share (the voxel indices of its chunks, in order) and, for
+    each chunk, (row, its slice of the row's share)."""
+    n_chunks = n_pad // batch
+    shares = [np.concatenate([np.arange(c * batch, (c + 1) * batch)
+                              for c in range(j, n_chunks, n_rows)])
+              for j in range(min(n_rows, n_chunks))]
+    where = [(c % n_rows, slice((c // n_rows) * batch,
+                                (c // n_rows + 1) * batch))
+             for c in range(n_chunks)]
+    return shares, where
+
+
+def _sharded_step3(devices, D, csf_d, y):
+    """Two fascicles + CSF on one data row of a mesh: the [N, N, 1] df
+    scan with the second block's atoms split over the row's ``devices``
+    (``parallel/mesh.atoms_df3_candidates``) + finalize."""
+    from ..parallel import mesh as pmesh
+    B, S = y.shape
+    csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    with stage("atoms scan", y.device):
+        cand, _v, _ysq = pmesh.atoms_df3_candidates(
+            devices, D[:, 0], D[:, 1], csf_blk, y, M=1)
+    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
+
+
 def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                     K, csf_on, batch=128, rotator=None, sig_ear=None,
-                    ear_on=False):
+                    ear_on=False, mesh=None):
     """One fast-path bucket with fascicles: rotation, exact scan and the
     double-float finalize, in ``batch``-voxel chunks on
     ``tables_ys.device``.
@@ -191,9 +222,20 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     ``twopass_rows`` (``twopass_rows_ear`` with EAR); voxels whose row
     band overflows R are re-solved at 2R (batch ``min(batch, 64)``), then
     at R = N, so exact selection is unconditional. The other buckets
-    scan their whole grid. Returns NumPy (w (n, C), ind (n, C), min_obj,
-    mse, r2), C = K + csf_on + ear_on, in the canonical index layout
-    [fascicles..., csf=0 (with CSF), ie (with EAR)].
+    scan their whole grid.
+
+    With a ``mesh`` (``parallel/mesh.Mesh``) the chunks, and then the
+    overflow batches, are dealt to its data rows in turn, each row's
+    share pushed once and the tables and fixed columns replicated on its
+    device, and every chunk is enqueued before any result is pulled: the
+    chunks are the serial fit's, so every voxel's result is too. Where
+    the mesh's 'atoms' axis is longer than 1 and divides N, the 2
+    fascicles + CSF bucket scans instead with the second block's atoms
+    split over the row (``_sharded_step3``), as in the JAX package.
+
+    Returns NumPy (w (n, C), ind (n, C), min_obj, mse, r2), C = K +
+    csf_on + ear_on, in the canonical index layout [fascicles...,
+    csf=0 (with CSF), ie (with EAR)].
     """
     if K not in (1, 2) or (K == 1 and not csf_on) or (ear_on and not csf_on):
         raise NotImplementedError(
@@ -204,11 +246,16 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     cfg = config.DEFAULTS["solver"]
     rows_R = cfg.twopass_rows_ear if ear_on else cfg.twopass_rows
     n_atom = tables_ys.shape[2]
+    n_at_ax = 1 if mesh is None else mesh.shape["atoms"]
+    sharded = (K == 2 and csf_on and not ear_on and n_at_ax > 1
+               and n_atom % n_at_ax == 0)
     twopass = K == 2 and csf_on and n_atom > 2 * cfg.twopass_rows
     if rotator is None:
         rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
     rotate, perm = rotator
     dev, dt = tables_ys.device, tables_ys.dtype
+    rows = [[dev]] if mesh is None else mesh.devices
+    slots = [row[0] for row in rows]
     n, S = y.shape
     # the rotation emits sequences in group order: permute the signal and
     # the fixed columns alike (every result is permutation-invariant)
@@ -220,21 +267,28 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         ear_d = torch.as_tensor(np.asarray(sig_ear)[perm], dtype=dt,
                                 device=dev)
         E = ear_d.shape[1]
+    # the read-only blocks on every data row's device
+    put = lambda t, d: None if t is None else t.to(d)
+    consts = {d: (tables_ys.to(d), put(csf_d, d), put(ear_d, d))
+              for d in slots}
 
-    def step(D, yy, R):
+    def step(j, D, yy, R):
+        csf_j, ear_j = consts[slots[j]][1:]
         if K == 1:
             if ear_on:
-                return _scan13_step(D, csf_d, ear_d, yy)
-            return _scan12_step(D, csf_d, yy)
+                return _scan13_step(D, csf_j, ear_j, yy)
+            return _scan12_step(D, csf_j, yy)
         if not csf_on:
             return _scan22_step(D, yy)
         if ear_on:
             if R is None:
-                return _onepass_step4(D, csf_d, ear_d, yy)
-            return _twopass_step4(D, csf_d, ear_d, yy, R)
+                return _onepass_step4(D, csf_j, ear_j, yy)
+            return _twopass_step4(D, csf_j, ear_j, yy, R)
+        if sharded:
+            return _sharded_step3(rows[j], D, csf_j, yy)
         if R is None:
-            return _onepass_step3(D, csf_d, yy)
-        return _twopass_step3(D, csf_d, yy, R)
+            return _onepass_step3(D, csf_j, yy)
+        return _twopass_step3(D, csf_j, yy, R)
 
     n_pad = int(math.ceil(n / batch) * batch)
     pk = np.zeros((n_pad, K, 3))
@@ -244,18 +298,26 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     if n_pad > n:  # pad rows replicate voxel 0 to keep the kernels finite
         pk[n:] = pk[0]
         y_all[n:] = y_all[0]
-    pk_d = torch.as_tensor(pk, dtype=dt, device=dev)
-    y_d = torch.as_tensor(y_all, dtype=dt, device=dev)
 
-    def rotated(pk_c):
-        with stage("rotation", dev):
-            return rotate(tables_ys, pk_c)
+    def pushed(idx, j):
+        """Directions and signals of the voxels ``idx`` on row j."""
+        return (torch.as_tensor(pk[idx], dtype=dt, device=slots[j]),
+                torch.as_tensor(y_all[idx], dtype=dt, device=slots[j]))
 
-    outs = []
-    for st in range(0, n_pad, batch):
-        outs.append(step(rotated(pk_d[st:st + batch]),
-                         y_d[st:st + batch], rows_R if twopass else None))
-    cand, w, obj, r2, ok = (torch.cat(x)[:n] for x in zip(*outs))
+    def solved(j, pk_c, yy, R):
+        with stage("rotation", slots[j]):
+            D = rotate(consts[slots[j]][0], pk_c)
+        return step(j, D, yy, R)
+
+    # each row's chunks pushed at once, every chunk enqueued before a pull
+    n_rows = len(slots)
+    shares, where = _deal(n_pad, batch, n_rows)
+    pushes = [pushed(idx, j) for j, idx in enumerate(shares)]
+    outs = [solved(j, pushes[j][0][sl], pushes[j][1][sl],
+                   rows_R if twopass and not sharded else None)
+            for j, sl in where]
+    cand, w, obj, r2, ok = (torch.cat([t.to(dev) for t in x])[:n]
+                            for x in zip(*outs))
 
     bad = torch.nonzero(~ok).flatten().cpu().numpy()
     if bad.size:
@@ -264,19 +326,20 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         fb = min(batch, 64)
         tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
         for R in tiers:
-            still = []
-            for st in range(0, bad.size, fb):
-                sel = bad[st:st + fb]
+            sels = [bad[st:st + fb] for st in range(0, bad.size, fb)]
+            res = []
+            for i, sel in enumerate(sels):
                 idx = np.concatenate([sel, np.full(fb - sel.size, sel[0])])
-                idx_d = torch.as_tensor(idx, device=dev)
-                c_f, w_f, o_f, r_f, ok_f = step(rotated(pk_d[idx_d]),
-                                                y_d[idx_d], R)
+                res.append(solved(i % n_rows, *pushed(idx, i % n_rows), R))
+            still = []
+            for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
                 m = sel.size
                 good = ok_f[:m].cpu().numpy() | (R == n_atom)
                 done = torch.as_tensor(sel[good], device=dev)
-                keep = torch.as_tensor(np.flatnonzero(good), device=dev)
-                cand[done], w[done] = c_f[keep], w_f[keep]
-                obj[done], r2[done] = o_f[keep], r_f[keep]
+                keep = torch.as_tensor(np.flatnonzero(good),
+                                       device=c_f.device)
+                cand[done], w[done] = c_f[keep].to(dev), w_f[keep].to(dev)
+                obj[done], r2[done] = o_f[keep].to(dev), r_f[keep].to(dev)
                 still.extend(sel[~good])
             bad = np.asarray(still, dtype=np.int64)
             if not bad.size:
@@ -448,7 +511,8 @@ def fit_step_candidates(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
 
 def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
                K, csf_on, ear_on, batch=128, dtype=None,
-               refine=False, ms_host=None, plan_host=None, topm=8):
+               refine=False, ms_host=None, plan_host=None, topm=8,
+               mesh=None):
     """Run the general path's fit step over a bucket of voxels in
     ``batch``-voxel chunks on the tables' device.
 
@@ -460,19 +524,24 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
     and pad rows replicate voxel 0. With ``refine`` the scan keeps its
     ``topm`` best candidates per voxel and the float64 host re-scorer
     picks among them (``ms_host``, ``plan_host``: the host tables and
-    plan). Returns NumPy (w, ind, min_obj, mse, r2); objectives are
+    plan). With a ``mesh`` the chunks are dealt to its data rows in
+    turn, tables, plan and fixed columns replicated on each row's device
+    (as in ``run_bucket_fast``: every voxel's result is the serial
+    fit's). Returns NumPy (w, ind, min_obj, mse, r2); objectives are
     clipped at 0.
     """
-    xs, ys, cnt = tables
-    dev = ys.device
+    dev = tables[1].device
     if dtype is None:
-        dtype = xs.dtype
+        dtype = tables[0].dtype
     n, S = y.shape
+    slots = [dev] if mesh is None else mesh.data_devices
     sig_csf_d = torch.as_tensor(sig_csf if csf_on else np.zeros(S),
                                 dtype=dtype, device=dev)
     sig_ear_d = torch.as_tensor(sig_ear if ear_on else np.zeros((S, 1)),
                                 dtype=dtype, device=dev)
-    gdir, lo, hi, wG = plan
+    # the read-only tables, plan and fixed columns on each row's device
+    consts = {d: tuple(t.to(d) for t in tuple(tables) + tuple(plan)
+                       + (sig_csf_d, sig_ear_d)) for d in slots}
 
     n_pad = int(math.ceil(n / batch) * batch)
     # float64 peaks for the host refine; the device copy in the scan dtype
@@ -484,20 +553,25 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
     if n_pad > n:  # pad rows replicate voxel 0 to keep the scans NaN-free
         pk64[n:] = pk64[0]
         y_all[n:] = y_all[0]
-    pk_d_all = torch.as_tensor(pk64[:, :K], dtype=dtype, device=dev)
-    y_d_all = torch.as_tensor(y_all, dtype=dtype, device=dev)
+    # each row's chunks pushed at once
+    shares, where = _deal(n_pad, batch, len(slots))
+    pushes = [(torch.as_tensor(pk64[idx, :K], dtype=dtype, device=slots[j]),
+               torch.as_tensor(y_all[idx], dtype=dtype, device=slots[j]))
+              for j, idx in enumerate(shares)]
 
     step = fit_step_candidates if refine else fit_step
     extra = dict(M=topm) if refine else {}
-    chunks = [step(xs, ys, cnt, gdir, lo, hi, wG,
-                   pk_d_all[st:st + batch], y_d_all[st:st + batch],
-                   sig_csf_d, sig_ear_d, K=K, csf_on=bool(csf_on),
-                   ear_on=bool(ear_on), **extra)
-              for st in range(0, n_pad, batch)]
+    chunks = []
+    for j, sl in where:
+        xs, ys, cnt, gdir, lo, hi, wG, csf_j, ear_j = consts[slots[j]]
+        chunks.append(step(xs, ys, cnt, gdir, lo, hi, wG,
+                           pushes[j][0][sl], pushes[j][1][sl], csf_j, ear_j,
+                           K=K, csf_on=bool(csf_on), ear_on=bool(ear_on),
+                           **extra))
 
     if refine:
         # float32 device scan -> top-M candidates -> exact float64 re-score
-        cand = torch.cat(chunks).cpu().numpy()[:n]
+        cand = torch.cat([c.to(dev) for c in chunks]).cpu().numpy()[:n]
         y64 = np.asarray(y, dtype=np.float64)
         w_b, ind_b, obj_b, y_rec = refine_mod.refine_candidates(
             ms_host, plan_host, pk64[:n, :K], y64,
@@ -507,7 +581,7 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
         obj_b = np.maximum(obj_b, 0.0)   # never report a negative residual
         return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
 
-    stacked = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()[:n]
+    stacked = {k: torch.cat([c[k].to(dev) for c in chunks]).cpu().numpy()[:n]
                for k in ("w", "ind", "min_obj", "mse", "r2")}
     return (stacked["w"], stacked["ind"],
             np.maximum(stacked["min_obj"], 0.0),

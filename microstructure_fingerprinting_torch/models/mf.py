@@ -19,6 +19,10 @@ pairs or diffusion tensors), groups masked voxels by configuration
     (``refine``, on by default);
   * CSF and/or EAR only: ``fit.run_bucket_trivial`` (closed form, host
     float64).
+
+``parallel=True`` spreads the buckets with fascicles over a device mesh
+(``parallel/mesh.py``): every card in sight by default, or the
+``mesh_shape=(n_data, n_atoms)`` grid.
 """
 
 import os
@@ -36,8 +40,6 @@ from ..utils import nifti
 from ..utils import scheme as schm
 from ..utils.profiling import stage
 from . import fit as fit_mod
-
-_ROADMAP = "see ROADMAP.md, Queue 1, item %s"
 
 
 def cleanup_2fascicles(frac1, frac2, peakmode, mu1, mu2, mask, frac12=None):
@@ -245,6 +247,26 @@ class MFModel(object):
             self._rotators[key] = rot
         return rot
 
+    @staticmethod
+    def _mesh(dev, mesh_shape):
+        """The mesh of ``fit(parallel=True)`` on ``dev``'s kind of device,
+        or None where it would hold one slot."""
+        from ..parallel import mesh as pmesh
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if mesh_shape is None:
+            n_data, n_atoms = n_dev, 1
+        else:
+            n_data, n_atoms = (int(x) for x in mesh_shape)
+        n_slot = n_data * n_atoms
+        if n_slot == 1:
+            return None
+        if n_slot < 1 or n_slot % n_dev:
+            raise ValueError("mesh shape %dx%d does not fill %d devices"
+                             % (n_data, n_atoms, n_dev))
+        devices = [torch.device(dev.type, i % n_dev) if dev.type == "cuda"
+                   else dev for i in range(n_slot)]
+        return pmesh.build_mesh(n_data, n_atoms, devices=devices)
+
     def _propnames(self):
         raw = self.dic.get("fasc_propnames", [])
         if isinstance(raw, str):
@@ -276,9 +298,18 @@ class MFModel(object):
         accelerator in the JAX package, and ``refine=False`` takes the
         float32 scan's winner. ``batch_size`` is the voxel chunk: 512 on
         the fast path and ``FitConfig.batch`` (128) on the general path
-        by default. A ``mesh_shape`` of more than one device and
-        ``parallel=True`` on several devices raise
-        ``NotImplementedError``. Returns an :class:`MFModelFit`.
+        by default. ``parallel=True`` fits on a (data, atoms) device
+        mesh (``parallel/mesh.py``): ``mesh_shape=(n_data, n_atoms)``,
+        or one data slot per card in sight; its chunks are dealt to the
+        data slots and every voxel's result is the serial fit's (with an
+        atoms axis, the 2 fascicles + CSF bucket splits its scan's atoms
+        over it). Slot i of the row-major grid lies on card i modulo the
+        cards in sight (on the CPU with ``device="cpu"``), so a grid
+        larger than the cards runs several slots on one card in turn.
+        As in the JAX package, ``mesh_shape`` needs ``parallel=True``,
+        the chunk becomes a multiple of ``n_data``, and ``parallel=True``
+        on one device with no grid of several slots fits as
+        ``parallel=False``. Returns an :class:`MFModelFit`.
         """
         if engine not in ("auto", "fast", "pallas", "xla"):
             raise ValueError("engine should be 'auto', 'fast' (alias "
@@ -288,14 +319,7 @@ class MFModel(object):
             # selection on the general path needs the host re-score
             refine = True
         dev = config.resolve_device(device or self.device)
-        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-        if (parallel and n_dev > 1) or (
-                mesh_shape is not None
-                and int(np.prod([int(x) for x in mesh_shape])) != 1):
-            raise NotImplementedError(
-                "fits sharded over several devices (parallel=True on %d "
-                "devices, mesh_shape=%r): " % (n_dev, mesh_shape)
-                + _ROADMAP % 6)
+        mesh = self._mesh(dev, mesh_shape) if parallel else None
         VRB = verbose
         nii_affine = None
 
@@ -446,10 +470,19 @@ class MFModel(object):
         i_mse = 2 * maxfasc + csf_on + 2 * ear_on + 1
         i_r2 = i_mse + 1
 
+        fast_batch = batch_size or 512
+        general_batch = batch_size or config.DEFAULTS["fit"].batch
+        if mesh is not None:  # chunks a multiple of the data axis
+            n_data = mesh.shape["data"]
+            fast_batch = max(fast_batch // n_data, 1) * n_data
+            general_batch = max(general_batch // n_data, 1) * n_data
         st_est = time.time()
         if VRB >= 2:
-            print("Starting estimation in %d voxel(s) in batched mode."
-                  % ROI_size)
+            print("Starting estimation in %d voxel(s) in %s mode." %
+                  (ROI_size,
+                   "device-parallel (%d devices)"
+                   % (mesh.shape["data"] * mesh.shape["atoms"])
+                   if mesh is not None else "batched"))
         bad_vox = checks.check_finite_signals(y_roi)
         if bad_vox.any() and VRB >= 1:
             print("WARNING: %d masked voxel(s) contain NaN/Inf signal "
@@ -513,17 +546,16 @@ class MFModel(object):
                         w, ind, obj, mse, r2 = fit_mod.run_bucket_fast(
                             self.ms_interpolator, plan_h, tables[1],
                             peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
-                            has_csf, batch=batch_size or 512,
-                            rotator=rotator, sig_ear=sig_ear,
-                            ear_on=has_ear)
+                            has_csf, batch=fast_batch, rotator=rotator,
+                            sig_ear=sig_ear, ear_on=has_ear, mesh=mesh)
                     else:
                         w, ind, obj, mse, r2 = fit_mod.run_bucket(
                             tables, plan, peaks_roi[idx, :3 * K],
                             y_roi[idx], sig_csf, sig_ear, K, has_csf,
                             has_ear,
-                            batch=batch_size or config.DEFAULTS["fit"].batch,
-                            refine=refine, ms_host=self.ms_interpolator,
-                            plan_host=plan_h, topm=topm)
+                            batch=general_batch, refine=refine,
+                            ms_host=self.ms_interpolator, plan_host=plan_h,
+                            topm=topm, mesh=mesh)
             if VRB >= 2:
                 print("Bucket K=%d csf=%d ear=%d (%d voxels) pulled in "
                       "%g second(s)." % (K, has_csf, has_ear, idx.size,

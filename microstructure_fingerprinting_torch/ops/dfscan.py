@@ -9,7 +9,9 @@ buckets run:
   * ``df_gram`` / ``df_gram_tile``: exact-product Grams combined
     error-free into (hi, lo) pairs;
   * ``df2_candidates``: the [N1, N2] scan of one fascicle + CSF and of
-    two fascicles without CSF, in plain torch as the JAX package runs it
+    two fascicles without CSF, and ``df3_candidates``, the [N1, N2, 1]
+    scan that is the local scan of the atoms-axis sharded scan
+    (``parallel/mesh.py``), in plain torch as the JAX package runs them
     in plain XLA;
   * the df helpers and ``_two_var_cases`` shared with the re-scans
     (``ops/rescan.py``), and the 4-block sub-support residuals
@@ -177,6 +179,167 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
         res, _ = _two_var_cases(num12 / det12, w1D, w2D, ptf, qcf,
                                 res1_row[:, sl, None], res2_col[:, None, :],
                                 wf)
+        i1 = torch.arange(st, st + tile, device=y.device)[:, None]
+        res = torch.where(i1 < N1, res, math.inf)
+        gflat = (i1 * N2 + i2[None, :]).reshape(1, -1)
+        tv, tf = mfn._tile_topm(res.reshape(B, -1), gflat, M)
+        vals, flats = mfn._merge_topm(vals, flats, tv, tf, M)
+    cand = torch.stack([flats // N2, flats % N2], dim=2).to(torch.int32)
+    return cand, vals, yn * yn
+
+
+def df3_candidates(A1, A2, a3, y, M=8, tile=256):
+    """Top-M candidates for [N1, N2, 1] with double-float selection: the
+    supports {1, 2, 3} (a compensated bordered 4x4 determinant, Cramer
+    signs of df accuracy, the ``_TOL_DET`` floor) and the fallback chain
+    {1, 2}, {1, 3}, {2, 3} of the reference (mf_utils.py:548-593), in
+    plain torch as the JAX package runs it in plain XLA. It is the exact
+    top-M of the whole grid in first-minimum order (kernel 3 keeps a
+    champion per row and segment instead), so it is the local scan of
+    ``parallel/mesh.sharded_df3_candidates``.
+
+    A1 (B, S, N1), A2 (B, S, N2), a3 (B, S, 1), y (B, S); the N1 axis in
+    ``tile``-atom tiles, merged in the order of the flat rank i1 * N2 +
+    i2 as in ``df2_candidates``. Returns (cand (B, M, 2) int32 [i1, i2],
+    res (B, M) residuals of the normalized problem, y_sq (B,) raw
+    ||y||^2)."""
+    B, S, N1 = A1.shape
+    N2 = A2.shape[2]
+    A1p, _ = mfn._pad_cols(A1.float(), tile)
+    A1h, _an1 = mfn._normalize_block(A1p)
+    A2h, _an2 = mfn._normalize_block(A2.float())
+    A3h, _an3 = mfn._normalize_block(a3.float())
+    yh, yn, _ys = mfn._normalize_y(y.float())
+    N1p = A1h.shape[2]
+    tile = min(tile, N1p)
+
+    qA1 = quantize2(A1h)
+    qA2 = quantize2(A2h)
+    qA3 = quantize2(A3h)
+    qy = quantize2(yh)
+    vec, diag = "bsn,bs->bn", "bsn,bsn->bn"
+    d1 = df_gram(qA1, qA1, diag)                   # (B, N1p) df
+    d2 = df_gram(qA2, qA2, diag)
+    d3 = df_gram(qA3, qA3, diag)                   # (B, 1)
+    p_ = df_gram(qA1, qy, vec)                     # Y1 (B, N1p)
+    q_ = df_gram(qA2, qy, vec)                     # Y2 (B, N2)
+    r_ = df_gram(qA3, qy, vec)                     # Y3 (B, 1)
+    b_ = df_gram(qA1, qA3, "bsn,bsm->bn")          # g13 (B, N1p)
+    c_ = df_gram(qA2, qA3, "bsn,bsm->bn")          # g23 (B, N2)
+    w_ = df_gram(qy, qy, "bs,bs->b")               # y'y (B,)
+    w_ = (w_[0][:, None], w_[1][:, None])
+
+    # ---- voxel scalars ----
+    C2v = _add(_mul(r_, r_), _neg(_mul(d3, w_)))       # r^2 - d3 w
+    d3w_r2 = _neg(C2v)                                 # d3 w - r^2
+    res3_only = _val(w_) - _val(r_) ** 2 / _val(d3)
+
+    # ---- per-row (i1) df factors ----
+    Rb2 = _mul(b_, b_)
+    Rbp = _mul(b_, p_)
+    Rp2 = _mul(p_, p_)
+    res1_row = _val(_add(_mul(d1, w_), _neg(Rp2))) / _val(d1)
+    det13 = _add(_mul(d1, d3), _neg(_mul(b_, b_)))
+    num13 = _accumulate([
+        _mul(_mul(d1, d3), w_), _neg(_mul(_mul(d1, r_), r_)),
+        _neg(_mul(Rb2, w_)), _scale(_mul(_mul(b_, p_), r_), 2.0),
+        _neg(_mul(d3, Rp2))])
+    w1D_13 = _accumulate([_mul(d3, p_), _neg(_mul(b_, r_))])
+    w2D_13 = _accumulate([_mul(d1, r_), _neg(_mul(b_, p_))])
+    res13_row, _ = _two_var_cases(
+        num13 / _val(det13), w1D_13, w2D_13, _val(p_), _val(r_),
+        res1_row, res3_only, _val(w_))
+
+    # ---- per-column (i2) df factors ----
+    Cq2 = _mul(q_, q_)
+    Cc2 = _mul(c_, c_)
+    Ccq = _mul(c_, q_)
+    U1 = _add(Cq2, _neg(_mul(d2, w_)))                 # q^2 - d2 w
+    U2 = _scale(_add(_mul(d2, r_), _neg(Ccq)), 2.0)    # 2 (d2 r - c q)
+    U3 = _add(_mul(d2, d3w_r2), _neg(_mul(d3, Cq2)),
+              _scale(_mul(Ccq, r_), 2.0), _neg(_mul(Cc2, w_)))
+    U4 = _add(Cc2, _neg(_mul(d2, d3)))                 # c^2 - d2 d3
+    V1 = _scale(_add(_mul(c_, w_), _neg(_mul(q_, r_))), 2.0)
+    V2 = _scale(_add(_mul(d3, q_), _neg(_mul(c_, r_))), 2.0)
+    res2_col = _val(_add(_mul(d2, w_), _neg(Cq2))) / _val(d2)
+    det23 = _add(_mul(d2, d3), _neg(Cc2))
+    num23 = _accumulate([
+        _mul(_mul(d2, d3), w_), _neg(_mul(_mul(d2, r_), r_)),
+        _neg(_mul(Cc2, w_)), _scale(_mul(Ccq, r_), 2.0),
+        _neg(_mul(d3, Cq2))])
+    w1D_23 = _accumulate([_mul(d3, q_), _neg(_mul(c_, r_))])
+    w2D_23 = _accumulate([_mul(d2, r_), _neg(_mul(c_, q_))])
+    res23_col, _ = _two_var_cases(
+        num23 / _val(det23), w1D_23, w2D_23, _val(q_), _val(r_),
+        res2_col, res3_only, _val(w_))
+
+    wf = _val(w_)[:, :, None]
+    cold = lambda x: (x[0][:, None, :], x[1][:, None, :])
+    vox = lambda x: (x[0][:, :, None], x[1][:, :, None])
+    d2c, cc, qc = cold(d2), cold(c_), cold(q_)
+    U1c, U2c, U3c, U4c = cold(U1), cold(U2), cold(U3), cold(U4)
+    V1c, V2c = cold(V1), cold(V2)
+    det23c = cold(det23)
+    wv, rv, d3vv, C2vv = vox(w_), vox(r_), vox(d3), vox(C2v)
+    qcf = _val(qc)
+    r23c = res23_col[:, None, :]
+    i2 = torch.arange(N2, device=y.device)
+
+    vals = torch.full((B, M), math.inf, device=y.device)
+    flats = torch.zeros((B, M), dtype=torch.int32, device=y.device)
+    for st in range(0, N1p, tile):
+        sl = slice(st, st + tile)
+        rowd = lambda x: (x[0][:, sl, None], x[1][:, sl, None])
+        aa = df_gram_tile(tuple(x[:, :, sl] for x in qA1), qA2, N2)
+        d1t, bt, pt = rowd(d1), rowd(b_), rowd(p_)
+        Rb2t, Rbpt, Rp2t = rowd(Rb2), rowd(Rbp), rowd(Rp2)
+
+        # ---- support {1,2,3}: bordered 4x4 det, compensated ----
+        qaa = _mul(aa, aa)
+        det4 = _accumulate([
+            _mul(Rb2t, U1c), _mul(Rbpt, U2c), _mul(d1t, U3c),
+            _mul(Rp2t, U4c),
+            _mul(aa, _add(_mul(bt, V1c), _mul(pt, V2c))),
+            _mul(qaa, C2vv)])
+        btcc = _mul(bt, cc)
+        Zac = _add(_mul(aa, d3vv), _neg(btcc))         # a d3 - b c
+        Wac = _add(_mul(aa, cc), _neg(_mul(d2c, bt)))  # a c - d2 b
+        Vg = _add(_mul(d1t, cc), _neg(_mul(bt, aa)))   # d1 c - b a
+        detG3a = _accumulate([
+            _mul(d1t, det23c), _neg(_mul(qaa, d3vv)),
+            _scale(_mul(aa, btcc), 2.0), _neg(_mul(Rb2t, d2c))])
+        ok3 = detG3a > _TOL_DET
+        res123 = torch.where(ok3, det4 / torch.where(ok3, detG3a, 1.0),
+                             math.inf)
+        # full-support feasibility: Cramer numerator signs, df-accurate
+        D1 = _accumulate([_mul(pt, det23c), _neg(_mul(qc, Zac)),
+                          _mul(rv, Wac)])
+        D2 = _accumulate([_neg(_mul(pt, Zac)), _mul(qc, rowd(det13)),
+                          _neg(_mul(rv, Vg))])
+        D3 = _accumulate([_mul(pt, Wac), _neg(_mul(qc, Vg)),
+                          _mul(rv, _add(_mul(d1t, d2c), _neg(qaa)))])
+        full = (D1 >= -_TOL_DET) & (D2 >= -_TOL_DET) & (D3 >= -_TOL_DET)
+
+        # ---- support {1,2}: bordered 3x3 det, compensated ----
+        num12 = _accumulate([
+            _mul(d1t, _add(_mul(d2c, wv), _neg(_mul(qc, qc)))),
+            _neg(_mul(Rp2t, d2c)),
+            _scale(_mul(aa, _mul(pt, qc)), 2.0),
+            _neg(_mul(_mul(aa, aa), wv))])
+        det12 = _accumulate([_mul(d1t, d2c), _neg(qaa)])
+        w1D_12 = _accumulate([_mul(d2c, pt), _neg(_mul(aa, qc))])
+        w2D_12 = _accumulate([_mul(d1t, qc), _neg(_mul(aa, pt))])
+        res12, _ = _two_var_cases(num12 / det12, w1D_12, w2D_12, _val(pt),
+                                  qcf, res1_row[:, sl, None],
+                                  res2_col[:, None, :], wf)
+
+        # fallback chain (reference priority: 12, then 13, then 23)
+        res13_t = res13_row[:, sl, None].expand_as(res12)
+        fb = torch.where(res13_t < res12, res13_t, res12)
+        r23 = r23c.expand_as(fb)
+        fb = torch.where(r23 < fb, r23, fb)
+
+        res = torch.where(full, _sanit(res123), fb)
         i1 = torch.arange(st, st + tile, device=y.device)[:, None]
         res = torch.where(i1 < N1, res, math.inf)
         gflat = (i1 * N2 + i2[None, :]).reshape(1, -1)

@@ -177,22 +177,34 @@ def check(t, dtype, shape, name):
         raise ValueError("%s must be contiguous" % name)
 
 
+def operand_device(args):
+    """The one device of the tensors among ``args``; raises when they
+    span devices (a launch runs on one card) or there is none."""
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError("kernel operands must lie on one device, got %s"
+                         % sorted(str(d) for d in devs))
+    return devs.pop()
+
+
 def launch(name, *args):
-    """Launch kernel ``name`` on the current stream; raises on a launch
-    error and counts the launch."""
+    """Launch kernel ``name`` on the current stream of its operands'
+    device, with that device current (the launchers run on the calling
+    thread's current device); raises on a launch error or on operands
+    that span devices, and counts the launch."""
     cname, kinds = _SIGNATURES[name]
     if len(args) != len(kinds):
         raise TypeError("%s takes %d arguments" % (name, len(kinds)))
+    dev = operand_device(args)
     conv = []
     for kind, a in zip(kinds, args):
         if kind == "p":
             conv.append(None if a is None else a.data_ptr())
         else:
             conv.append(int(a) if kind == "i" else float(a))
-    stream = torch.cuda.current_stream().cuda_stream
     fn = getattr(library(), cname)
-    with stage("kernel " + name, "cuda"):
-        err = fn(*conv, stream)
+    with torch.cuda.device(dev), stage("kernel " + name, dev):
+        err = fn(*conv, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
     LAUNCHES[name] += 1

@@ -6,7 +6,8 @@ HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
 fingerprint dictionary (zeppelins with per-atom diffusivities), and the
 flagship 2-fascicle + CSF fit workload, whose noiseless signals are
 synthesized through this package's grouped rotation, its EAR
-(UK-Biobank) variant, and volumes that mix buckets. The
+(UK-Biobank) variant, volumes that mix buckets, and a DDE scheme for
+the MCF simulators. The
 random draws of the workload are the JAX package's, in the same order,
 for the same seed.
 """
@@ -85,6 +86,27 @@ def make_dense_scheme(n_shells=8, dirs_per_shell=64, n_b0=40,
         sh[:, 4:7] = [Delta, delta, TE]
         rows.append(sh)
     return np.concatenate(rows, axis=0)
+
+
+def make_dde_scheme(n, seed=0):
+    """A double-diffusion-encoding scheme of n rows (14 columns, the
+    layout of ``models/mcf.import_DDE_scheme``): random unit gradient
+    pairs, G up to 0.08 T/m, Delta >= delta in each block, TE 10 ms above
+    the total diffusion time; the first row has no gradient."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(n, 2, 3)
+    g /= np.linalg.norm(g, axis=2, keepdims=True)
+    sch = np.zeros((n, 14))
+    sch[:, 0:3], sch[:, 7:10] = g[:, 0], g[:, 1]
+    sch[:, 3], sch[:, 10] = rng.uniform(0, 0.08, (2, n))
+    sch[0, 3] = sch[0, 10] = 0.0
+    sch[:, 5], sch[:, 12] = rng.uniform(0.003, 0.008, (2, n))
+    sch[:, 4] = sch[:, 5] + rng.uniform(0.005, 0.02, n)
+    sch[:, 11] = sch[:, 12] + rng.uniform(0.005, 0.02, n)
+    sch[:, 6] = rng.uniform(0.0, 0.03, n)
+    sch[:, 13] = (sch[:, 4] + sch[:, 5] + sch[:, 6] + sch[:, 11]
+                  + sch[:, 12] + 0.01)
+    return sch
 
 
 def make_dictionary(sch_mat, num_atom=782, seed=0):

@@ -21,6 +21,11 @@ import torch
 _ACTIVE = []
 
 
+def _synchronize():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 class StageTimer:
     """Collects (stage, start event, end event, enclosing stage) while
     active."""
@@ -37,8 +42,9 @@ class StageTimer:
         _ACTIVE.remove(self)
 
     def totals_ms(self):
-        """Milliseconds per stage, summed over its regions (synchronizes)."""
-        torch.cuda.synchronize()
+        """Milliseconds per stage, summed over its regions (synchronizes
+        every card)."""
+        _synchronize()
         out = {}
         for name, s, e, _parent in self.events:
             out[name] = out.get(name, 0.0) + s.elapsed_time(e)
@@ -46,8 +52,8 @@ class StageTimer:
 
     def inside(self, parent):
         """{stage: (milliseconds, regions)} of the regions opened directly
-        inside a region of stage ``parent`` (synchronizes)."""
-        torch.cuda.synchronize()
+        inside a region of stage ``parent`` (synchronizes every card)."""
+        _synchronize()
         out = {}
         for name, s, e, p in self.events:
             if p == parent:
@@ -58,20 +64,24 @@ class StageTimer:
 
 @contextlib.contextmanager
 def stage(name, device):
-    if not _ACTIVE or torch.device(device).type != "cuda":
+    """A region of stage ``name`` on ``device``: timed, under a
+    ``StageTimer``, on that device's current stream."""
+    dev = torch.device(device)
+    if not _ACTIVE or dev.type != "cuda":
         yield
         return
+    stream = torch.cuda.current_stream(dev)
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     timer = _ACTIVE[-1]
     parent = timer.open[-1] if timer.open else None
     timer.open.append(name)
-    s.record()
+    s.record(stream)
     try:
         yield
     finally:
         timer.open.pop()
-    e.record()
+    e.record(stream)
     timer.events.append((name, s, e, parent))
 
 

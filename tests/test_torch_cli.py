@@ -114,8 +114,9 @@ def test_cli_fit_golden(tmp_path, scheme):
 @pytest.mark.parametrize("case", ["no_cuda", "parallel"])
 def test_cli_fit_device_contract(tmp_path, monkeypatch, case):
     """Without --device the fit runs on the card: it raises when CUDA is
-    absent (no CPU fallback); --parallel with several devices raises
-    NotImplementedError."""
+    absent (no CPU fallback); --parallel with several devices in sight
+    asks MFModel.fit for the device-parallel fit (a stub of the fit
+    raises there, as this machine has no card)."""
     _g, args, _aff = _golden_files(tmp_path, "pgse_scheme")
     args += ["--out", str(tmp_path / "mf.nii.gz"), "--verbose", "0"]
     if case == "no_cuda":
@@ -125,8 +126,17 @@ def test_cli_fit_device_contract(tmp_path, monkeypatch, case):
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="several devices"):
+        asked = []
+
+        def stub(self, *a, **k):
+            asked.append(k)
+            raise RuntimeError("several devices: stub")
+
+        from microstructure_fingerprinting_torch.models import mf as tmf
+        monkeypatch.setattr(tmf.MFModel, "fit", stub)
+        with pytest.raises(RuntimeError, match="several devices"):
             tcli.main(args + ["--parallel"])
+        assert len(asked) == 1 and asked[0]["parallel"] is True
     assert not (tmp_path / "mf_M0.nii.gz").exists()
 
 

@@ -1,0 +1,96 @@
+"""The port's examples (``microstructure_fingerprinting_torch/examples``),
+each ``main`` at a tiny size on the CPU, with the gates each example
+holds (exact planted atoms, R^2), and their imports."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from microstructure_fingerprinting_torch.examples import (
+    demo_synthetic, ear_rsweep, exactness_check, profile_stages,
+    whole_brain)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+torch.set_num_threads(2)
+
+
+def test_demo_synthetic(tmp_path, capsys):
+    """The demo's 32 noisy voxels: the first fascicle's d_par exact in the
+    median voxel, median R^2 above 0.999, 14 maps written."""
+    out = demo_synthetic.main(["--device", "cpu", "--batch", "32",
+                               "--out", str(tmp_path)])
+    assert out["median_dpar_err"] == 0.0 and out["median_r2"] > 0.999
+    assert len(out["files"]) == 14
+    assert all(os.path.isfile(f) for f in out["files"])
+    assert "median R^2" in capsys.readouterr().out
+
+
+def test_exactness_check():
+    """Planted atoms of a 64-atom dictionary on the 552-sequence protocol:
+    fascicle ids exact with and without EAR, residuals below 1e-9
+    ||y||^2."""
+    out = exactness_check.main(["4", "--atoms", "64", "--device", "cpu"])
+    for name in ("2fasc+CSF", "2fasc+CSF+EAR"):
+        assert out[name]["ids_exact"] == 4
+        assert out[name]["max_res"] < 1e-9
+
+
+def test_whole_brain():
+    """64 voxels of the five buckets (64 atoms, chunks of 16): both fits
+    (one device, parallel=True) run, every 2-fascicle voxel's d_par
+    exact, median R^2 1."""
+    out = whole_brain.main(["64", "--atoms", "64", "--device", "cpu",
+                            "--batch", "16"])
+    assert sum(out["mix"].values()) == 64 and len(out["mix"]) == 5
+    assert out["dpar_f0_exact"] == 1.0
+    assert out["r2_median"] > 1 - 1e-6
+    assert all(k in out for k in ("one device",
+                                  "parallel=True, 1 device(s)"))
+
+
+def test_profile_stages(capsys):
+    """Two-voxel flagship and EAR chunks at 300 atoms (the two-pass
+    scans): each reports its wall time; stages are CUDA-only."""
+    out = profile_stages.main(["2", "--atoms", "300", "--reps", "1",
+                               "--device", "cpu"])
+    assert set(out) == {"flagship", "EAR"}
+    assert all(v["wall_ms"] > 0 and v["stages_ms"] == {}
+               for v in out.values())
+    assert "timed on CUDA devices only" in capsys.readouterr().out
+
+
+def test_ear_rsweep():
+    """Two row budgets on a two-voxel EAR chunk at 300 atoms: a time and
+    an overflow count each, and the larger budget overflows no more."""
+    out = ear_rsweep.main(["2", "--atoms", "300", "--rows", "64", "128",
+                           "--reps", "1", "--device", "cpu"])
+    assert set(out) == {64, 128}
+    assert all(v["ms"] > 0 and 0 <= v["overflow"] <= 2
+               for v in out.values())
+    assert out[128]["overflow"] <= out[64]["overflow"]
+
+
+@pytest.mark.parametrize("name", ["demo_synthetic", "exactness_check",
+                                  "whole_brain", "profile_stages",
+                                  "ear_rsweep"])
+def test_example_runs_as_module(name):
+    """``python -m microstructure_fingerprinting_torch.examples.<name>
+    --help`` runs, importing no JAX and nothing of the JAX package."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['%s', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('microstructure_fingerprinting_torch."
+            "examples.%s', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'microstructure_fingerprinting_tpu'))))\n"
+            % (name, name))
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--device" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "[]"

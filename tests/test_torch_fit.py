@@ -181,9 +181,10 @@ def test_model_fit_unported_buckets_raise():
     fit (each bucket is held against the JAX package in
     tests/test_torch_general.py): one fascicle without CSF, with the maps
     of ``run_bucket`` on its voxels; an EAR block of more than 16 atoms,
-    with and without CSF. What stays unported raises NotImplementedError
-    naming its ROADMAP item (a mesh of two devices), and CUDA asked for
-    without a card raises."""
+    with and without CSF. A mesh of two slots, which raised before it
+    was ported, fits as the serial fit does (tests/test_torch_mesh.py
+    holds meshes against the JAX package), and CUDA asked for without a
+    card raises."""
     dic, data, mask, numfasc, peaks, wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], verbose=0,
@@ -209,9 +210,11 @@ def test_model_fit_unported_buckets_raise():
         fit = ear.fit(data, mask, numfasc, csf_mask=csf, ear_mask=1, **kw)
         assert {"frac_ear", "D_ear"} <= set(fit.param_names)
         assert np.all(np.isfinite(fit.MSE)) and np.all(fit.MSE >= 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(data, mask, numfasc, csf_mask=1, parallel=True,
-                  mesh_shape=(2, 1), **kw)
+    ser = model.fit(data, mask, numfasc, csf_mask=1, **kw)
+    par = model.fit(data, mask, numfasc, csf_mask=1, parallel=True,
+                    mesh_shape=(2, 1), **kw)
+    for p in ser.param_names:
+        assert np.array_equal(getattr(par, p), getattr(ser, p)), p
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             model.fit(data, mask, numfasc, csf_mask=1, device="cuda", **kw)
@@ -261,30 +264,51 @@ def test_parallel_on_one_device_fits_as_batched(rows):
 
 def test_parallel_on_several_devices_raises(monkeypatch):
     """With more than one CUDA device in sight, ``parallel=True`` asks for
-    the sharded fit, which is not ported: NotImplementedError naming the
-    multi-GPU item, raised before any work."""
+    the sharded fit before any work: a (4, 1) mesh of one data slot a
+    card (the mesh stub raises there, as this machine has no card); a
+    ``mesh_shape`` that does not fill the cards raises ValueError."""
+    from microstructure_fingerprinting_torch.parallel import mesh as tmesh
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
     monkeypatch.setattr(tconfig, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model.fit(data, mask, numfasc, peaks=peaks,
-                  pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0,
-                  parallel=True, device="cuda")
+    asked = []
+
+    class Built(Exception):
+        pass
+
+    def stub(*a, **k):
+        asked.append((a, k))
+        raise Built
+
+    monkeypatch.setattr(tmesh, "build_mesh", stub)
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1,
+              verbose=0, parallel=True, device="cuda")
+    with pytest.raises(Built):
+        model.fit(data, mask, numfasc, **kw)
+    assert asked == [((4, 1), dict(devices=[torch.device("cuda", i)
+                                            for i in range(4)]))]
+    with pytest.raises(ValueError, match="does not fill 4 devices"):
+        model.fit(data, mask, numfasc, mesh_shape=(3, 1), **kw)
 
 
 @pytest.mark.parametrize("extra,item", [(dict(mesh_shape=(1, 2)), "item 6")])
 def test_unported_fit_arguments_raise(extra, item):
-    """``mesh_shape=`` is accepted; a mesh of several devices, which is
-    not ported, raises NotImplementedError naming its ROADMAP item, not a
-    TypeError (``engine="xla"``, ``topm=`` and ``refine=True`` fit: see
-    test_default_fit_arguments_are_accepted)."""
+    """``mesh_shape=`` (ROADMAP ``item``, ported) is accepted: without
+    ``parallel=True`` it is ignored, as in the JAX package, and with it
+    the (1, 2) mesh splits the scan's atoms over two slots; both fit as
+    the serial fit does, bit for bit (``engine="xla"``, ``topm=`` and
+    ``refine=True`` fit: see test_default_fit_arguments_are_accepted)."""
     dic, data, mask, numfasc, peaks, _wl = _model_inputs()
     model = mft.MFModel(dic, device="cpu")
-    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-        model.fit(data, mask, numfasc, **kw, **extra)
+    kw = dict(peaks=peaks, pgse_scheme=dic["sch_mat"], csf_mask=1, verbose=0,
+              batch_size=8)
+    ser = model.fit(data, mask, numfasc, **kw)
+    for par in (False, True):
+        got = model.fit(data, mask, numfasc, parallel=par, **kw, **extra)
+        for p in ser.param_names:
+            assert np.array_equal(getattr(got, p), getattr(ser, p)), p
 
 
 def test_default_fit_arguments_are_accepted(rows):
