@@ -39,17 +39,25 @@ the atoms axis; two processes of this script joined by
 flagship voxels, gathered and held bit for bit against one process
 (``python3 chip_smoke.py --multihost-worker ...`` is that worker); and
 the examples ``demo_synthetic`` and ``exactness_check`` with their
-gates. Every phase runs; exits non-zero on any failure; needs one CUDA
-device. The last line of standard output is the
-JSON summary {"ok": true, "device": {...}}; the kernel table is the JSON
-line before the card's name and power limit, with kernel 1 in a row per
-rhs width (its launches in the fits at that width, its times at that
-width) and every row's launches summed over the fits that run it; an
-earlier ``record:`` line holds every number measured. Each fit is run
-once cold (launch counts, recovery) and WARM_FITS times warm under the
-stage timer: voxels/s, every stage, and each bucket's wall time and
-stages as median and min-max, the flagship and EAR paths' "prep" and
-"re-scan" stages split into the kernel and the torch code around it.
+gates. Last, the graphs phase: the flagship, EAR, mixed, ear_mixed and
+general volumes fitted with eager chunk steps (``models/graphs.eager()``)
+and through their CUDA graphs in turns, every graph fit's maps and
+launches bit for bit the eager fit's, with voxels/s of both routes, the
+captures, the memory the graphs hold and the device-idle share of a
+flagship and an EAR fit on each route. Every phase runs; exits non-zero
+on any failure; needs one CUDA device. The last line of standard output
+is the JSON summary {"ok": true, "device": {...}}; the kernel table is
+the JSON line before the card's name and power limit, with kernel 1 in
+a row per rhs width (its launches in the fits at that width, its times
+at that width) and every row's launches summed over the fits that run
+it; an earlier ``record:`` line holds every number measured. Each fit
+is run once cold (launch counts, recovery) and WARM_FITS times warm as
+a user runs it, every chunk step a CUDA graph replay (voxels/s, each
+bucket's wall time, as median and min-max), then once under the stage
+timer, which runs the steps eagerly: every stage and each bucket's
+stages, the flagship and EAR paths' "prep" and "re-scan" stages split
+into the kernel and the torch code around it. Each phase's graphs are
+recorded (captures, replays) and freed after it.
 """
 
 import contextlib
@@ -154,6 +162,12 @@ MH_KERNELS = ("prep_block", "rowmin3", "rescan3")
 MH_TIMEOUT = 240
 #: voxels of the exactness_check example
 EXACT_VOX = 256
+#: the graphs phase: the volumes fitted eagerly (``graphs.eager()``) and
+#: through the CUDA graphs in these turns, and those whose device-idle
+#: share is traced on both routes
+GRAPH_VOLUMES = ("flagship", "EAR", "mixed", "ear_mixed", "general")
+GRAPH_TURNS = ("eager", "graph", "graph", "eager") * 2
+IDLE_VOLUMES = ("flagship", "EAR")
 #: the repo's frozen end-to-end fixture (tests/test_golden.py)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_fit.npz")
@@ -730,67 +744,122 @@ def check_maps(label, fit, ear):
                                                 ", ".join(fit.param_names)))
 
 
+def bucket_walls(text):
+    """{"K=.. csf=.. ear=..: wall ms": ms} from a fit's verbose-2 lines:
+    a bucket's "dispatched" plus its "pulled" time (every bucket is
+    queued before the first pull, so a bucket's pull also waits for the
+    device work queued before it)."""
+    out = {}
+    for m in re.finditer(r"Bucket (K=\d csf=\d ear=\d) \(\d+ voxels\) "
+                         r"(?:dispatched|pulled) in (\S+) second", text):
+        key = "%s: wall ms" % m.group(1)
+        out[key] = out.get(key, 0.0) + 1e3 * float(m.group(2))
+    return out
+
+
 def warm_fits(label, model, args, kw, launches, split=()):
-    """WARM_FITS warm fits, each under the stage timer (two event records
-    a region, no synchronisation inside the fit): host wall clock around
-    the fit for voxels/s, device time per stage, and per bucket its wall
-    time (its "pulled" line at verbose 2: a bucket's work all happens
-    there and ends in a copy to the host) and the device time of the
-    stages inside it. Each launch is a stage of its own inside the stage
-    that holds it: for each (stage, kernel) of ``split`` what is left of
-    the stage is its torch code (hoists), and every launch of the fit
-    must lie inside that stage, or the split would understate the
-    hoists. Returns the record of the runs."""
+    """WARM_FITS warm fits as a user runs them (no stage timer: every
+    chunk step a CUDA graph replay): host wall clock around the fit for
+    voxels/s, and per bucket its wall time ("dispatched" plus "pulled"
+    at verbose 2). Then one fit under the stage timer, which runs the
+    steps eagerly (two event records a region, no synchronisation
+    inside the fit): device time per stage and, per bucket, the device
+    time of the stages inside it. Each launch is a stage of its own
+    inside the stage that holds it: for each (stage, kernel) of
+    ``split`` what is left of the stage is its torch code (hoists), and
+    every launch of the fit must lie inside that stage, or the split
+    would understate the hoists. Returns the record of the runs."""
     import torch
     from microstructure_fingerprinting_torch.utils import profiling
     n_vox = args[0][..., 0].size
     card = card_line()
-    warm_s, runs, buckets = [], [], []
+    warm_s, buckets = [], []
     for _ in range(WARM_FITS):
         out = io.StringIO()
-        with profiling.StageTimer() as st, contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out):
             t0 = time.time()
             model.fit(*args, **dict(kw, verbose=2))
             torch.cuda.synchronize()
             warm_s.append(time.time() - t0)
-        totals = st.totals_ms()
-        stages = {k: v for k, v in totals.items()
-                  if not k.startswith(("kernel ", "bucket "))}
-        for stage_name, kernel in split:
-            k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
-            if n != launches[kernel]:
-                raise AssertionError(
-                    "%d of the fit's %d launches of %s lie inside stage %s"
-                    % (n, launches[kernel], kernel, stage_name))
-            stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
-            stages[stage_name + ": torch hoists"] = stages[stage_name] - k_ms
-        runs.append(stages)
-        per = {}
-        for m in re.finditer(r"Bucket (K=\d csf=\d ear=\d) \(\d+ voxels\) "
-                             r"pulled in (\S+) second", out.getvalue()):
-            per["%s: wall ms" % m.group(1)] = 1e3 * float(m.group(2))
-        for name in totals:
-            if name.startswith("bucket "):
-                for inner, (ms, _n) in st.inside(name).items():
-                    per["%s: %s ms" % (name[len("bucket "):], inner)] = ms
-        buckets.append(per)
+        buckets.append(bucket_walls(out.getvalue()))
+    with profiling.StageTimer() as st, \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.time()
+        model.fit(*args, **kw)
+        torch.cuda.synchronize()
+        timer_s = time.time() - t0
+    totals = st.totals_ms()
+    stages = {k: v for k, v in totals.items()
+              if not k.startswith(("kernel ", "bucket "))}
+    for stage_name, kernel in split:
+        k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
+        if n != launches[kernel]:
+            raise AssertionError(
+                "%d of the fit's %d launches of %s lie inside stage %s"
+                % (n, launches[kernel], kernel, stage_name))
+        stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
+        stages[stage_name + ": torch hoists"] = stages[stage_name] - k_ms
+    per = {}
+    for name in totals:
+        if name.startswith("bucket "):
+            for inner, (ms, _n) in st.inside(name).items():
+                per["%s: %s ms" % (name[len("bucket "):], inner)] = ms
     vps = spread([n_vox / s for s in warm_s])
-    log("%s: %d warm fits: %s s; voxels/s median %.1f (min %.1f, max %.1f) "
+    log("%s: %d warm fits (graph replays): %s s; voxels/s median %.1f "
+        "(min %.1f, max %.1f); one eager fit under the stage timer %.3f s "
         "[%s]" % (label, WARM_FITS, ", ".join("%.3f" % s for s in warm_s),
-                  vps["median"], vps["min"], vps["max"], card))
-    stages = {k: spread([r[k] for r in runs]) for k in runs[0]}
-    log("%s: stages, device ms a fit, median (min-max) of %d fits: " % (
-        label, WARM_FITS) + ", ".join(
-            "%s %.1f (%.1f-%.1f)" % (k, v["median"], v["min"], v["max"])
-            for k, v in stages.items()))
+                  vps["median"], vps["min"], vps["max"], timer_s, card))
+    log("%s: stages, device ms of the eager fit under the timer: " % label
+        + ", ".join("%s %.1f" % (k, v) for k, v in stages.items()))
     per_bucket = {k: spread([b.get(k, 0.0) for b in buckets])
                   for k in buckets[0]}
-    log("%s: buckets, wall ms and device ms of their stages, median "
-        "(min-max) of %d fits: " % (label, WARM_FITS) + ", ".join(
+    log("%s: buckets, wall ms median (min-max) of the %d warm fits: " % (
+        label, WARM_FITS) + ", ".join(
             "%s %.1f (%.1f-%.1f)" % (k, v["median"], v["min"], v["max"])
             for k, v in sorted(per_bucket.items())))
-    return dict(warm_fit_s=warm_s, voxels_per_s=vps, stages_ms=stages,
-                buckets_ms=per_bucket, card=card)
+    log("%s: buckets, device ms of their stages in the eager fit: " % label
+        + ", ".join("%s %.1f" % (k, v) for k, v in sorted(per.items())))
+    return dict(warm_fit_s=warm_s, voxels_per_s=vps, timer_fit_s=timer_s,
+                stages_ms=stages, buckets_wall_ms=per_bucket,
+                buckets_stage_ms=per, card=card,
+                route="warm fits: graph replays, no stage timer; stages: "
+                      "one eager fit under the stage timer")
+
+
+def volume(wl, label, sig_ear=None):
+    """The volume of a fit phase: ``label`` "flagship" or "EAR" (the
+    N_VOX workload voxels, 2 fascicles + CSF, with EAR csf_mask =
+    ear_mask = 1), "mixed" / "ear_mixed" (MIXED / EAR_MIXED) or
+    "general" (GENERAL, csf_mask = 0). Returns (model, args, kw, mix):
+    ``mix`` is ``testing.make_mixed``'s record (None for the first two);
+    the model's EAR block is ``sig_ear`` where the volume has EAR."""
+    import microstructure_fingerprinting_torch as mft
+    S = wl["sch_mat"].shape[0]
+    if label in ("flagship", "EAR"):
+        ear = sig_ear if label == "EAR" else None
+        data, mask, numfasc, peaks = make_volume(
+            wl, wl["y_ear"] if ear is not None else wl["y"])
+        kw = dict(peaks=peaks, pgse_scheme=wl["sch_mat"], csf_mask=1,
+                  verbose=0)
+        if ear is not None:
+            kw["ear_mask"] = 1
+        return (mft.MFModel(fit_dictionary(wl, ear)), (data, mask, numfasc),
+                kw, None)
+    spec, ear = {"mixed": (MIXED, None), "ear_mixed": (EAR_MIXED, sig_ear),
+                 "general": (GENERAL, sig_ear)}[label]
+    mix = mft.testing.make_mixed(wl, spec["groups"], ear, ear_atom=EAR_ATOM)
+    shape = spec["shape"]
+    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
+            mix["numfasc"].reshape(shape).astype(float))
+    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"], verbose=0,
+              csf_mask=mix["csf_mask"].reshape(shape).astype(float))
+    if label == "ear_mixed":
+        kw["ear_mask"] = 1
+    elif label == "general":
+        kw.update(csf_mask=0,
+                  ear_mask=mix["ear_mask"].reshape(shape).astype(float))
+    return mft.MFModel(fit_dictionary(wl, ear)), args, kw, mix
 
 
 def phase_fit(wl, sig_ear=None):
@@ -800,18 +869,12 @@ def phase_fit(wl, sig_ear=None):
     recover its planted atoms (with EAR: also ie = 4) or an objective at
     most the planted one's plus 2e-9 ||y||^2, at R^2 >= 1 - 1e-6; the maps
     must reload identically."""
-    import microstructure_fingerprinting_torch as mft
     ear = sig_ear is not None
     label = "EAR" if ear else "flagship"
     ys_np = wl["y_ear"] if ear else wl["y"]
-    data, mask, numfasc, peaks = make_volume(wl, ys_np)
-    model = mft.MFModel(fit_dictionary(wl, sig_ear))
-    kw = dict(peaks=peaks, pgse_scheme=wl["sch_mat"], csf_mask=1, verbose=0)
-    if ear:
-        kw["ear_mask"] = 1
+    model, args, kw, _mix = volume(wl, label, sig_ear)
     path = ("prep_block", "rowmin4", "rescan4") if ear else (
         "prep_block", "rowmin3", "rescan3")
-    args = (data, mask, numfasc)
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
                                    np.full(N_VOX, 2), np.ones(N_VOX, bool),
@@ -925,23 +988,11 @@ def phase_mixed(wl, sig_ear=None):
     times warm, held as the main paths are; then kernel 3 on that grid
     against its plain version (with EAR) or the df2 scan's cost a chunk,
     and CROSS_VOX voxels of each newer bucket on the card and the CPU."""
-    import microstructure_fingerprinting_torch as mft
     ear = sig_ear is not None
-    label, spec = ("ear_mixed", EAR_MIXED) if ear else ("mixed", MIXED)
-    mix = mft.testing.make_mixed(wl, spec["groups"], sig_ear,
-                                 ear_atom=EAR_ATOM)
-    shape, S = spec["shape"], wl["sch_mat"].shape[0]
-    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
-            mix["numfasc"].reshape(shape).astype(float))
-    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
-              pgse_scheme=wl["sch_mat"],
-              csf_mask=mix["csf_mask"].reshape(shape).astype(float),
-              verbose=0)
-    if ear:
-        kw["ear_mask"] = 1
+    label = "ear_mixed" if ear else "mixed"
+    model, args, kw, mix = volume(wl, label, sig_ear)
     path = ("prep_block", "rowmin4", "rescan4", "rescan3") if ear else (
         "prep_block", "rowmin3", "rescan3")
-    model = mft.MFModel(fit_dictionary(wl, sig_ear))
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear)
@@ -1132,7 +1183,6 @@ def phase_general(wl, sig_ear):
     objective at R^2 >= 1 - 1e-6, maps reloaded; each bucket once more
     through run_bucket for its wall time, stages, refine time and peak
     memory; CROSS_VOX voxels of each bucket on the card and the CPU."""
-    import microstructure_fingerprinting_torch as mft
     from microstructure_fingerprinting_torch.utils import native
     ok = native.available()
     log("general: native host helper available: %s" % ok)
@@ -1141,16 +1191,7 @@ def phase_general(wl, sig_ear):
         raise AssertionError("the native host helper (csrc/mf_native.cpp) "
                              "did not build")
     label = "general"
-    mix = mft.testing.make_mixed(wl, GENERAL["groups"], sig_ear,
-                                 ear_atom=EAR_ATOM)
-    shape, S = GENERAL["shape"], wl["sch_mat"].shape[0]
-    args = (mix["y"].reshape(shape + (S,)), np.ones(shape),
-            mix["numfasc"].reshape(shape).astype(float))
-    kw = dict(peaks=mix["peaks"].reshape(shape + (6,)),
-              pgse_scheme=wl["sch_mat"], csf_mask=0,
-              ear_mask=mix["ear_mask"].reshape(shape).astype(float),
-              verbose=0)
-    model = mft.MFModel(fit_dictionary(wl, sig_ear))
+    model, args, kw, mix = volume(wl, label, sig_ear)
     fit, cold_s = general_fit(label, model, args, kw)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear,
@@ -1886,6 +1927,123 @@ def phase_examples():
     RECORD["examples"] = rec
 
 
+def idle_share(fn):
+    """Device-idle share of fn() (which ends in a synchronisation), from
+    a ``utils/profiling.device_trace`` capture: 1 minus the union of the
+    kernel intervals over the window of a host range around fn() (the
+    host and device clocks of a trace are one). Returns the record."""
+    import glob
+    import torch
+    from microstructure_fingerprinting_torch.utils import profiling
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            with torch.profiler.record_function("chip_smoke fit"):
+                fn()
+        (path,) = glob.glob(os.path.join(tmp, "*.json"))
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    (win,) = [e for e in events if e.get("name") == "chip_smoke fit"
+              and e.get("cat") == "user_annotation"]
+    t0, t1 = win["ts"], win["ts"] + win["dur"]
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in events if e.get("cat") == "kernel"
+                   and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    busy, start, end = 0.0, None, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += 0.0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += 0.0 if end is None else end - start
+    return {"idle_share": 1.0 - busy / (t1 - t0), "window_ms": (t1 - t0) / 1e3,
+            "kernel_busy_ms": busy / 1e3, "kernels": len(spans),
+            "trace_mb": trace_mb}
+
+
+def phase_graphs(wl, sig_ear):
+    """Eager steps against CUDA graphs, on the GRAPH_VOLUMES: a fit of
+    each volume eagerly (``graphs.eager()``) as the reference, a fit
+    through the graphs (its captures), then GRAPH_TURNS warm fits, each
+    timed on the host clock; every map and every launch count of each
+    graph fit must equal the reference's bit for bit. Records voxels/s
+    of each route (median, min-max), the graphs captured and the seconds
+    of each capture, the allocator's peak and reserved memory after the
+    volume (the graphs' pool holds their temporaries) and, for the
+    IDLE_VOLUMES, the device-idle share of one fit on each route; then
+    the cache is cleared."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch.models import graphs
+    rec = {"card": card_line()}
+    for label in GRAPH_VOLUMES:
+        model, args, kw, _mix = volume(wl, label, sig_ear)
+        n = args[0][..., 0].size
+
+        def fit(route):
+            with graphs.eager() if route == "eager" else \
+                    contextlib.nullcontext():
+                mft.reset_counts()
+                t0 = time.time()
+                f = model.fit(*args, **kw)
+                torch.cuda.synchronize()
+                return f, dict(mft.LAUNCHES), time.time() - t0
+
+        graphs.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_launches, _s = fit("eager")
+        runs = {"eager": [], "graph": []}
+        for route in ("graph",) + GRAPH_TURNS:
+            f, launches, sec = fit(route)
+            if route == "graph":
+                for p in ref.param_names:
+                    if not np.array_equal(getattr(f, p), getattr(ref, p)):
+                        raise AssertionError("graphs %s: map %s of a graph "
+                                             "fit differs from the eager "
+                                             "fit's" % (label, p))
+                if launches != ref_launches:
+                    raise AssertionError("graphs %s: launches %s, eager %s"
+                                         % (label, launches, ref_launches))
+            runs[route].append(sec)
+        cold = runs["graph"].pop(0)
+        st = graphs.stats()
+        r = {route: spread([n / t for t in secs])
+             for route, secs in runs.items()}
+        r.update(voxels=n, cold_graph_fit_s=cold, launches=ref_launches,
+                 graphs=len(st),
+                 capture_s=[e["capture_s"] for e in st],
+                 replays=[e["replays"] for e in st],
+                 steps=sorted({e["step"] for e in st}),
+                 max_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 reserved_gb=torch.cuda.memory_reserved() / 1e9)
+        if label in IDLE_VOLUMES:
+            for route in ("eager", "graph"):
+                r["idle_" + route] = idle_share(lambda: fit(route))
+        rec[label] = r
+        log("graphs %s: %d voxels, every map and launch count of %d graph "
+            "fits equal to the eager fit's; voxels/s eager %.1f (%.1f-%.1f), "
+            "graph %.1f (%.1f-%.1f); %d graphs captured in %s s (first "
+            "graph fit %.2f s), replays %s; peak %.2f GB, reserved %.2f GB%s "
+            "[%s]" % (
+                label, n, len(runs["graph"]) + 1, r["eager"]["median"],
+                r["eager"]["min"], r["eager"]["max"], r["graph"]["median"],
+                r["graph"]["min"], r["graph"]["max"], len(st),
+                "/".join("%.3f" % c for c in r["capture_s"]), cold,
+                r["replays"], r["max_allocated_gb"], r["reserved_gb"],
+                "".join("; device idle %s %.3f of %.1f ms (%d kernels)" % (
+                    route, r["idle_" + route]["idle_share"],
+                    r["idle_" + route]["window_ms"],
+                    r["idle_" + route]["kernels"])
+                    for route in ("eager", "graph")
+                    if "idle_" + route in r), rec["card"]))
+        del model, ref
+        graphs.clear()
+        torch.cuda.empty_cache()
+    RECORD["graphs"] = rec
+
+
 KERNEL_META = {
     "prep_block": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
     "prep_block_ear": ("csrc/prep.cu", "ops/pallas_prep.py:206"),
@@ -1902,6 +2060,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch.models import graphs
     t_all = time.time()
     phase_setup()
     t0 = time.time()
@@ -1954,11 +2113,21 @@ def main():
             ("mcf", lambda: phase_mcf(wl)),
             ("mesh", lambda: phase_mesh(wl, sig_ear)),
             ("multihost", lambda: phase_multihost(wl)),
-            ("examples", phase_examples)):
+            ("examples", phase_examples),
+            ("graphs", lambda: phase_graphs(wl, sig_ear))):
         t0 = time.time()
         step()
         RECORD.setdefault("phase_s", {})[name] = time.time() - t0
         log("phase %s: %.1f s" % (name, time.time() - t0))
+        # the phase's CUDA graphs (captures, replays), then the cache and
+        # its memory pool freed for the next phase
+        st = graphs.stats()
+        if st:
+            RECORD.setdefault("graphs_by_phase", {})[name] = dict(
+                graphs=len(st), capture_s=sum(e["capture_s"] for e in st),
+                replays=[e["replays"] for e in st])
+        graphs.clear()
+        torch.cuda.empty_cache()
     table = {"kernels": [
         dict(name=name, route="cuda",
              source="microstructure_fingerprinting_torch/" + src,

@@ -33,6 +33,13 @@ in closed form on the host.
 ``run_bucket_fast`` and ``run_bucket`` take a device mesh
 (``parallel/mesh.py``): whole chunks are dealt to its data rows, so
 every voxel's result is the serial fit's.
+
+Each chunk step (``_chunk_step``: rotation, scan and finalize of a
+fast-path chunk; ``fit_step`` / ``fit_step_candidates`` on the general
+path) runs through ``graphs.run``: on a card, one captured CUDA graph a
+step and shape, replayed for every chunk, as the JAX package jits each
+step; eagerly on the CPU and under a stage timer. The overflow tiers
+and the atoms-split scan stay eager.
 """
 
 import math
@@ -47,6 +54,7 @@ from ..ops import interp as mfi
 from ..ops import nnls as mfn
 from ..ops import rescan
 from ..utils.profiling import stage
+from . import graphs
 from . import refine as refine_mod
 
 
@@ -180,6 +188,29 @@ def _scan22_step(D, y):
     return _finalized(D, None, None, y, cand[:, 0], 2, False, False)
 
 
+def _chunk_step(rotate, tables_ys, csf_d, ear_d, pk, y, *, K, csf_on,
+                ear_on, R):
+    """One chunk of a fast-path bucket: the rotation of its voxels'
+    directions ``pk`` (B, K, 3), then its bucket's scan and finalize
+    (two-pass at row budget R, or with R None the full grid where the
+    bucket has one). Returns (cand, w, obj, r2, ok)."""
+    with stage("rotation", y.device):
+        D = rotate(tables_ys, pk)
+    if K == 1:
+        if ear_on:
+            return _scan13_step(D, csf_d, ear_d, y)
+        return _scan12_step(D, csf_d, y)
+    if not csf_on:
+        return _scan22_step(D, y)
+    if ear_on:
+        if R is None:
+            return _onepass_step4(D, csf_d, ear_d, y)
+        return _twopass_step4(D, csf_d, ear_d, y, R)
+    if R is None:
+        return _onepass_step3(D, csf_d, y)
+    return _twopass_step3(D, csf_d, y, R)
+
+
 def _deal(n_pad, batch, n_rows):
     """Chunk c of ``batch`` voxels runs on data row c % n_rows. Returns
     each row's share (the voxel indices of its chunks, in order) and, for
@@ -209,7 +240,7 @@ def _sharded_step3(devices, D, csf_d, y):
 
 def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                     K, csf_on, batch=128, rotator=None, sig_ear=None,
-                    ear_on=False, mesh=None):
+                    ear_on=False, mesh=None, defer=False):
     """One fast-path bucket with fascicles: rotation, exact scan and the
     double-float finalize, in ``batch``-voxel chunks on
     ``tables_ys.device``.
@@ -233,9 +264,13 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     fascicles + CSF bucket scans instead with the second block's atoms
     split over the row (``_sharded_step3``), as in the JAX package.
 
-    Returns NumPy (w (n, C), ind (n, C), min_obj, mse, r2), C = K +
-    csf_on + ear_on, in the canonical index layout [fascicles...,
-    csf=0 (with CSF), ie (with EAR)].
+    Every chunk is enqueued (``graphs.run``: a CUDA graph replay on a
+    card) before any result is pulled. Returns NumPy (w (n, C), ind (n,
+    C), min_obj, mse, r2), C = K + csf_on + ear_on, in the canonical
+    index layout [fascicles..., csf=0 (with CSF), ie (with EAR)]; with
+    ``defer`` a closure that pulls the results, runs the overflow tiers
+    and returns them, so that a caller can enqueue every bucket first
+    (the JAX package's ``defer``).
     """
     if K not in (1, 2) or (K == 1 and not csf_on) or (ear_on and not csf_on):
         raise NotImplementedError(
@@ -272,24 +307,6 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     consts = {d: (tables_ys.to(d), put(csf_d, d), put(ear_d, d))
               for d in slots}
 
-    def step(j, D, yy, R):
-        csf_j, ear_j = consts[slots[j]][1:]
-        if K == 1:
-            if ear_on:
-                return _scan13_step(D, csf_j, ear_j, yy)
-            return _scan12_step(D, csf_j, yy)
-        if not csf_on:
-            return _scan22_step(D, yy)
-        if ear_on:
-            if R is None:
-                return _onepass_step4(D, csf_j, ear_j, yy)
-            return _twopass_step4(D, csf_j, ear_j, yy, R)
-        if sharded:
-            return _sharded_step3(rows[j], D, csf_j, yy)
-        if R is None:
-            return _onepass_step3(D, csf_j, yy)
-        return _twopass_step3(D, csf_j, yy, R)
-
     n_pad = int(math.ceil(n / batch) * batch)
     pk = np.zeros((n_pad, K, 3))
     pk[:n] = np.asarray(peaks).reshape(n, K, 3)
@@ -304,10 +321,19 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         return (torch.as_tensor(pk[idx], dtype=dt, device=slots[j]),
                 torch.as_tensor(y_all[idx], dtype=dt, device=slots[j]))
 
-    def solved(j, pk_c, yy, R):
-        with stage("rotation", slots[j]):
-            D = rotate(consts[slots[j]][0], pk_c)
-        return step(j, D, yy, R)
+    def solved(j, pk_c, yy, R, graph=True):
+        """Chunk (pk_c, yy) on row j, through ``graphs.run`` or, for an
+        overflow tier, eagerly."""
+        tables_j, csf_j, ear_j = consts[slots[j]]
+        if sharded:
+            with stage("rotation", slots[j]):
+                D = rotate(tables_j, pk_c)
+            return _sharded_step3(rows[j], D, csf_j, yy)
+        args = (rotate, tables_j, csf_j, ear_j, pk_c, yy)
+        kw = dict(K=K, csf_on=bool(csf_on), ear_on=bool(ear_on), R=R)
+        if graph:
+            return graphs.run(_chunk_step, *args, **kw)
+        return _chunk_step(*args, **kw)
 
     # each row's chunks pushed at once, every chunk enqueued before a pull
     n_rows = len(slots)
@@ -316,57 +342,67 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     outs = [solved(j, pushes[j][0][sl], pushes[j][1][sl],
                    rows_R if twopass and not sharded else None)
             for j, sl in where]
-    cand, w, obj, r2, ok = (torch.cat([t.to(dev) for t in x])[:n]
-                            for x in zip(*outs))
 
-    bad = torch.nonzero(~ok).flatten().cpu().numpy()
-    if bad.size:
-        # row-budget overflow (heavily tied voxels): re-solve at 2R, then
-        # with every row and column (R = N), where ok cannot fail
-        fb = min(batch, 64)
-        tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
-        for R in tiers:
-            sels = [bad[st:st + fb] for st in range(0, bad.size, fb)]
-            res = []
-            for i, sel in enumerate(sels):
-                idx = np.concatenate([sel, np.full(fb - sel.size, sel[0])])
-                res.append(solved(i % n_rows, *pushed(idx, i % n_rows), R))
-            still = []
-            for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
-                m = sel.size
-                good = ok_f[:m].cpu().numpy() | (R == n_atom)
-                done = torch.as_tensor(sel[good], device=dev)
-                keep = torch.as_tensor(np.flatnonzero(good),
-                                       device=c_f.device)
-                cand[done], w[done] = c_f[keep].to(dev), w_f[keep].to(dev)
-                obj[done], r2[done] = o_f[keep].to(dev), r_f[keep].to(dev)
-                still.extend(sel[~good])
-            bad = np.asarray(still, dtype=np.int64)
-            if not bad.size:
-                break
+    def finish():
+        """The pull: the chunks' results joined, the overflow tiers run
+        (eagerly), the index layout made canonical."""
+        cand, w, obj, r2, ok = (torch.cat([t.to(dev) for t in x])[:n]
+                                for x in zip(*outs))
 
-    # the df quadratic form can round a noiseless voxel's residual a few
-    # ulp below zero; a reported objective is never negative
-    obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
-    w_b = w.double().cpu().numpy()
-    ind = cand.cpu().numpy().astype(np.int32)
-    # clip the fascicle (and CSF) columns to the atom range and the EAR
-    # column to its own
-    n_fix = ind.shape[1] - int(ear_on)
-    ind[:, :n_fix] = np.clip(ind[:, :n_fix], 0, n_atom - 1)
-    if ear_on:
-        ind[:, -1] = np.clip(ind[:, -1], 0, E - 1)
-        # an unused EAR block leaves the residual independent of the ear
-        # atom: report the first index, as the reference's first-minimum
-        # enumeration does
-        ind[w_b[:, -1] <= 0, -1] = 0
-    # canonical (fascicles..., csf, ear) index layout
-    zero = np.zeros((n, 1), np.int32)
-    if K == 1 and ear_on:                    # [i1, ie] -> [i1, csf=0, ie]
-        ind = np.concatenate([ind[:, :1], zero, ind[:, 1:]], axis=1)
-    elif K == 2 and csf_on and not ear_on:   # [i1, i2] -> + csf=0
-        ind = np.concatenate([ind, zero], axis=1)
-    return w_b, ind, obj_b, obj_b / S, r2.double().cpu().numpy()
+        bad = torch.nonzero(~ok).flatten().cpu().numpy()
+        if bad.size:
+            # row-budget overflow (heavily tied voxels): re-solve at 2R,
+            # then with every row and column (R = N), where ok cannot fail
+            fb = min(batch, 64)
+            tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
+            for R in tiers:
+                sels = [bad[st:st + fb] for st in range(0, bad.size, fb)]
+                res = []
+                for i, sel in enumerate(sels):
+                    idx = np.concatenate([sel, np.full(fb - sel.size,
+                                                       sel[0])])
+                    res.append(solved(i % n_rows, *pushed(idx, i % n_rows),
+                                      R, graph=False))
+                still = []
+                for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
+                    m = sel.size
+                    good = ok_f[:m].cpu().numpy() | (R == n_atom)
+                    done = torch.as_tensor(sel[good], device=dev)
+                    keep = torch.as_tensor(np.flatnonzero(good),
+                                           device=c_f.device)
+                    cand[done] = c_f[keep].to(dev)
+                    w[done] = w_f[keep].to(dev)
+                    obj[done] = o_f[keep].to(dev)
+                    r2[done] = r_f[keep].to(dev)
+                    still.extend(sel[~good])
+                bad = np.asarray(still, dtype=np.int64)
+                if not bad.size:
+                    break
+
+        # the df quadratic form can round a noiseless voxel's residual a
+        # few ulp below zero; a reported objective is never negative
+        obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
+        w_b = w.double().cpu().numpy()
+        ind = cand.cpu().numpy().astype(np.int32)
+        # clip the fascicle (and CSF) columns to the atom range and the
+        # EAR column to its own
+        n_fix = ind.shape[1] - int(ear_on)
+        ind[:, :n_fix] = np.clip(ind[:, :n_fix], 0, n_atom - 1)
+        if ear_on:
+            ind[:, -1] = np.clip(ind[:, -1], 0, E - 1)
+            # an unused EAR block leaves the residual independent of the
+            # ear atom: report the first index, as the reference's
+            # first-minimum enumeration does
+            ind[w_b[:, -1] <= 0, -1] = 0
+        # canonical (fascicles..., csf, ear) index layout
+        zero = np.zeros((n, 1), np.int32)
+        if K == 1 and ear_on:                 # [i1, ie] -> [i1, csf=0, ie]
+            ind = np.concatenate([ind[:, :1], zero, ind[:, 1:]], axis=1)
+        elif K == 2 and csf_on and not ear_on:  # [i1, i2] -> + csf=0
+            ind = np.concatenate([ind, zero], axis=1)
+        return w_b, ind, obj_b, obj_b / S, r2.double().cpu().numpy()
+
+    return finish if defer else finish()
 
 
 def run_bucket_trivial(y, sig_csf, sig_ear, csf_on, ear_on):
@@ -564,10 +600,10 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
     chunks = []
     for j, sl in where:
         xs, ys, cnt, gdir, lo, hi, wG, csf_j, ear_j = consts[slots[j]]
-        chunks.append(step(xs, ys, cnt, gdir, lo, hi, wG,
-                           pushes[j][0][sl], pushes[j][1][sl], csf_j, ear_j,
-                           K=K, csf_on=bool(csf_on), ear_on=bool(ear_on),
-                           **extra))
+        chunks.append(graphs.run(
+            step, xs, ys, cnt, gdir, lo, hi, wG, pushes[j][0][sl],
+            pushes[j][1][sl], csf_j, ear_j, K=K, csf_on=bool(csf_on),
+            ear_on=bool(ear_on), **extra))
 
     if refine:
         # float32 device scan -> top-M candidates -> exact float64 re-score

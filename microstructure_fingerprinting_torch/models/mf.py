@@ -20,11 +20,15 @@ pairs or diffusion tensors), groups masked voxels by configuration
   * CSF and/or EAR only: ``fit.run_bucket_trivial`` (closed form, host
     float64).
 
+As in the JAX package, every bucket's device work is queued before the
+first result is pulled, and the host solve runs at pull time.
+
 ``parallel=True`` spreads the buckets with fascicles over a device mesh
 (``parallel/mesh.py``): every card in sight by default, or the
 ``mesh_shape=(n_data, n_atoms)`` grid.
 """
 
+import contextlib
 import os
 import time
 
@@ -514,55 +518,61 @@ class MFModel(object):
         disp_int = int(ROI_size / min(ROI_size / MFModel.DFT_DISP_ITVL,
                                       MFModel.MAX_PROG_LINES))
         rotator = self._grouped_rotator(plan_h, pgse_scheme)
-        # the JAX package's lines, in its order: it queues every bucket's
-        # device work, then pulls each bucket in turn and assembles its
-        # maps; here a bucket's work all happens where it is pulled
-        buckets = [(key, np.asarray(v)) for key, v in sorted(configs.items())]
-        st_bucket = {}
-        for (K, has_csf, has_ear), idx in buckets:
+        # the JAX package's order: every bucket's device work is queued
+        # first (the fast path's chunks enqueued, their pull deferred; the
+        # general path runs where it is dispatched), the fascicle-free
+        # host solve deferred to the pull, so that it does not hold up
+        # the device buckets; then each bucket is pulled in turn and its
+        # maps assembled. A bucket is one stage, dispatch and pull.
+        pending = []
+        for (K, has_csf, has_ear), idx_list in sorted(configs.items()):
+            idx = np.asarray(idx_list)
             if VRB >= 3:
                 print("Config K=%d csf=%d ear=%d: %d voxel(s)"
                       % (K, has_csf, has_ear, idx.size))
-            st_bucket[K, has_csf, has_ear] = time.time()
+            st_bucket = time.time()
+            name = "bucket K=%d csf=%d ear=%d" % (K, has_csf, has_ear)
+            if K == 0:
+                pend = (lambda i_=idx, c_=has_csf, e_=has_ear:
+                        fit_mod.run_bucket_trivial(
+                            y_roi[i_], sig_csf, sig_ear, c_, e_))
+            elif engine != "xla" and fast_covers((K, has_csf, has_ear)):
+                with stage(name, dev):
+                    pend = fit_mod.run_bucket_fast(
+                        self.ms_interpolator, plan_h, tables[1],
+                        peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
+                        has_csf, batch=fast_batch, rotator=rotator,
+                        sig_ear=sig_ear, ear_on=has_ear, mesh=mesh,
+                        defer=True)
+            else:
+                with stage(name, dev):
+                    res_now = fit_mod.run_bucket(
+                        tables, plan, peaks_roi[idx, :3 * K], y_roi[idx],
+                        sig_csf, sig_ear, K, has_csf, has_ear,
+                        batch=general_batch, refine=refine,
+                        ms_host=self.ms_interpolator, plan_host=plan_h,
+                        topm=topm, mesh=mesh)
+                pend = (lambda r=res_now: r)
             if VRB >= 2:
                 print("Bucket K=%d csf=%d ear=%d (%d voxels) dispatched "
                       "in %g second(s)." % (K, has_csf, has_ear, idx.size,
-                                            0.0))
+                                            time.time() - st_bucket))
+            pending.append(((K, has_csf, has_ear), idx, pend, st_bucket,
+                            name))
         if VRB >= 2:
             print("All %d bucket(s) dispatched in %g second(s)."
-                  % (len(buckets), time.time() - st_est))
+                  % (len(pending), time.time() - st_est))
         vox_done = 0
-        for (K, has_csf, has_ear), idx in buckets:
+        for (K, has_csf, has_ear), idx, pend, st_bucket, name in pending:
             st_pull = time.time()
-            if K == 0:
-                w, ind, obj, mse, r2 = fit_mod.run_bucket_trivial(
-                    y_roi[idx], sig_csf, sig_ear, has_csf, has_ear)
-            else:
-                # a stage a bucket: under a timer, its stages split by bucket
-                with stage("bucket K=%d csf=%d ear=%d"
-                           % (K, has_csf, has_ear), dev):
-                    if engine != "xla" and fast_covers((K, has_csf,
-                                                        has_ear)):
-                        w, ind, obj, mse, r2 = fit_mod.run_bucket_fast(
-                            self.ms_interpolator, plan_h, tables[1],
-                            peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
-                            has_csf, batch=fast_batch, rotator=rotator,
-                            sig_ear=sig_ear, ear_on=has_ear, mesh=mesh)
-                    else:
-                        w, ind, obj, mse, r2 = fit_mod.run_bucket(
-                            tables, plan, peaks_roi[idx, :3 * K],
-                            y_roi[idx], sig_csf, sig_ear, K, has_csf,
-                            has_ear,
-                            batch=general_batch, refine=refine,
-                            ms_host=self.ms_interpolator, plan_host=plan_h,
-                            topm=topm, mesh=mesh)
+            with stage(name, dev) if K else contextlib.nullcontext():
+                w, ind, obj, mse, r2 = pend()
             if VRB >= 2:
                 print("Bucket K=%d csf=%d ear=%d (%d voxels) pulled in "
                       "%g second(s)." % (K, has_csf, has_ear, idx.size,
                                          time.time() - st_pull))
             if VRB >= 3:
-                t_vox = ((time.time() - st_bucket[K, has_csf, has_ear])
-                         / max(idx.size, 1))
+                t_vox = (time.time() - st_bucket) / max(idx.size, 1)
                 hits = np.arange(vox_done, vox_done + idx.size)
                 for j in hits[hits % disp_int == 0]:
                     print("Voxel %d/%d (%d fasc%s%s) estimated in %g sec."

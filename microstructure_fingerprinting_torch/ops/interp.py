@@ -310,23 +310,22 @@ def plan_target_scheme(msinterp, sch_mat):
 # Device rotation
 # ---------------------------------------------------------------------------
 
-def _abs_gdotn(gdir, newdirs, dt, dev):
-    """|g . n| (B*K, Nseq) of the target directions ``gdir`` (Nseq, 3)
-    and the directions ``newdirs`` (B, K, 3), as a fixed-order three-term
-    sum (no reduction kernel)."""
-    nd = newdirs.reshape(-1, 3).to(dt)
-    g = torch.as_tensor(gdir, dtype=dt, device=dev)
+def _abs_gdotn(g, newdirs):
+    """|g . n| (B*K, Nseq) of the target directions ``g`` (Nseq, 3), a
+    tensor in the rotation's dtype on its device, and the directions
+    ``newdirs`` (B, K, 3), as a fixed-order three-term sum (no reduction
+    kernel)."""
+    nd = newdirs.reshape(-1, 3).to(g.dtype)
     return torch.abs(nd[:, None, 0] * g[None, :, 0]
                      + nd[:, None, 1] * g[None, :, 1]
                      + nd[:, None, 2] * g[None, :, 2])
 
 
-def _lerp_weights(msinterp, s, xq, kiota):
+def _lerp_weights(xs_s, cnt_s, xq, kiota):
     """One-hot lerp weights (..., q, Kmax) of the queries ``xq`` (..., q)
-    on dense shell ``s``'s knots, in ``xq``'s dtype and device."""
-    xs_s = torch.as_tensor(msinterp.xs[s], dtype=xq.dtype, device=xq.device)
-    j = torch.clamp((xq[..., None] >= xs_s).sum(-1) - 1,
-                    0, int(msinterp.cnt[s]) - 2)
+    on a dense shell's knots ``xs_s`` (Kmax,) (a tensor in ``xq``'s dtype
+    on its device; ``cnt_s`` of them are real), in ``xq``'s dtype."""
+    j = torch.clamp((xq[..., None] >= xs_s).sum(-1) - 1, 0, cnt_s - 2)
     x0 = xs_s[j]
     x1 = xs_s[j + 1]
     denom = x1 - x0
@@ -335,6 +334,31 @@ def _lerp_weights(msinterp, s, xq, kiota):
         pos, denom, torch.ones_like(denom)), torch.zeros_like(xq))
     return ((1.0 - t)[..., None] * (kiota == j[..., None])
             + t[..., None] * (kiota == (j[..., None] + 1)))
+
+
+def _device_consts(msinterp, plan, shells, index_sets, weights):
+    """A rotation's host constants on the device, built once for each
+    (device, dtype) and then reused by every call: a cached CUDA graph
+    (``models/graphs.py``) replays with no host copy. Returns ``get(dt,
+    dev) -> (g (Nseq, 3), kiota (Kmax,), {s: knots xs[s] (Kmax,)},
+    [index tensors], [weight tensors])``: each of ``index_sets`` (host
+    int arrays) as an int64 tensor, each of ``weights`` (host arrays) in
+    ``dt``."""
+    Kmax = msinterp.xs.shape[1]
+    cache = {}
+
+    def get(dt, dev):
+        key = (dev, dt)
+        if key not in cache:
+            put = lambda a, t=dt: torch.as_tensor(a, dtype=t, device=dev)
+            cache[key] = (
+                put(plan.gdir), torch.arange(Kmax, device=dev),
+                {s: put(msinterp.xs[s]) for s in shells},
+                [put(ids, torch.int64) for ids in index_sets],
+                [put(w) for w in weights])
+        return cache[key]
+
+    return get
 
 
 def make_grouped_rotation(msinterp, plan):
@@ -349,27 +373,37 @@ def make_grouped_rotation(msinterp, plan):
     newdirs (B, K, 3)) -> (B, K, Nseq, N)``.
     """
     S = msinterp.Gms_un.size
-    Kmax = msinterp.xs.shape[1]
     groups, inv = {}, {}
     for role, shell in (("lo", plan.shell_lo), ("hi", plan.shell_hi)):
         groups[role] = [(s, np.flatnonzero(shell == s)) for s in range(S)
                         if np.any(shell == s)]
         inv[role] = np.argsort(np.concatenate(
             [ids for _s, ids in groups[role]]))
+    roles = list(groups)
+    # per role: its groups' sequence indices, then its inverse permutation
+    index_sets = [ids for role in roles for _s, ids in groups[role]] + [
+        inv[role] for role in roles]
+    consts = _device_consts(
+        msinterp, plan, sorted({s for role in roles for s, _ in groups[role]}),
+        index_sets, [plan.wG])
 
     def rotate(tables_ys, newdirs):
         B, K, _ = newdirs.shape
-        dt, dev = tables_ys.dtype, tables_ys.device
-        x = _abs_gdotn(plan.gdir, newdirs, dt, dev)           # (BK, Nseq)
-        kiota = torch.arange(Kmax, device=dev)
-        R = {}
-        for role, grp in groups.items():
-            outs = [torch.matmul(_lerp_weights(
-                msinterp, s, x[:, torch.as_tensor(ids, device=dev)], kiota),
-                tables_ys[s]) for s, ids in grp]
-            R[role] = torch.cat(outs, dim=1)[
-                :, torch.as_tensor(inv[role], device=dev)]
-        w = torch.as_tensor(plan.wG, dtype=dt, device=dev)[None, :, None]
+        g, kiota, xs, idx, (wG,) = consts(tables_ys.dtype, tables_ys.device)
+        x = _abs_gdotn(g, newdirs)                            # (BK, Nseq)
+        R, k = {}, 0
+        for role in roles:
+            outs = []
+            for s, _ids in groups[role]:
+                outs.append(torch.matmul(_lerp_weights(
+                    xs[s], int(msinterp.cnt[s]), x[:, idx[k]], kiota),
+                    tables_ys[s]))
+                k += 1
+            R[role] = outs
+        for role in roles:
+            R[role] = torch.cat(R[role], dim=1)[:, idx[k]]
+            k += 1
+        w = wG[None, :, None]
         D = R["lo"] + w * (R["hi"] - R["lo"])
         return D.reshape(B, K, plan.gdir.shape[0], -1)
 
@@ -388,9 +422,9 @@ def make_grouped_rotation_paired(msinterp, plan):
     ``rotate(...)[..., q, :] == standard[..., perm[q], :]``. Consumers
     permute the measured signal and the fixed compartment columns with
     the same ``perm``; residuals, weights, R^2 and atom selections are
-    permutation-invariant.
+    permutation-invariant. The plan's arrays go to the device once for
+    each (device, dtype), not on every call.
     """
-    Kmax = msinterp.xs.shape[1]
     pair_ids = {}
     for q in range(plan.gdir.shape[0]):
         key = (int(plan.shell_lo[q]), int(plan.shell_hi[q]))
@@ -398,25 +432,25 @@ def make_grouped_rotation_paired(msinterp, plan):
     pairs = [(sl, sh, np.asarray(ids, np.int64))
              for (sl, sh), ids in sorted(pair_ids.items())]
     perm = np.concatenate([ids for _sl, _sh, ids in pairs]).astype(np.int32)
-    wG_h = plan.wG
+    consts = _device_consts(
+        msinterp, plan, sorted({s for sl, sh, _ in pairs for s in (sl, sh)}),
+        [ids for _sl, _sh, ids in pairs],
+        [plan.wG[ids] for _sl, _sh, ids in pairs])
 
     def rotate(tables_ys, newdirs):
         B, K, _ = newdirs.shape
-        dt, dev = tables_ys.dtype, tables_ys.device
-        x = _abs_gdotn(plan.gdir, newdirs, dt, dev)           # (BK, Nseq)
-        kiota = torch.arange(Kmax, device=dev)
+        g, kiota, xs, idx, wq = consts(tables_ys.dtype, tables_ys.device)
+        x = _abs_gdotn(g, newdirs)                            # (BK, Nseq)
 
         def weights(xq, s, scale):
-            return (_lerp_weights(msinterp, s, xq, kiota)
+            return (_lerp_weights(xs[s], int(msinterp.cnt[s]), xq, kiota)
                     * scale[None, :, None])
 
         outs = []
-        for sl, sh, ids in pairs:
-            ids_d = torch.as_tensor(ids, device=dev)
+        for (sl, sh, _ids), ids_d, w_d in zip(pairs, idx, wq):
             xq = x[:, ids_d]                                  # (BK, q)
-            wq = torch.as_tensor(wG_h[ids], dtype=dt, device=dev)
-            W = torch.cat([weights(xq, sl, 1.0 - wq),
-                           weights(xq, sh, wq)], dim=2)
+            W = torch.cat([weights(xq, sl, 1.0 - w_d),
+                           weights(xq, sh, w_d)], dim=2)
             T = torch.cat([tables_ys[sl], tables_ys[sh]], dim=0)
             outs.append(torch.matmul(W, T))
         D = torch.cat(outs, dim=1)

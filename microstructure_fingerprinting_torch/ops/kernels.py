@@ -19,13 +19,17 @@ Floating-point flags are part of the numerics, not tuning:
 ``EPS*d`` and 1e-12; flushed denormals or approximate divides move them),
 and no ``--use_fast_math``.
 
-``LAUNCHES`` counts, per kernel, the launches made through ``launch``;
-nothing else touches it. Under a ``utils.profiling.StageTimer`` each
-launch is its own stage "kernel <name>", inside the fit path's stage that
-holds it, so a stage splits into its kernel and the torch code around
-it. Importing this module needs neither ``nvcc`` nor a GPU.
+``LAUNCHES`` counts, per kernel, what the card runs: the launches made
+through ``launch`` and, for a CUDA graph (``models/graphs.py``), the
+launches its capture recorded, once each replay. Inside ``recorded()``
+(a capture, or its warm-up) a launch is kept apart instead of counted.
+Under a ``utils.profiling.StageTimer`` each launch is its own stage
+"kernel <name>", inside the fit path's stage that holds it, so a stage
+splits into its kernel and the torch code around it. Importing this
+module needs neither ``nvcc`` nor a GPU.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -67,11 +71,35 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 BUILD_INFO = {}
 _lib = None
+_RECORDING = []
 
 
 def reset_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def recorded():
+    """Launches made inside go to the yielded dict (kernel -> count),
+    not to ``LAUNCHES``: a graph's capture, whose launches count at each
+    replay, and its warm-up."""
+    rec = {name: 0 for name in _SIGNATURES}
+    _RECORDING.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.remove(rec)
+
+
+def add_counts(counts):
+    """Add a replayed graph's launches (kernel -> count) to LAUNCHES."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+def _count(name):
+    (_RECORDING[-1] if _RECORDING else LAUNCHES)[name] += 1
 
 
 def _nvcc():
@@ -207,4 +235,4 @@ def launch(name, *args):
         err = fn(*conv, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("%s launch failed: cudaError %d" % (name, err))
-    LAUNCHES[name] += 1
+    _count(name)

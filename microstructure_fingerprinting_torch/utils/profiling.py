@@ -21,6 +21,13 @@ import torch
 _ACTIVE = []
 
 
+def active():
+    """Whether a ``StageTimer`` is active (its regions then need the
+    fit's steps run eagerly: events cannot be recorded inside a CUDA
+    graph's replay)."""
+    return bool(_ACTIVE)
+
+
 def _synchronize():
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)

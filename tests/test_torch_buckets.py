@@ -367,6 +367,7 @@ def mixed_fits(wl):
             out[name] = (fit, buf.getvalue())
     finally:
         jconfig.DEFAULTS["solver"], tconfig.DEFAULTS["solver"] = saved
+    vol["kw"] = kw
     return mix, vol, out
 
 
@@ -409,3 +410,33 @@ def test_fit_verbose_lines_match_jax(mixed_fits):
     assert lt == lj
     assert any(line.startswith("Voxel 1/16 (") for line in lt)
     assert sum(line.startswith("Config K=") for line in lt) == 4
+
+
+def test_fit_dispatches_every_bucket_before_the_host_solve(wl, mixed_fits,
+                                                           monkeypatch):
+    """MFModel.fit queues every fast-path bucket (``run_bucket_fast(...,
+    defer=True)``) before it runs the fascicle-free host solve
+    (``run_bucket_trivial``) and before it pulls any bucket, as the JAX
+    package does; the maps are the mixed fit's, bit for bit."""
+    _mix, vol, out = mixed_fits
+    events = []
+    fast, trivial = tfit.run_bucket_fast, tfit.run_bucket_trivial
+
+    def fast_spy(*a, **k):
+        assert k["defer"] is True
+        events.append("dispatch")
+        finish = fast(*a, **k)
+        return lambda: events.append("pull") or finish()
+
+    monkeypatch.setattr(tfit, "run_bucket_fast", fast_spy)
+    monkeypatch.setattr(tfit, "run_bucket_trivial", lambda *a, **k:
+                        events.append("host solve") or trivial(*a, **k))
+    monkeypatch.setitem(tconfig.DEFAULTS, "solver", dataclasses.replace(
+        tconfig.DEFAULTS["solver"], twopass_rows=16))
+    fit = mft.MFModel(_dictionary(wl)).fit(
+        vol["data"], vol["mask"], vol["numfasc"],
+        **dict(vol["kw"], verbose=0), device="cpu")
+    assert events == ["dispatch"] * 3 + ["host solve"] + ["pull"] * 3
+    want = out["port"][0]
+    for p in want.param_names:
+        assert np.array_equal(getattr(fit, p), getattr(want, p)), p
