@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels of ``microstructure_fingerprinting_torch``
+Builds the seven CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
-both, then drives the main paths through ``MFModel.fit``: the flagship
+both (kernel 6, the df2 scan, on a chunk at [782, 782] and [782, 1];
+kernel 7, the double-float finalize, on the gathered columns of
+flagship, mixed and EAR chunks and, bit for bit, on columns whose
+largest value sits an ulp off a power of two), then drives the main
+paths through ``MFModel.fit``: the flagship
 [782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
 [782, 782, 1, 10] volume (552 sequences, 4096 voxels each, random
 directions, noiseless), and two volumes that mix the fast path's buckets
@@ -44,7 +48,7 @@ general volumes fitted with eager chunk steps (``models/graphs.eager()``)
 and through their CUDA graphs in turns, every graph fit's maps and
 launches bit for bit the eager fit's, with voxels/s of both routes, the
 captures, the memory the graphs hold and the device-idle share of a
-flagship and an EAR fit on each route. Every phase runs; exits non-zero
+flagship, an EAR and a mixed fit on each route. Every phase runs; exits non-zero
 on any failure; needs one CUDA device. The last line of standard output
 is the JSON summary {"ok": true, "device": {...}}; the kernel table is
 the JSON line before the card's name and power limit, with kernel 1 in
@@ -83,7 +87,7 @@ CHUNK = 512           # voxels per chunk of the fit (MFModel.fit default)
 #: voxels per call of each plain version when it is held against its
 #: kernel on a whole chunk (bounds the plain versions' temporaries)
 SLICE = {"prep_block": 128, "rowmin3": 64, "rescan3": 512, "rowmin4": 16,
-         "rescan4": 64, "rescan3_ear": 64}
+         "rescan4": 64, "rescan3_ear": 64, "df2scan": 64}
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, dense; the
 #: float32 rate is outside the tensor cores), for the kernels' bounds
@@ -95,6 +99,11 @@ PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 CHAIN_OPS = {
     "rowmin3": lambda nx, ns: 70,
     "rescan3": lambda nx, ns: 521,
+    # 6 Dekker products of 24 (two splits of 4, 9 for the error, 4 for
+    # the cross terms, 3 to renormalise), a compensated sum of 4 terms
+    # (25), 5 values, det12 / w1D / w2D (9), a divide, the case logic
+    # (14 compares), the scale by 2 and the row minimum's compare (4)
+    "df2scan": lambda nx, ns: 202,
     "rowmin4": lambda nx, ns: 30 + 37 * nx + 47 * ns,
     "rescan4": lambda nx, ns: 120 + 173 * nx + 145 * ns,
 }
@@ -167,12 +176,14 @@ EXACT_VOX = 256
 #: share is traced on both routes
 GRAPH_VOLUMES = ("flagship", "EAR", "mixed", "ear_mixed", "general")
 GRAPH_TURNS = ("eager", "graph", "graph", "eager") * 2
-IDLE_VOLUMES = ("flagship", "EAR")
+IDLE_VOLUMES = ("flagship", "EAR", "mixed")
 #: the repo's frozen end-to-end fixture (tests/test_golden.py)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_fit.npz")
 
 RECORD = {}
+#: max|kernel - plain| of kernel 7 in the phases after the kernels phase
+FINALIZE_ERR = []
 
 
 def log(msg):
@@ -225,6 +236,19 @@ def scan_ops(name, B, S, n1p, n2p, nx=0, ns=0, chain=CHAIN_OPS):
         gram = {"int8": 2 * 4 * S * pts, "f32": 2 * 2 * S * pts}
     gram["f32"] = gram.get("f32", 0.0) + chain[name](nx, ns) * pts
     return gram
+
+
+def finalize_ops(B, S, C):
+    """Operations of kernel 7 (counted from ``csrc/finalize.cu``): per
+    sample and column ~15 to scale and quantize; per entry i <= j of
+    the (C + 1)^2 Gram 8 integer operations, per entry used 4 float64;
+    per voxel the solver's double-float chain, ~20 operations a product
+    or sum: 1 divide and quotient form for C = 1, ~60 df operations for
+    C = 2, ~250 for C = 3, ~1,500 for C = 4 (15 supports, Cramer)."""
+    K = C + 1
+    sample = 15 * K + 8 * K * (K + 1) // 2 + 4 * (C * K + 1)
+    solver = 20 * {1: 10, 2: 60, 3: 250, 4: 1500}[C]
+    return {"f32": float(B) * (S * sample + solver)}
 
 
 def prep_ops(A, n_rhs):
@@ -420,6 +444,103 @@ def check_rescan(name, kern, plain, top1, B, n, n2=None):
     return err, k
 
 
+def check_df2(rows, A1, A2, a3, y):
+    """Kernel 6 against its plain version on the chunk at the fit's two
+    shapes, [782, 782] (two fascicles without CSF: A2) and [782, 1] (one
+    fascicle + CSF: a3): per-row minima by ``held``, first i2 and the
+    top-1 candidates of ``df2_candidates(M=1)`` exact (against
+    ``df2_candidates_plain``); timed. rows["df2scan"] is the [782, 782]
+    row; both are recorded."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import dfscan
+    B, S = y.shape
+    err = 0.0
+    for name, blk in (("782 x 782", A2), ("782 x 1", a3)):
+        n2 = blk.shape[2]
+        ops, _yn = dfscan.df2_scan_operands(A1, blk, y)
+        kern = lambda: dfscan.df2_rows(*ops, n1=N_ATOM, n2=n2)
+        plain = lambda: plain_sliced(
+            lambda *o: dfscan.df2_rows_twin(*o, n1=N_ATOM, n2=n2), ops,
+            SLICE["df2scan"])
+        k, p = kern(), plain()
+        what = "df2scan %s, %d voxels" % (name, B)
+        err = max(err, held(what + " row minima", k[0], p[0]))
+        held(what + " first i2", k[1], p[1], exact=True)
+        ck = dfscan.df2_candidates(A1, blk, y, M=1)[0]
+        cp = plain_sliced(
+            lambda a, b_, c: dfscan.df2_candidates_plain(a, b_, c, 1),
+            (A1, blk, y), SLICE["df2scan"])[0]
+        if not torch.equal(ck, cp):
+            raise AssertionError(what + ": top-1 candidates differ")
+        # the bytes of the grid's own rows and columns: the operands'
+        # padding (rows to N1p, columns to a multiple of 64) is not work
+        cut = lambda i: N_ATOM if i in (0, 1, 2, 3, 8) else n2
+        real = [o if i == 10 else o[..., :cut(i)] for i, o in enumerate(ops)]
+        r = row(0.0, timed(kern), timed(plain, reps=1),
+                nbytes(real, [t[:, :N_ATOM] for t in k]),
+                scan_ops("df2scan", B, S, N_ATOM, n2))
+        RECORD.setdefault("df2scan", {})[name] = r
+        log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)"
+            % (what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+        if n2 > 1:
+            rows["df2scan"] = dict(r)
+        del ops, k, p
+    rows["df2scan"]["max_abs_err"] = err
+
+
+def gathered(D, ids, extra=()):
+    """The columns a fit's finalize gathers: D[:, k][:, :, ids[:, k]] for
+    each fascicle k of ``ids`` (B, K), then the ``extra`` (B, S, 1)
+    columns, as one (B, S, C) tensor."""
+    import torch
+    B, _K, S, _N = D.shape
+    idx = torch.as_tensor(ids, dtype=torch.int64, device=D.device)
+    cols = [torch.gather(D[:, k], 2, idx[:, None, k:k + 1].expand(B, S, 1))
+            for k in range(idx.shape[1])]
+    return torch.cat(cols + list(extra), dim=2).contiguous()
+
+
+def check_finalize(label, cols, y, exact=False):
+    """Kernel 7 (``df_nnls_cols`` on the card) against its plain version
+    on the same columns: weights and residuals by ``held``; timed.
+    Returns the row and records it under ``label``."""
+    from microstructure_fingerprinting_torch.ops import dfscan
+    kern = lambda: dfscan.df_nnls_cols(cols, y)
+    plain = lambda: dfscan.df_nnls_cols_twin(cols, y)
+    k, p = kern(), plain()
+    what = "finalize %s, C = %d, %d voxels" % (label, cols.shape[2],
+                                               cols.shape[0])
+    err = max(held(what + " weights", k[0], p[0], exact),
+              held(what + " residuals", k[1], p[1], exact))
+    r = row(err, timed(kern), timed(plain, reps=1), nbytes(cols, y, k),
+            finalize_ops(*cols.shape))
+    RECORD.setdefault("finalize", {})[label] = r
+    log("%s: kernel %.3f ms vs plain %.3f (bound %.4f, %s)"
+        % (what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    return r
+
+
+def scale_edges(C, S, seed):
+    """Voxels whose largest |column| and |y| are 2^k (1 + 2^-23) and
+    2^k (1 - 2^-23) for k in -6, -1, 0, 3, 10: where log2 of a float32
+    can round onto k, so the kernel's scale must be torch's on the card
+    (tests/test_torch_finalize_kernel.py builds the same family)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    out_c, out_y = [], []
+    for k in (-6, -1, 0, 3, 10):
+        for u in (1 + 2.0 ** -23, 1 - 2.0 ** -23):
+            top = np.float32(2.0 ** k * u)
+            cols = np.float32(rng.rand(S, C) * 0.9 * top)
+            yy = np.float32(cols @ (rng.rand(C) + 0.2))
+            yy = np.float32(yy / np.abs(yy).max() * top)
+            cols[rng.randint(S, size=C), np.arange(C)] = top
+            out_c.append(cols)
+            out_y.append(yy)
+    on = lambda x: torch.as_tensor(np.stack(x), device="cuda")
+    return on(out_c), on(out_y)
+
+
 def phase_kernels(wl):
     """Kernels 1-3 against their plain PyTorch versions, on the card, at
     the flagship path's chunk of CHUNK voxels (the re-scan also on the
@@ -496,9 +617,26 @@ def phase_kernels(wl):
             RECORD["rescan3_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
     rows["rescan3"]["max_abs_err"] = err
+
+    # kernel 6 at [782, 782] and [782, 1]; kernel 7 on the chunk's planted
+    # columns (C = 3: two fascicles + CSF, the flagship's finalize), on one
+    # of them alone (C = 1, constructed), and bit for bit at the scales'
+    # edges for C = 1-4
+    check_df2(rows, A1, A2, a3, y)
+    D = torch.stack([A1, A2], dim=1)
+    gt = wl["gt_ids"][:CHUNK]
+    cols = gathered(D, gt, (a3,))
+    del D
+    rows["finalize"] = check_finalize("flagship", cols, y)
+    e1 = check_finalize("constructed", cols[:, :, :1].contiguous(), y)
+    rows["finalize"]["max_abs_err"] = max(rows["finalize"]["max_abs_err"],
+                                          e1["max_abs_err"])
+    for C in (1, 2, 3, 4):
+        check_finalize("scale edges", *scale_edges(C, S, 1200 + C),
+                       exact=True)
     RECORD["kernel_check_voxels"] = CHUNK
     log_rows(rows)
-    del A1, A2, a3, y
+    del A1, A2, a3, y, cols
     torch.cuda.empty_cache()
     return rows
 
@@ -600,6 +738,12 @@ def phase_ear_kernels(wl, sig_ear):
             RECORD["rescan4_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
     rows["rescan4"]["max_abs_err"] = err
+    # kernel 7 on the chunk's planted columns: two fascicles, CSF and EAR
+    # atom EAR_ATOM (C = 4, the EAR finalize)
+    cols = gathered(torch.stack([A1, A2], dim=1), wl["gt_ids"][:CHUNK],
+                    (a3, a4[:, :, EAR_ATOM:EAR_ATOM + 1]))
+    FINALIZE_ERR.append(check_finalize("EAR", cols, y)["max_abs_err"])
+    del cols
     log_rows(rows)
     del A1, A2, a3, a4, y
     torch.cuda.empty_cache()
@@ -873,8 +1017,8 @@ def phase_fit(wl, sig_ear=None):
     label = "EAR" if ear else "flagship"
     ys_np = wl["y_ear"] if ear else wl["y"]
     model, args, kw, _mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4") if ear else (
-        "prep_block", "rowmin3", "rescan3")
+    path = ("prep_block", "rowmin4", "rescan4", "finalize") if ear else (
+        "prep_block", "rowmin3", "rescan3", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
                                    np.full(N_VOX, 2), np.ones(N_VOX, bool),
@@ -883,7 +1027,8 @@ def phase_fit(wl, sig_ear=None):
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         **warm_fits(label, model, args, kw, launches,
-                    split=(("prep", path[0]), ("re-scan", path[2]))))
+                    split=(("prep", path[0]), ("re-scan", path[2]),
+                           ("finalize", "finalize"))))
     return launches
 
 
@@ -926,29 +1071,55 @@ def check_rescan3_ear_grid(wl, mix, sig_ear):
 
 
 def df2_chunk_cost(wl):
-    """The eager-torch df2 scan (``dfscan.df2_candidates``, M = 1) on one
-    CHUNK-voxel chunk at both of its shapes, [782, 782] (two fascicles
-    without CSF) and [782, 1] (one fascicle + CSF): device ms a chunk and
-    the most memory it allocates above what was held before it."""
+    """The df2 scan (``dfscan.df2_candidates``, M = 1) on one CHUNK-voxel
+    chunk at both of its shapes, [782, 782] (two fascicles without CSF)
+    and [782, 1] (one fascicle + CSF), by the fit's route (kernel 6 with
+    its torch hoists and cross-row minimum) and by the eager plain
+    version (``df2_candidates_plain``), in turns: device ms a chunk and
+    the most memory each allocates above what was held before it."""
     import torch
     from microstructure_fingerprinting_torch.ops import dfscan
     D, y, a3 = voxel_inputs(wl, np.arange(CHUNK), wl["y"], "cuda")
     out = {}
     for name, A2 in (("782 x 782", D[:, 1]), ("782 x 1", a3)):
-        scan = lambda: dfscan.df2_candidates(D[:, 0], A2, y, M=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        scan()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        ms = timed(scan, reps=2)
-        out[name] = {"ms": ms, "peak_bytes": peak}
-        log("df2 scan %s, %d voxels: %.3f ms a chunk, peak %.2f GB above "
-            "its inputs" % (name, CHUNK, ms, peak / 1e9))
+        routes = {
+            "kernel": lambda: dfscan.df2_candidates(D[:, 0], A2, y, M=1),
+            "plain": lambda: dfscan.df2_candidates_plain(D[:, 0], A2, y, 1)}
+        rec = {}
+        for route in ("plain", "kernel", "kernel", "plain"):
+            scan = routes[route]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            scan()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = timed(scan, reps=2)
+            rec.setdefault(route, {"ms": [], "peak_bytes": peak})["ms"].append(
+                ms)
+        out[name] = rec
+        log("df2 scan %s, %d voxels: kernel route %s ms a chunk, peak %.2f "
+            "GB above its inputs; plain %s ms, peak %.2f GB" % (
+                name, CHUNK, "/".join("%.3f" % m for m in rec["kernel"]["ms"]),
+                rec["kernel"]["peak_bytes"] / 1e9,
+                "/".join("%.3f" % m for m in rec["plain"]["ms"]),
+                rec["plain"]["peak_bytes"] / 1e9))
     RECORD["df2_chunk"] = out
     del D, y, a3
     torch.cuda.empty_cache()
+
+
+def check_finalize_mixed(wl, mix):
+    """Kernel 7 on the planted columns of the mixed volume's df2 buckets,
+    C = 2 each: a chunk of one fascicle + CSF, and the 256 voxels of two
+    fascicles without CSF."""
+    for (K, csf), name in (((1, True), "mixed (1, CSF)"),
+                           ((2, False), "mixed (2, no CSF)")):
+        vox = mix["buckets"][(K, csf)][:CHUNK]
+        D, y, a3 = voxel_inputs(wl, vox, mix["y"], "cuda")
+        cols = gathered(D[:, :K], wl["gt_ids"][vox, :K], (a3,) if csf else ())
+        FINALIZE_ERR.append(check_finalize(name, cols, y)["max_abs_err"])
+        del D, y, a3, cols
 
 
 def cross_check(label, wl, mix, buckets, sig_ear):
@@ -991,22 +1162,25 @@ def phase_mixed(wl, sig_ear=None):
     ear = sig_ear is not None
     label = "ear_mixed" if ear else "mixed"
     model, args, kw, mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4", "rescan3") if ear else (
-        "prep_block", "rowmin3", "rescan3")
+    path = ("prep_block", "rowmin4", "rescan4", "rescan3", "finalize") if \
+        ear else ("prep_block", "rowmin3", "rescan3", "df2scan", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear)
     check_maps(label, fit, ear)
+    split = (("finalize", "finalize"),) if ear else (
+        ("df2 scan", "df2scan"), ("finalize", "finalize"))
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         voxels={"K=%d csf=%d" % k: len(v) for k, v in mix["buckets"].items()},
-        **warm_fits(label, model, args, kw, launches))
+        **warm_fits(label, model, args, kw, launches, split=split))
     del fit, model
     if ear:
         rescan3_ear = check_rescan3_ear_grid(wl, mix, sig_ear)
     else:
         rescan3_ear = None
         df2_chunk_cost(wl)
+        check_finalize_mixed(wl, mix)
     cross_check(label, wl, mix, [(1, True)] if ear else [(1, True),
                                                          (2, False)],
                 sig_ear)
@@ -2051,6 +2225,9 @@ KERNEL_META = {
     "rescan3": ("csrc/rescan3.cu", "ops/pallas_dfscan.py:402"),
     "rowmin4": ("csrc/rowmin4.cu", "ops/f32scan.py:1042"),
     "rescan4": ("csrc/rescan4.cu", "ops/pallas_dfscan.py:911"),
+    # XLA in the JAX package, no Pallas: the jitted function's line
+    "df2scan": ("csrc/df2scan.cu", "ops/dfscan.py:428"),
+    "finalize": ("csrc/finalize.cu", "ops/dfscan.py:1190"),
 }
 
 
@@ -2072,12 +2249,12 @@ def main():
     # kernel rows, and the launches of each fit summed per row: kernel 1
     # has a row per rhs width (2 columns without EAR, 12 with), kernel 3
     # runs in the flagship and mixed fits and, on the EAR grid, in the
-    # EAR-mixed one
+    # EAR-mixed one, kernel 6 in the mixed one, kernel 7 in all four
     rows, launches = {}, {}
     plain3 = {"prep_block": "prep_block", "rowmin3": "rowmin3",
-              "rescan3": "rescan3"}
+              "rescan3": "rescan3", "finalize": "finalize"}
     plain4 = {"prep_block_ear": "prep_block", "rowmin4": "rowmin4",
-              "rescan4": "rescan4"}
+              "rescan4": "rescan4", "finalize": "finalize"}
 
     def counted(label, counts, by_row):
         RECORD.setdefault("launches_by_fit", {})[label] = counts
@@ -2094,7 +2271,8 @@ def main():
             ("kernels", lambda: rows.update(phase_kernels(wl))),
             ("fit", lambda: counted("flagship", phase_fit(wl), plain3)),
             ("overflow", phase_overflow),
-            ("mixed", lambda: counted("mixed", phase_mixed(wl)[0], plain3)),
+            ("mixed", lambda: counted("mixed", phase_mixed(wl)[0],
+                                      dict(plain3, df2scan="df2scan"))),
             ("ear_kernels", lambda: rows.update(phase_ear_kernels(wl,
                                                                   sig_ear))),
             ("ear_fit", lambda: counted("EAR", phase_fit(wl, sig_ear),
@@ -2128,6 +2306,8 @@ def main():
                 replays=[e["replays"] for e in st])
         graphs.clear()
         torch.cuda.empty_cache()
+    rows["finalize"]["max_abs_err"] = max([rows["finalize"]["max_abs_err"]]
+                                          + FINALIZE_ERR)
     table = {"kernels": [
         dict(name=name, route="cuda",
              source="microstructure_fingerprinting_torch/" + src,

@@ -17,9 +17,9 @@ which this package never imports), with its user surface:
 and the same workflow from the shell: ``python -m
 microstructure_fingerprinting_torch fit|cleanup ...`` (``cli.py``).
 
-Five CUDA kernels carry the scans (ops/prep.py, ops/f32scan.py,
-ops/rescan.py); ``LAUNCHES`` counts their launches. Each has a plain
-PyTorch twin that runs for CPU tensors.
+Seven CUDA kernels carry the scans and the finalize (ops/prep.py,
+ops/f32scan.py, ops/rescan.py, ops/dfscan.py); ``LAUNCHES`` counts their
+launches. Each has a plain PyTorch twin that runs for CPU tensors.
 
 The names below are imported on first use, so that the command line's
 ``--help`` imports no torch.

@@ -4,7 +4,7 @@ Plants noiseless atom mixtures from a UKBB-scale correlated dictionary
 (986 zeppelin atoms, the atom count of the reference's UK-Biobank
 subject dictionary) and checks that ``models/fit.run_bucket_fast``
 (double-float scans, kernels 1-5 on the card, and the double-float
-finalize) recovers them:
+finalize, kernel 7) recovers them:
 
 * 2 fascicles + CSF: both fascicle atom IDs must match the planted ones
   exactly (the planted combination is the unique optimum).

@@ -10,7 +10,11 @@ noiseless mixtures of planted atoms, so every 2-fascicle voxel's first
 fascicle d_par should be exact.
 
     python -m microstructure_fingerprinting_torch.examples.whole_brain \
-        [n_voxels] [--atoms 782] [--device cuda]
+        [n_voxels] [--atoms 782] [--device cuda] [--verbose 1]
+
+``--verbose 2`` prints each bucket's "dispatched" and "pulled" lines.
+After each fit it prints the kernel launches: a row pass's launches
+beyond one a chunk of its bucket are that bucket's overflow batches.
 """
 
 import argparse
@@ -22,6 +26,7 @@ import torch
 
 from .. import MFModel
 from .. import testing as mft
+from ..ops import kernels
 from ..ops import interp as mfi
 from ..utils.scheme import b_values
 
@@ -105,6 +110,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=None,
                     help="fit chunk (the fit's default when omitted)")
+    ap.add_argument("--verbose", type=int, default=1,
+                    help="the timed fits' verbose level")
     args = ap.parse_args(argv)
     n_vox = args.n
     print("Synthesizing %d voxels (552 seqs, %d atoms)..."
@@ -134,14 +141,17 @@ def main(argv=None):
     out = {"mix": dict(mix)}
     for label, parallel in (("one device", False),
                             ("parallel=True, %d device(s)" % n_cards, True)):
+        kernels.reset_counts()
         t0 = time.time()
-        f = model.fit(vol["data"], vol["mask"], vol["numfasc"], verbose=1,
-                      parallel=parallel, **kw)
+        f = model.fit(vol["data"], vol["mask"], vol["numfasc"],
+                      verbose=args.verbose, parallel=parallel, **kw)
         if torch.device(args.device).type == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0
         print("%s: fit wall-clock %.2f s (%d voxels -> %.0f voxels/s)"
               % (label, wall, act, act / wall))
+        print("%s: kernel launches %s"
+              % (label, {k: v for k, v in kernels.LAUNCHES.items() if v}))
         out[label] = act / wall
     r2 = f.R2.reshape(-1)
     solved = (K + csf + ear) > 0

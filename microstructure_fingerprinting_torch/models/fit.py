@@ -14,11 +14,15 @@ a double-float finalize of the winner on the device:
     full-grid re-scan (kernel 3);
   * 2 fascicles + CSF + EAR: the 4-block two-pass scan (kernels 1, 4, 5)
     or its full-grid re-scan (kernel 5);
-  * 1 fascicle + CSF: ``dfscan.df2_candidates`` with the CSF column as
-    the second axis;
+  * 1 fascicle + CSF: ``dfscan.df2_candidates`` (kernel 6) with the CSF
+    column as the second axis;
   * 1 fascicle + CSF + EAR: kernel 3 on the full [N, E, 1] grid, the EAR
     atoms as the second axis and CSF the fixed third block;
-  * 2 fascicles without CSF: ``dfscan.df2_candidates`` on [N, N].
+  * 2 fascicles without CSF: ``dfscan.df2_candidates`` (kernel 6) on
+    [N, N];
+
+and every one ends in ``dfscan.df_nnls_cols`` (kernel 7) on the winner's
+columns.
 
 ``run_bucket`` is the general path (the JAX package's ``engine='xla'``)
 for any bucket of 1-4 blocks: the gather-and-lerp rotation

@@ -20,6 +20,14 @@ buckets run:
     double-float values and f32 decision booleans (the device finalize),
     for 1 to 4 columns.
 
+Two of these run a hand-written kernel on CUDA tensors, the plain code
+on CPU tensors (the JAX package runs both as plain XLA): ``df2_candidates``
+at M = 1 launches kernel 6 (``csrc/df2scan.cu``: ``df2_scan_operands``,
+``df2_rows``, ``df2_top1_from_rows``), ``df_nnls_cols`` kernel 7
+(``csrc/finalize.cu``); their plain versions are ``df2_rows_twin`` /
+``df2_candidates_plain`` and ``df_nnls_cols_twin``. A failed build or
+launch raises.
+
 Sums over the sequence axis: integer level products are exact in any
 order and are computed as float64 matmuls (exact below 2^53; int8
 matmul on the CPU would wrap around in int8). Floating cross products
@@ -34,8 +42,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import df32
+from . import kernels
 from . import nnls as mfn
 
 _S1 = 2.0 ** -7
@@ -121,6 +131,22 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
     one fascicle + CSF (the CSF column as the second axis) and two
     fascicles without CSF.
 
+    On CUDA tensors M = 1 is kernel 6 (``csrc/df2scan.cu``), the top-1 of
+    ``df2_candidates_plain`` (by ``df2_scan_operands``, ``df2_rows`` and
+    ``df2_top1_from_rows``); any other call is ``df2_candidates_plain``.
+    Returns (cand (B, M, 2) int32 [i1, i2], res (B, M) residuals of the
+    normalized problem, y_sq (B,) raw ||y||^2)."""
+    if M == 1 and A1.is_cuda:
+        ops, yn = df2_scan_operands(A1, A2, y, tile)
+        row_val, row_i2 = df2_rows(*ops, n1=A1.shape[2], n2=A2.shape[2])
+        cand, vals = df2_top1_from_rows(row_val, row_i2, A2.shape[2], tile)
+        return cand, vals, yn * yn
+    return df2_candidates_plain(A1, A2, y, M, tile)
+
+
+def df2_candidates_plain(A1, A2, y, M=8, tile=256):
+    """``df2_candidates`` in plain torch, any M.
+
     A1 (B, S, N1), A2 (B, S, N2), y (B, S). The N1 axis is scanned in
     ``tile``-atom tiles; a float32 (B, tile, N2) tensor of the chain is
     410 MB at B = 512, tile = 256, N2 = 782 (the float64 Gram products
@@ -131,13 +157,41 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
     problem, y_sq (B,) raw ||y||^2)."""
     B, S, N1 = A1.shape
     N2 = A2.shape[2]
+    qA1, qA2, rows, cols, w_, yn = _df2_hoists(A1, A2, y, tile)
+    N1p = qA1[0].shape[2]
+    tile = min(tile, N1p)
+    col = lambda x: (x[0][:, None, :], x[1][:, None, :])
+    colh = tuple(col(x) for x in cols[:3]) + (cols[3][:, None, :],)
+    wv = (w_[0][:, :, None], w_[1][:, :, None])
+    wf = _val(w_)[:, :, None]
+    i2 = torch.arange(N2, device=y.device)
+
+    vals = torch.full((B, M), math.inf, device=y.device)
+    flats = torch.zeros((B, M), dtype=torch.int32, device=y.device)
+    for st in range(0, N1p, tile):
+        sl = slice(st, st + tile)
+        rowd = lambda x: (x[0][:, sl, None], x[1][:, sl, None])
+        aa = df_gram_tile(tuple(x[:, :, sl] for x in qA1), qA2, N2)
+        rowh = tuple(rowd(x) for x in rows[:3]) + (rows[3][:, sl, None],)
+        res = _df2_res(aa, rowh, colh, wv, wf)
+        i1 = torch.arange(st, st + tile, device=y.device)[:, None]
+        res = torch.where(i1 < N1, res, math.inf)
+        gflat = (i1 * N2 + i2[None, :]).reshape(1, -1)
+        tv, tf = mfn._tile_topm(res.reshape(B, -1), gflat, M)
+        vals, flats = mfn._merge_topm(vals, flats, tv, tf, M)
+    cand = torch.stack([flats // N2, flats % N2], dim=2).to(torch.int32)
+    return cand, vals, yn * yn
+
+
+def _df2_hoists(A1, A2, y, tile):
+    """The df2 scan's normalization, quantize2 and per-row / per-column
+    double-float factors, rows padded to a multiple of ``tile``. Returns
+    (qA1, qA2, rows (d1, p, p^2, res1), cols (d2, q, d2 w - q^2, res2),
+    w (hi, lo of (B, 1)), y norm)."""
     A1p, _ = mfn._pad_cols(A1.float(), tile)
     A1h, _an1 = mfn._normalize_block(A1p)
     A2h, _an2 = mfn._normalize_block(A2.float())
     yh, yn, _ys = mfn._normalize_y(y.float())
-    N1p = A1h.shape[2]
-    tile = min(tile, N1p)
-
     qA1 = quantize2(A1h)
     qA2 = quantize2(A2h)
     qy = quantize2(yh)
@@ -153,39 +207,143 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
     res1_row = _val(_add(_mul(d1, w_), _neg(Rp2))) / _val(d1)
     Cq2 = _mul(q_, q_)
     res2_col = _val(_add(_mul(d2, w_), _neg(Cq2))) / _val(d2)
-    wf = _val(w_)[:, :, None]
-    wv = (w_[0][:, :, None], w_[1][:, :, None])
-    d2c = (d2[0][:, None, :], d2[1][:, None, :])
-    qc = (q_[0][:, None, :], q_[1][:, None, :])
-    d2w_q2 = _add(_mul(d2c, wv), _neg(_mul(qc, qc)))
-    d2cf, qcf = _val(d2c), _val(qc)
-    i2 = torch.arange(N2, device=y.device)
+    d2w_q2 = _add(_mul(d2, w_), _neg(_mul(q_, q_)))
+    return (qA1, qA2, (d1, p_, Rp2, res1_row), (d2, q_, d2w_q2, res2_col),
+            w_, yn)
 
-    vals = torch.full((B, M), math.inf, device=y.device)
-    flats = torch.zeros((B, M), dtype=torch.int32, device=y.device)
-    for st in range(0, N1p, tile):
-        sl = slice(st, st + tile)
-        rowd = lambda x: (x[0][:, sl, None], x[1][:, sl, None])
-        aa = df_gram_tile(tuple(x[:, :, sl] for x in qA1), qA2, N2)
-        d1t, pt, Rp2t = rowd(d1), rowd(p_), rowd(Rp2)
-        num12 = _accumulate([
-            _mul(d1t, d2w_q2), _neg(_mul(Rp2t, d2c)),
-            _scale(_mul(aa, _mul(pt, qc)), 2.0),
-            _neg(_mul(_mul(aa, aa), wv))])
-        af, d1tf, ptf = _val(aa), _val(d1t), _val(pt)
-        det12 = d1tf * d2cf - af * af
-        w1D = d2cf * ptf - af * qcf
-        w2D = d1tf * qcf - af * ptf
-        res, _ = _two_var_cases(num12 / det12, w1D, w2D, ptf, qcf,
-                                res1_row[:, sl, None], res2_col[:, None, :],
-                                wf)
-        i1 = torch.arange(st, st + tile, device=y.device)[:, None]
-        res = torch.where(i1 < N1, res, math.inf)
-        gflat = (i1 * N2 + i2[None, :]).reshape(1, -1)
-        tv, tf = mfn._tile_topm(res.reshape(B, -1), gflat, M)
-        vals, flats = mfn._merge_topm(vals, flats, tv, tf, M)
-    cand = torch.stack([flats // N2, flats % N2], dim=2).to(torch.int32)
-    return cand, vals, yn * yn
+
+def _df2_res(aa, row, col, wv, wf):
+    """The residual of the points of Gram ``aa`` (hi, lo): the
+    compensated bordered 3x3 determinant of {1, 2} and the reference's
+    2-variable case analysis over the single-atom residuals. ``row`` =
+    (d1, p, p^2, res1) and ``col`` = (d2, q, d2 w - q^2, res2) broadcast
+    against ``aa``, as do wv (y'y, hi and lo) and wf (its value)."""
+    d1t, pt, Rp2t, res1 = row
+    d2c, qc, d2w_q2, res2 = col
+    num12 = _accumulate([
+        _mul(d1t, d2w_q2), _neg(_mul(Rp2t, d2c)),
+        _scale(_mul(aa, _mul(pt, qc)), 2.0),
+        _neg(_mul(_mul(aa, aa), wv))])
+    af, d1tf, ptf = _val(aa), _val(d1t), _val(pt)
+    d2cf, qcf = _val(d2c), _val(qc)
+    det12 = d1tf * d2cf - af * af
+    w1D = d2cf * ptf - af * qcf
+    w2D = d1tf * qcf - af * ptf
+    res, _ = _two_var_cases(num12 / det12, w1D, w2D, ptf, qcf, res1, res2,
+                            wf)
+    return res
+
+
+#: column tile of csrc/df2scan.cu (a grid with N2 = 1 takes its narrow
+#: path, which needs rows in multiples of DF2_NARROW)
+DF2_TN = 64
+DF2_NARROW = 128
+
+
+def df2_scan_operands(A1, A2, y, tile=256):
+    """Normalize, quantize and hoist for the df2 scan, as
+    ``df2_candidates_plain`` does: rows padded to a multiple of ``tile``
+    (zero atoms), columns to one of DF2_TN where N2 > 1. Returns (kernel
+    operands (q1a, q2a, a1h, ra int8/f32 (B, S, N1p); q1b, q2b, rb, ab
+    (B, S, N2pb); row_pack (B, 8, N1p) = d1, p, p^2 (hi, lo each), res1;
+    col_pack (B, 8, N2pb) = d2, q, d2 w - q^2 (hi, lo each), res2; vox
+    (B, 4) = w (hi, lo), its value), y norm (B,))."""
+    N2 = A2.shape[2]
+    qA1, qA2, rows, cols, w_, yn = _df2_hoists(A1, A2, y, tile)
+    pack = lambda h: torch.stack([h[0][0], h[0][1], h[1][0], h[1][1],
+                                  h[2][0], h[2][1], h[3],
+                                  torch.zeros_like(h[3])], dim=1)
+    wf = _val(w_)
+    vox = torch.cat([w_[0], w_[1], wf, torch.zeros_like(wf)], dim=1)
+    N2pb = N2 if N2 == 1 else int(math.ceil(N2 / DF2_TN) * DF2_TN)
+    padc = lambda x: F.pad(x, (0, N2pb - N2)).contiguous()
+    # a1h = a + R of quantize2, exactly: the row block's normalized atoms
+    ops = (qA1[0].contiguous(), qA1[1].contiguous(),
+           (qA1[3] + qA1[2]).contiguous(), qA1[2].contiguous(),
+           padc(qA2[0]), padc(qA2[1]), padc(qA2[2]), padc(qA2[3]),
+           pack(rows).contiguous(), padc(pack(cols)), vox.contiguous())
+    return ops, yn
+
+
+def df2_rows_twin(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,
+                  vox, n1, n2):
+    """Plain PyTorch version of kernel 6: per row i1 of the [N1p, n2]
+    grid the least residual in IEEE total order (``nnls._tile_topm``'s
+    order) and its first i2; rows past n1 give (+inf, 0). Returns
+    (row_val (B, N1p) f32, row_i2 (B, N1p) int32)."""
+    e = "bsi,bsj->bij"
+    t11 = idot(e, q1a, q1b)
+    t12 = idot(e, q1a, q2b) + idot(e, q2a, q1b)
+    t22 = idot(e, q2a, q2b)
+    aa = df32.df_from_sum(
+        t11.float() * 2.0 ** -14, t12.float() * 2.0 ** -22,
+        t22.float() * 2.0 ** -30, fdot(e, a1h, rb), fdot(e, ra, ab))
+    aa = (aa[0][:, :, :n2], aa[1][:, :, :n2])
+    rows = lambda k: (row_pack[:, k][:, :, None],
+                      row_pack[:, k + 1][:, :, None])
+    cols = lambda k: (col_pack[:, k, :n2][:, None, :],
+                      col_pack[:, k + 1, :n2][:, None, :])
+    res = _df2_res(
+        aa, (rows(0), rows(2), rows(4), row_pack[:, 6][:, :, None]),
+        (cols(0), cols(2), cols(4), col_pack[:, 6, :n2][:, None, :]),
+        (vox[:, 0][:, None, None], vox[:, 1][:, None, None]),
+        vox[:, 2][:, None, None])
+    j = torch.argmin(mfn._total_order_key(res), dim=2, keepdim=True)
+    val = torch.gather(res, 2, j)[:, :, 0]
+    row = torch.arange(val.shape[1], device=val.device)[None, :]
+    return (torch.where(row < n1, val, math.inf),
+            torch.where(row < n1, j[:, :, 0], 0).to(torch.int32))
+
+
+def df2_rows(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox,
+             n1, n2):
+    """Kernel 6 on CUDA operands of ``df2_scan_operands``: what
+    ``df2_rows_twin`` returns."""
+    B, S, N1p = q1a.shape
+    N2pb = q1b.shape[2]
+    c = kernels.check
+    for t, n in ((q1a, "q1a"), (q2a, "q2a")):
+        c(t, torch.int8, (B, S, N1p), n)
+    for t, n in ((a1h, "a1h"), (ra, "ra")):
+        c(t, torch.float32, (B, S, N1p), n)
+    for t, n in ((q1b, "q1b"), (q2b, "q2b")):
+        c(t, torch.int8, (B, S, N2pb), n)
+    for t, n in ((rb, "rb"), (ab, "ab")):
+        c(t, torch.float32, (B, S, N2pb), n)
+    c(row_pack, torch.float32, (B, 8, N1p), "row_pack")
+    c(col_pack, torch.float32, (B, 8, N2pb), "col_pack")
+    c(vox, torch.float32, (B, 4), "vox")
+    if ((N2pb == 1 and (n2 != 1 or N1p % DF2_NARROW))
+            or (N2pb > 1 and (N1p % 32 or N2pb % DF2_TN))):
+        raise ValueError("unsupported df2 scan tiling (N1p %d, N2pb %d, "
+                         "n2 %d)" % (N1p, N2pb, n2))
+    row_val = torch.empty(B, N1p, dtype=torch.float32, device=q1a.device)
+    row_i2 = torch.empty(B, N1p, dtype=torch.int32, device=q1a.device)
+    kernels.launch("df2scan", q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack,
+                   col_pack, vox, row_val, row_i2, B, S, N1p, N2pb, n1, n2)
+    return row_val, row_i2
+
+
+def df2_top1_from_rows(row_val, row_i2, n2, tile=256):
+    """The top-1 of ``df2_candidates_plain`` from the per-row minima: in
+    each ``tile``-row tile the first row of least total-order key (so
+    the first (i1, i2) of the tile, as ``nnls._tile_topm``), then the
+    tiles merged into the empty pool (+inf, rank 0) as
+    ``nnls._merge_topm`` merges them (every NaN last, ties to the lowest
+    flat rank i1 * n2 + i2). Returns (cand (B, 1, 2) int32, vals (B, 1))."""
+    B, N1p = row_val.shape
+    T = N1p // tile
+    rv = row_val.reshape(B, T, tile)
+    r = torch.argmin(mfn._total_order_key(rv), dim=2, keepdim=True)
+    tv = torch.gather(rv, 2, r)[:, :, 0]
+    ti2 = torch.gather(row_i2.reshape(B, T, tile), 2, r)[:, :, 0].long()
+    ti1 = r[:, :, 0] + tile * torch.arange(T, device=r.device)[None, :]
+    vals = torch.full((B, 1), math.inf, device=row_val.device)
+    flats = torch.zeros((B, 1), dtype=torch.int32, device=row_val.device)
+    vals, flats = mfn._merge_topm(vals, flats, tv,
+                                  (ti1 * n2 + ti2).to(torch.int32), 1)
+    cand = torch.stack([flats // n2, flats % n2], dim=2).to(torch.int32)
+    return cand, vals
 
 
 def df3_candidates(A1, A2, a3, y, M=8, tile=256):
@@ -673,8 +831,33 @@ def df_nnls_cols(cols, y):
     (w (B, C) f32 raw-scale weights, res (B,) f32 raw residual).
     Columns and signal are scaled by per-column powers of two (exact),
     one packed df Gram of [cols | y] gives G, A'y and y'y, and the
-    closed-form solver runs with double-float values.
+    closed-form solver runs with double-float values. CUDA tensors launch
+    kernel 7 (``csrc/finalize.cu``), CPU tensors run
+    ``df_nnls_cols_twin``.
     """
+    if cols.is_cuda:
+        return _df_nnls_cols_cuda(cols, y)
+    return df_nnls_cols_twin(cols, y)
+
+
+def _df_nnls_cols_cuda(cols, y):
+    B, S, C = cols.shape
+    if not 1 <= C <= 4:
+        raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)
+    cols = cols.float().contiguous()
+    y = y.float().contiguous()
+    kernels.check(cols, torch.float32, (B, S, C), "cols")
+    kernels.check(y, torch.float32, (B, S), "y")
+    w = torch.empty(B, C, dtype=torch.float32, device=cols.device)
+    res = torch.empty(B, dtype=torch.float32, device=cols.device)
+    # the 3-variable Cramer tolerance as torch compares it: in float32
+    kernels.launch("finalize", cols, y, w, res, B, S, C,
+                   float(np.float32(-_TOL3)))
+    return w, res
+
+
+def df_nnls_cols_twin(cols, y):
+    """Plain PyTorch version of ``df_nnls_cols`` (kernel 7)."""
     B, S, C = cols.shape
     if not 1 <= C <= 4:
         raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)

@@ -52,7 +52,7 @@ USER_BUILD_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                               "microstructure_fingerprinting_torch",
                               "kernels")
 SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
-           "rescan4.cu")
+           "rescan4.cu", "df2scan.cu", "finalize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "rescan3": ("mf_rescan3", "ppppppppppppp" + "iiiii" + "f"),
     "rowmin4": ("mf_rowmin4", "ppppppppppp" + "iiiiiiiiiiiiii"),
     "rescan4": ("mf_rescan4", "ppppppppppppp" + "iiiiiiiiii" + "f"),
+    "df2scan": ("mf_df2scan", "ppppppppppppp" + "iiiiii"),
+    "finalize": ("mf_finalize", "pppp" + "iii" + "f"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

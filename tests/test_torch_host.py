@@ -257,8 +257,11 @@ def test_cpu_tensors_run_the_twins(rng):
     tf32scan.rowmin_4(A1, A2, a3, a4, y, colmin=True)  # prep + EAR row pass
     trescan.row_scan_df4(A1, A2, a3, a4, y)            # EAR re-scan
     tf32scan.df4_twopass(A1, A2, a3, a4, y, R=8)
+    tdfscan.df2_candidates(A1, A2, y, M=1)             # df2 scan
+    tdfscan.df_nnls_cols(torch.cat([A1[:, :, :2], a3], 2), y)  # finalize
     assert kernels.LAUNCHES == {"prep_block": 0, "rowmin3": 0,
-                                "rescan3": 0, "rowmin4": 0, "rescan4": 0}
+                                "rescan3": 0, "rowmin4": 0, "rescan4": 0,
+                                "df2scan": 0, "finalize": 0}
 
 
 def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
