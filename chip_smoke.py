@@ -2,13 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels of ``microstructure_fingerprinting_torch``
+Builds the nine CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
-both (kernel 6, the df2 scan, on a chunk at [782, 782] and [782, 1];
-kernel 7, the double-float finalize, on the gathered columns of
+both (kernels 9 and 6, the df2 scan's operands and the scan, on a chunk
+at [782, 782] and [782, 1]; kernel 8, the EAR re-scan's operands, on an
+EAR chunk at 256 x 256 and on the 782 x 782 grid for 8 voxels, each
+operand, and kernels 5 and 6 fed them and the plain ones; kernel 7, the
+double-float finalize, on the gathered columns of
 flagship, mixed and EAR chunks and, bit for bit, on columns whose
-largest value sits an ulp off a power of two), then drives the main
+largest value sits an ulp off a power of two), times the two scans'
+routes a chunk against the routes with the plain hoists and the plain
+versions, in turns, then drives the main
 paths through ``MFModel.fit``: the flagship
 [782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
 [782, 782, 1, 10] volume (552 sequences, 4096 voxels each, random
@@ -59,8 +64,9 @@ is run once cold (launch counts, recovery) and WARM_FITS times warm as
 a user runs it, every chunk step a CUDA graph replay (voxels/s, each
 bucket's wall time, as median and min-max), then once under the stage
 timer, which runs the steps eagerly: every stage and each bucket's
-stages, the flagship and EAR paths' "prep" and "re-scan" stages split
-into the kernel and the torch code around it. Each phase's graphs are
+stages, the flagship and EAR paths' "prep" and "re-scan" stages and the
+mixed path's "df2 scan" split into their kernels and the torch code
+around them. Each phase's graphs are
 recorded (captures, replays) and freed after it.
 """
 
@@ -107,6 +113,20 @@ CHAIN_OPS = {
     "rowmin4": lambda nx, ns: 30 + 37 * nx + 47 * ns,
     "rescan4": lambda nx, ns: 120 + 173 * nx + 145 * ns,
 }
+#: float32 operations of the chain of kernels 8 and 9 per atom, counted by
+#: hand from csrc/df4hoist.cu and csrc/df2hoist.cu as ``CHAIN_OPS`` counts
+#: (a Dekker product 24, a double-float sum 11, a divide ~30, a presplit
+#: write 3; the sub-supports {A, 3} ~450 and {A, 3, 4} ~1,000): a row and a
+#: column, nx = n3 + n4 extra columns, ns = n3 * n4 sweeps
+HOIST_CHAIN_OPS = {
+    "df4hoist": (lambda nx, ns: 600 + 57 * nx + 1750 * ns,
+                 lambda nx, ns: 600 + 510 * nx + 1660 * ns),
+    "df2hoist": (lambda nx, ns: 65, lambda nx, ns: 65),
+}
+#: float32 operations of quantize2 on one element (two levels: a divide,
+#: round, clamp, convert and multiply each, a subtract, an add, a subtract;
+#: the add of a + R and the two float64 conversions)
+QUANTIZE_OPS = 19
 #: the re-scans' chains before their products were fused (Dekker products
 #: on presplit halves), for the old bounds beside the new ones. Kernel 3's
 #: 400 is the count its bound rested on while it held that chain; counted
@@ -236,6 +256,21 @@ def scan_ops(name, B, S, n1p, n2p, nx=0, ns=0, chain=CHAIN_OPS):
         gram = {"int8": 2 * 4 * S * pts, "f32": 2 * 2 * S * pts}
     gram["f32"] = gram.get("f32", 0.0) + chain[name](nx, ns) * pts
     return gram
+
+
+def hoist_ops(name, B, S, n1, n2, n_small, nx=0, ns=0):
+    """Operations of kernel 8 or 9 on the real atoms (n1 rows, n2
+    columns) of B voxels: quantize2 of every element; per atom and
+    sample 1 + n_small Grams (with itself and with each small column) of
+    4 int8 level products and 2 float64 multiply-adds (counted at the
+    float32 rate, as the re-scans' cross products); per voxel and block
+    the small columns' Grams; per atom its chain."""
+    atoms = float(B) * (n1 + n2)
+    grams = atoms * S * (1 + n_small)
+    row, col = HOIST_CHAIN_OPS[name]
+    return {"int8": 2 * 4 * grams,
+            "f32": (QUANTIZE_OPS * atoms * S + 2 * 2 * grams
+                    + float(B) * (n1 * row(nx, ns) + n2 * col(nx, ns)))}
 
 
 def finalize_ops(B, S, C):
@@ -393,6 +428,31 @@ def check_prep_narrow(A, rhs, n_rhs, W_want, S_wide):
         held("%s %s" % (shape, what), k, p)
 
 
+def aten_ops(fn):
+    """ATen ops that fn() dispatches, as a ``TorchDispatchMode`` sees
+    them (a composite op as the ops it decomposes into; a kernel of this
+    package, launched through ctypes, is not one): what a call costs the
+    card in kernels besides its own launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return len(seen)
+
+
+def record_ops(name, **fns):
+    """``aten_ops`` of each named call, recorded and logged."""
+    counts = {k: aten_ops(f) for k, f in fns.items()}
+    RECORD.setdefault("aten_ops", {})[name] = counts
+    log("%s: ATen ops a call %s" % (name, counts))
+
+
 def few_samples_ms(name, fn, ops, full_ms, S, **kw):
     """The re-scan launch ``fn`` on the first FEW_SAMPLES samples (operands
     0-7 hold the sample axis): chain and staging with nearly no Gram, so
@@ -444,20 +504,92 @@ def check_rescan(name, kern, plain, top1, B, n, n2=None):
     return err, k
 
 
+HOIST_NAMES = ("q1a", "q2a", "a1h", "ra", "q1b", "q2b", "rb", "ab",
+               "row_pack", "col_pack", "vox")
+
+
+def check_hoist(what, k, p, flags=()):
+    """Kernel 8's or 9's operands ``k`` against its plain version's ``p``,
+    each by ``held``: the int8 levels exactly, the float planes and packs
+    by the agreement rule, and the entries ``flags`` ((operand, pack
+    entries) of 0/1 flags) exactly; the NaN entries (the padded zero
+    atoms' res1 = 0/0) bit for bit, sign included. Returns max|err|."""
+    import torch
+    err = 0.0
+    for name, a, b in zip(HOIST_NAMES, k, p):
+        err = max(err, held("%s %s" % (what, name), a, b,
+                            exact=a.dtype == torch.int8))
+        if a.dtype == torch.float32:
+            nan = torch.isnan(b)
+            if not torch.equal(a[nan].view(torch.int32),
+                               b[nan].view(torch.int32)):
+                raise AssertionError("%s %s: NaN bits differ" % (what, name))
+    for k_op, entries in flags:
+        held("%s %s flags" % (what, HOIST_NAMES[k_op]), k[k_op][:, entries],
+             p[k_op][:, entries], exact=True)
+    return err
+
+
+def df4_flags(n4):
+    """(operand, entries) of the 0/1 flags in kernel 8's packs: rowok of
+    each sweep in row_pack, ok34 of each sweep in vox (n3 = 1)."""
+    nx, ns = 1 + n4, n4
+    r_ok = 12 + 12 * nx + 16 * ns + 1
+    return ((8, [r_ok + 3 * s for s in range(ns)]),
+            (10, [4 + 6 * nx + 4 * s for s in range(ns)]))
+
+
 def check_df2(rows, A1, A2, a3, y):
-    """Kernel 6 against its plain version on the chunk at the fit's two
-    shapes, [782, 782] (two fascicles without CSF: A2) and [782, 1] (one
-    fascicle + CSF: a3): per-row minima by ``held``, first i2 and the
-    top-1 candidates of ``df2_candidates(M=1)`` exact (against
-    ``df2_candidates_plain``); timed. rows["df2scan"] is the [782, 782]
-    row; both are recorded."""
+    """Kernels 9 and 6 against their plain versions on the chunk at the
+    fit's two shapes, [782, 782] (two fascicles without CSF: A2) and
+    [782, 1] (one fascicle + CSF: a3). Kernel 9: every operand by
+    ``check_hoist``; kernel 6 fed its operands and the plain ones: row
+    minima by ``held``, first i2 and top-1 exact. Kernel 6 against its
+    plain version: per-row minima by ``held``, first i2 and the top-1
+    candidates of ``df2_candidates(M=1)`` exact (against
+    ``df2_candidates_plain``). Both timed; rows["df2hoist"] and
+    rows["df2scan"] are the [782, 782] rows; both shapes are recorded."""
     import torch
     from microstructure_fingerprinting_torch.ops import dfscan
     B, S = y.shape
-    err = 0.0
+    err = err9 = 0.0
     for name, blk in (("782 x 782", A2), ("782 x 1", a3)):
         n2 = blk.shape[2]
-        ops, _yn = dfscan.df2_scan_operands(A1, blk, y)
+        A1h, A2h, yh, _yn = dfscan.df2_normalized(A1, blk, y)
+        n2pb = dfscan.df2_cols(n2)
+        kern9 = lambda: dfscan.df2_hoist(A1h, A2h, yh, n2pb)
+        plain9 = lambda: dfscan.df2_hoist_twin(A1h, A2h, yh, n2pb)
+        ops, ops_p = kern9(), plain9()
+        what = "df2hoist %s, %d voxels" % (name, B)
+        err9 = max(err9, check_hoist(what, ops, ops_p))
+        fed = [dfscan.df2_rows(*o, n1=N_ATOM, n2=n2) for o in (ops, ops_p)]
+        held(what + ": kernel 6 fed both, row minima", fed[0][0], fed[1][0])
+        held(what + ": kernel 6 fed both, first i2", fed[0][1], fed[1][1],
+             exact=True)
+        top1 = [dfscan.df2_top1_from_rows(*f, n2)[0] for f in fed]
+        if not torch.equal(*top1):
+            raise AssertionError(what + ": kernel 6 fed both: top-1 "
+                                 "candidates differ")
+        # the bytes of the grid's real rows and columns: the inputs once
+        # and the operands once (a1h too: kernel 9 writes it)
+        r9 = row(0.0, timed(kern9), timed(plain9, reps=1),
+                 nbytes(A1h[..., :N_ATOM], A2h, yh,
+                        [o[..., :N_ATOM] if i < 4 or i == 8 else
+                         (o if i == 10 else o[..., :n2])
+                         for i, o in enumerate(ops)]),
+                 hoist_ops("df2hoist", B, S, N_ATOM, n2, 1))
+        RECORD.setdefault("df2hoist", {})[name] = r9
+        log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)"
+            % (what, r9["ms"], r9["plain_ms"], r9["bound_ms"],
+               r9["bound_by"]))
+        record_ops("df2_scan_operands " + name,
+                   route=lambda: dfscan.df2_scan_operands(
+                       A1[:8], blk[:8], y[:8]),
+                   plain=lambda: dfscan.df2_scan_operands_plain(
+                       A1[:8], blk[:8], y[:8]))
+        if n2 > 1:
+            rows["df2hoist"] = dict(r9)
+        del fed, ops_p, A1h, A2h, yh
         kern = lambda: dfscan.df2_rows(*ops, n1=N_ATOM, n2=n2)
         plain = lambda: plain_sliced(
             lambda *o: dfscan.df2_rows_twin(*o, n1=N_ATOM, n2=n2), ops,
@@ -486,6 +618,7 @@ def check_df2(rows, A1, A2, a3, y):
             rows["df2scan"] = dict(r)
         del ops, k, p
     rows["df2scan"]["max_abs_err"] = err
+    rows["df2hoist"]["max_abs_err"] = err9
 
 
 def gathered(D, ids, extra=()):
@@ -605,6 +738,17 @@ def phase_kernels(wl):
                 scan_ops("rescan3", *shape, chain=CHAIN_OPS_DEKKER))[0]
             few_samples_ms("rescan3", rescan.rescan3_rows, ops,
                            rows["rescan3"]["ms"], S, n2=n, segw=segw)
+            # the function a chunk: kernel 3 with the torch hoists and the
+            # normalization around it, as the JAX row_scan_df3 computes
+            fn = lambda: rescan.row_scan_df3(A1[:B, :, :n], A2[:B, :, :n],
+                                             a3[:B], y[:B])
+            RECORD["rescan3_function_ms"] = timed(fn)
+            record_ops("row_scan_df3_operands %d x %d" % (n, n),
+                       torch_hoists=lambda: rescan.row_scan_df3_operands(
+                           A1[:8, :, :n], A2[:8, :, :n], a3[:8], y[:8]))
+            log("row_scan_df3 %d x %d, %d voxels: %.3f ms a chunk "
+                "(kernel 3 %.3f)" % (n, n, B, RECORD["rescan3_function_ms"],
+                                     rows["rescan3"]["ms"]))
             small = smallest_product(plain)
             RECORD["rescan3_smallest_product"] = small
             log("rescan3: smallest non-zero product of the chain %.3e "
@@ -663,10 +807,14 @@ def ear_inputs(wl, sig_ear, B, device):
 
 
 def phase_ear_kernels(wl, sig_ear):
-    """Kernels 1, 4 and 5 against their plain versions at the EAR path's
-    shapes: prep with 12 rhs columns on both blocks and the row pass on a
-    CHUNK-voxel chunk at [782, 782, 1, 10]; the re-scan at the two-pass
-    shape R_EAR x R_EAR on the chunk and on the full grid for 8 voxels."""
+    """Kernels 1, 4, 8 and 5 against their plain versions at the EAR
+    path's shapes: prep with 12 rhs columns on both blocks and the row
+    pass on a CHUNK-voxel chunk at [782, 782, 1, 10]; the re-scan's
+    operands (kernel 8: every operand by ``check_hoist``, kernel 5 fed
+    them and the plain ones agreeing with the same top-1) and the
+    re-scan at the two-pass shape R_EAR x R_EAR on the chunk and on the
+    full grid for 8 voxels; then the re-scan's route cost a chunk
+    (``df4_chunk_cost``)."""
     import torch
     from microstructure_fingerprinting_torch.ops import f32scan, prep, rescan
     from microstructure_fingerprinting_torch.ops import nnls as mfn
@@ -705,20 +853,50 @@ def phase_ear_kernels(wl, sig_ear):
                                ops[8].shape[1]]
     del ops, outs
 
-    # kernel 5: the re-scan at R_EAR x R_EAR on the chunk (timed), then
-    # on the full 782 x 782 grid for 8 voxels
-    err = 0.0
+    # kernels 8 and 5: the re-scan's operands and the re-scan at R_EAR x
+    # R_EAR on the chunk (timed), then on the full 782 x 782 grid for 8
+    # voxels (rows padded to 896, columns to 1024)
+    err = err8 = 0.0
     for n, B in ((R_EAR, CHUNK), (N_ATOM, 8)):
-        ops, segw, _yn = rescan.row_scan_df4_operands(
+        *blk, n2pb, _yn = rescan.df4_normalized(
             A1[:B, :, :n], A2[:B, :, :n], a3[:B], a4[:B], y[:B])
+        kern8 = lambda: rescan.df4_hoist(*blk, n2pb)
+        plain8 = lambda: rescan.df4_hoist_twin(*blk, n2pb)
+        ops, ops_p = kern8(), plain8()
+        what = "df4hoist %d x %d, %d voxels" % (n, n, B)
+        err8 = max(err8, check_hoist(what, ops, ops_p, df4_flags(N_EAR)))
+        segw = rescan.col_blocks(n, 256, 16)[1]
         kw = dict(n2=n, n3=1, n4=N_EAR, segw=segw)
-        kern = lambda: rescan.rescan4_rows(*ops, **kw)
-        plain = lambda: plain_sliced(
-            lambda *o: rescan.rescan4_twin(*o, **kw), ops, SLICE["rescan4"])
         seg = rescan.n_segments_df4(n)
         top1 = lambda o: rescan.candidates_from_rows_df4(
             o[0].reshape(B, -1), o[1].reshape(B, -1), ns, N_EAR, n,
             segments_total=seg)[0]
+        fed = [rescan.rescan4_rows(*o, **kw) for o in (ops, ops_p)]
+        held(what + ": kernel 5 fed both, row minima", fed[0][0], fed[1][0])
+        held(what + ": kernel 5 fed both, first flat index", fed[0][1],
+             fed[1][1], exact=True)
+        if not torch.equal(top1(fed[0]), top1(fed[1])):
+            raise AssertionError(what + ": kernel 5 fed both: top-1 "
+                                 "candidates differ")
+        # the real rows' and columns' bytes: the inputs once, the operands
+        # once (a1h is A1h itself, not written)
+        real = [o[..., :n] for i, o in enumerate(ops) if i not in (2, 10)]
+        if n == R_EAR:
+            rows["df4hoist"] = row(
+                0.0, timed(kern8), timed(plain8, reps=1),
+                nbytes([b_[..., :n] for b_ in blk[:2]], blk[2:], real,
+                       ops[10]),
+                hoist_ops("df4hoist", B, S, n, n, 2 + N_EAR, nx, ns))
+            log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
+                what, rows["df4hoist"]["ms"], rows["df4hoist"]["plain_ms"],
+                rows["df4hoist"]["bound_ms"], rows["df4hoist"]["bound_by"]))
+        else:
+            RECORD["df4hoist_full_grid_ms"] = [B, timed(kern8),
+                                               timed(plain8, reps=1)]
+        del ops_p, fed, blk
+        kern = lambda: rescan.rescan4_rows(*ops, **kw)
+        plain = lambda: plain_sliced(
+            lambda *o: rescan.rescan4_twin(*o, **kw), ops, SLICE["rescan4"])
         e, outs = check_rescan("rescan4", kern, plain, top1, B, n)
         err = max(err, e)
         if n == R_EAR:
@@ -738,6 +916,13 @@ def phase_ear_kernels(wl, sig_ear):
             RECORD["rescan4_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
     rows["rescan4"]["max_abs_err"] = err
+    rows["df4hoist"]["max_abs_err"] = err8
+    few = (A1[:8, :, :R_EAR], A2[:8, :, :R_EAR], a3[:8], a4[:8], y[:8])
+    record_ops("row_scan_df4_operands %d x %d" % (R_EAR, R_EAR),
+               route=lambda: rescan.row_scan_df4_operands(*few),
+               plain=lambda: rescan.row_scan_df4_operands_plain(*few))
+    df4_chunk_cost(A1[:, :, :R_EAR].contiguous(),
+                   A2[:, :, :R_EAR].contiguous(), a3, a4, y)
     # kernel 7 on the chunk's planted columns: two fascicles, CSF and EAR
     # atom EAR_ATOM (C = 4, the EAR finalize)
     cols = gathered(torch.stack([A1, A2], dim=1), wl["gt_ids"][:CHUNK],
@@ -789,6 +974,11 @@ def cold_fit(label, model, args, kw, path):
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the %s path was never launched"
                              % label)
+    # kernels 8 and 9 build the operands of one launch of 5 and 6 each
+    for hoist, scan in (("df4hoist", "rescan4"), ("df2hoist", "df2scan")):
+        if hoist in launches and launches[hoist] != launches[scan]:
+            raise AssertionError("%s: %d launches of %s, %d of %s" % (
+                label, launches[hoist], hoist, launches[scan], scan))
     return fit, launches, cold_s
 
 
@@ -909,10 +1099,11 @@ def warm_fits(label, model, args, kw, launches, split=()):
     steps eagerly (two event records a region, no synchronisation
     inside the fit): device time per stage and, per bucket, the device
     time of the stages inside it. Each launch is a stage of its own
-    inside the stage that holds it: for each (stage, kernel) of
+    inside the stage that holds it: for each (stage, kernels) of
     ``split`` what is left of the stage is its torch code (hoists), and
-    every launch of the fit must lie inside that stage, or the split
-    would understate the hoists. Returns the record of the runs."""
+    every launch of those kernels in the fit must lie inside that stage,
+    or the split would understate the hoists. Returns the record of the
+    runs."""
     import torch
     from microstructure_fingerprinting_torch.utils import profiling
     n_vox = args[0][..., 0].size
@@ -935,14 +1126,18 @@ def warm_fits(label, model, args, kw, launches, split=()):
     totals = st.totals_ms()
     stages = {k: v for k, v in totals.items()
               if not k.startswith(("kernel ", "bucket "))}
-    for stage_name, kernel in split:
-        k_ms, n = st.inside(stage_name).get("kernel " + kernel, (0.0, 0))
-        if n != launches[kernel]:
-            raise AssertionError(
-                "%d of the fit's %d launches of %s lie inside stage %s"
-                % (n, launches[kernel], kernel, stage_name))
-        stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
-        stages[stage_name + ": torch hoists"] = stages[stage_name] - k_ms
+    for stage_name, kernel_names in split:
+        torch_ms = stages[stage_name]
+        for kernel in kernel_names:
+            k_ms, n = st.inside(stage_name).get("kernel " + kernel,
+                                                (0.0, 0))
+            if n != launches[kernel]:
+                raise AssertionError(
+                    "%d of the fit's %d launches of %s lie inside stage %s"
+                    % (n, launches[kernel], kernel, stage_name))
+            stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
+            torch_ms -= k_ms
+        stages[stage_name + ": torch hoists"] = torch_ms
     per = {}
     for name in totals:
         if name.startswith("bucket "):
@@ -1017,7 +1212,8 @@ def phase_fit(wl, sig_ear=None):
     label = "EAR" if ear else "flagship"
     ys_np = wl["y_ear"] if ear else wl["y"]
     model, args, kw, _mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4", "finalize") if ear else (
+    path = ("prep_block", "rowmin4", "rescan4", "finalize",
+            "df4hoist") if ear else (
         "prep_block", "rowmin3", "rescan3", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
@@ -1027,8 +1223,9 @@ def phase_fit(wl, sig_ear=None):
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         **warm_fits(label, model, args, kw, launches,
-                    split=(("prep", path[0]), ("re-scan", path[2]),
-                           ("finalize", "finalize"))))
+                    split=(("prep", (path[0],)),
+                           ("re-scan", path[2:3] + path[4:]),
+                           ("finalize", ("finalize",)))))
     return launches
 
 
@@ -1070,42 +1267,94 @@ def check_rescan3_ear_grid(wl, mix, sig_ear):
     return r
 
 
+ROUTE_TURNS = ("plain", "plain hoists", "kernel", "kernel", "plain hoists",
+               "plain")
+
+
+def route_cost(label, routes):
+    """The callables of ``routes`` (route name -> fn) in ROUTE_TURNS:
+    device ms of each (two runs a turn) and the most memory each
+    allocates above what was held before it. Returns the record."""
+    import torch
+    rec = {}
+    for route in ROUTE_TURNS:
+        fn = routes[route]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = timed(fn, reps=1 if route == "plain" else 2)
+        r = rec.setdefault(route, {"ms": [], "peak_bytes": []})
+        r["ms"].append(ms)
+        r["peak_bytes"].append(peak)
+    log("%s, %d voxels, a chunk in turns: " % (label, CHUNK) + "; ".join(
+        "%s %s ms, peak %s GB above its inputs" % (
+            route, "/".join("%.3f" % m for m in r["ms"]),
+            "/".join("%.2f" % (b / 1e9) for b in r["peak_bytes"]))
+        for route, r in rec.items()) + " [%s]" % card_line())
+    return rec
+
+
 def df2_chunk_cost(wl):
     """The df2 scan (``dfscan.df2_candidates``, M = 1) on one CHUNK-voxel
     chunk at both of its shapes, [782, 782] (two fascicles without CSF)
-    and [782, 1] (one fascicle + CSF), by the fit's route (kernel 6 with
-    its torch hoists and cross-row minimum) and by the eager plain
-    version (``df2_candidates_plain``), in turns: device ms a chunk and
-    the most memory each allocates above what was held before it."""
+    and [782, 1] (one fascicle + CSF), in turns (``route_cost``): the
+    fit's route ("kernel": kernels 9 and 6 and the cross-row minimum),
+    the same with the hoists' plain version ("plain hoists":
+    ``df2_scan_operands_plain`` before kernel 6, the route before kernel
+    9) and the eager plain version ("plain": ``df2_candidates_plain``)."""
     import torch
     from microstructure_fingerprinting_torch.ops import dfscan
     D, y, a3 = voxel_inputs(wl, np.arange(CHUNK), wl["y"], "cuda")
     out = {}
     for name, A2 in (("782 x 782", D[:, 1]), ("782 x 1", a3)):
-        routes = {
+        def hoists_plain():
+            ops, _yn = dfscan.df2_scan_operands_plain(D[:, 0], A2, y)
+            rv, ri = dfscan.df2_rows(*ops, n1=N_ATOM, n2=A2.shape[2])
+            return dfscan.df2_top1_from_rows(rv, ri, A2.shape[2])
+        out[name] = route_cost("df2 scan " + name, {
             "kernel": lambda: dfscan.df2_candidates(D[:, 0], A2, y, M=1),
-            "plain": lambda: dfscan.df2_candidates_plain(D[:, 0], A2, y, 1)}
-        rec = {}
-        for route in ("plain", "kernel", "kernel", "plain"):
-            scan = routes[route]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            scan()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - base
-            ms = timed(scan, reps=2)
-            rec.setdefault(route, {"ms": [], "peak_bytes": peak})["ms"].append(
-                ms)
-        out[name] = rec
-        log("df2 scan %s, %d voxels: kernel route %s ms a chunk, peak %.2f "
-            "GB above its inputs; plain %s ms, peak %.2f GB" % (
-                name, CHUNK, "/".join("%.3f" % m for m in rec["kernel"]["ms"]),
-                rec["kernel"]["peak_bytes"] / 1e9,
-                "/".join("%.3f" % m for m in rec["plain"]["ms"]),
-                rec["plain"]["peak_bytes"] / 1e9))
+            "plain hoists": hoists_plain,
+            "plain": lambda: dfscan.df2_candidates_plain(D[:, 0], A2, y,
+                                                         1)})
     RECORD["df2_chunk"] = out
     del D, y, a3
+    torch.cuda.empty_cache()
+
+
+def df4_chunk_cost(A1, A2, a3, a4, y):
+    """The 4-block re-scan (``rescan.row_scan_df4`` and its top-1) on one
+    EAR chunk at the two-pass shape R_EAR x R_EAR, in turns
+    (``route_cost``): the fit's route ("kernel": kernels 8 and 5), the
+    same with the hoists' plain version ("plain hoists":
+    ``row_scan_df4_operands_plain`` before kernel 5, the route before
+    kernel 8) and the plain version of both ("plain": kernel 5's plain
+    version over slices of SLICE["rescan4"] voxels, which bound its
+    temporaries)."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import rescan
+    B = y.shape[0]
+    seg = rescan.n_segments_df4(R_EAR)
+
+    def route(operands, rows):
+        ops, segw, _yn = operands(A1, A2, a3, a4, y)
+        res, idx = rows(ops, dict(n2=R_EAR, n3=1, n4=N_EAR, segw=segw))
+        return rescan.candidates_from_rows_df4(
+            res.reshape(B, -1), idx.reshape(B, -1), N_EAR, N_EAR, R_EAR,
+            segments_total=seg)
+
+    kern5 = lambda ops, kw: rescan.rescan4_rows(*ops, **kw)
+    plain5 = lambda ops, kw: plain_sliced(
+        lambda *o: rescan.rescan4_twin(*o, **kw), ops, SLICE["rescan4"])
+    RECORD["df4_chunk"] = route_cost("df4 re-scan %d x %d" % (R_EAR, R_EAR), {
+        "kernel": lambda: rescan.candidates_from_rows_df4(
+            *rescan.row_scan_df4(A1, A2, a3, a4, y)[:2], N_EAR, N_EAR,
+            R_EAR, segments_total=seg),
+        "plain hoists": lambda: route(rescan.row_scan_df4_operands_plain,
+                                      kern5),
+        "plain": lambda: route(rescan.row_scan_df4_operands_plain, plain5)})
     torch.cuda.empty_cache()
 
 
@@ -1162,14 +1411,15 @@ def phase_mixed(wl, sig_ear=None):
     ear = sig_ear is not None
     label = "ear_mixed" if ear else "mixed"
     model, args, kw, mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4", "rescan3", "finalize") if \
-        ear else ("prep_block", "rowmin3", "rescan3", "df2scan", "finalize")
+    path = ("prep_block", "rowmin4", "rescan4", "rescan3", "finalize",
+            "df4hoist") if ear else ("prep_block", "rowmin3", "rescan3",
+                                     "df2scan", "finalize", "df2hoist")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear)
     check_maps(label, fit, ear)
-    split = (("finalize", "finalize"),) if ear else (
-        ("df2 scan", "df2scan"), ("finalize", "finalize"))
+    split = (("finalize", ("finalize",)),) if ear else (
+        ("df2 scan", ("df2hoist", "df2scan")), ("finalize", ("finalize",)))
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         voxels={"K=%d csf=%d" % k: len(v) for k, v in mix["buckets"].items()},
@@ -2228,6 +2478,9 @@ KERNEL_META = {
     # XLA in the JAX package, no Pallas: the jitted function's line
     "df2scan": ("csrc/df2scan.cu", "ops/dfscan.py:428"),
     "finalize": ("csrc/finalize.cu", "ops/dfscan.py:1190"),
+    # the XLA prologues of the JAX functions of rows rescan4 and df2scan
+    "df4hoist": ("csrc/df4hoist.cu", "ops/pallas_dfscan.py:696"),
+    "df2hoist": ("csrc/df2hoist.cu", "ops/dfscan.py:444"),
 }
 
 
@@ -2249,12 +2502,14 @@ def main():
     # kernel rows, and the launches of each fit summed per row: kernel 1
     # has a row per rhs width (2 columns without EAR, 12 with), kernel 3
     # runs in the flagship and mixed fits and, on the EAR grid, in the
-    # EAR-mixed one, kernel 6 in the mixed one, kernel 7 in all four
+    # EAR-mixed one, kernels 6 and 9 in the mixed one, kernels 5 and 8 in
+    # the EAR and EAR-mixed ones, kernel 7 in all four
     rows, launches = {}, {}
     plain3 = {"prep_block": "prep_block", "rowmin3": "rowmin3",
               "rescan3": "rescan3", "finalize": "finalize"}
     plain4 = {"prep_block_ear": "prep_block", "rowmin4": "rowmin4",
-              "rescan4": "rescan4", "finalize": "finalize"}
+              "rescan4": "rescan4", "finalize": "finalize",
+              "df4hoist": "df4hoist"}
 
     def counted(label, counts, by_row):
         RECORD.setdefault("launches_by_fit", {})[label] = counts
@@ -2272,7 +2527,8 @@ def main():
             ("fit", lambda: counted("flagship", phase_fit(wl), plain3)),
             ("overflow", phase_overflow),
             ("mixed", lambda: counted("mixed", phase_mixed(wl)[0],
-                                      dict(plain3, df2scan="df2scan"))),
+                                      dict(plain3, df2scan="df2scan",
+                                           df2hoist="df2hoist"))),
             ("ear_kernels", lambda: rows.update(phase_ear_kernels(wl,
                                                                   sig_ear))),
             ("ear_fit", lambda: counted("EAR", phase_fit(wl, sig_ear),

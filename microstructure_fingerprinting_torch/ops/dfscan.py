@@ -20,11 +20,12 @@ buckets run:
     double-float values and f32 decision booleans (the device finalize),
     for 1 to 4 columns.
 
-Two of these run a hand-written kernel on CUDA tensors, the plain code
+Two of these run hand-written kernels on CUDA tensors, the plain code
 on CPU tensors (the JAX package runs both as plain XLA): ``df2_candidates``
-at M = 1 launches kernel 6 (``csrc/df2scan.cu``: ``df2_scan_operands``,
-``df2_rows``, ``df2_top1_from_rows``), ``df_nnls_cols`` kernel 7
-(``csrc/finalize.cu``); their plain versions are ``df2_rows_twin`` /
+at M = 1 launches kernel 9 (``csrc/df2hoist.cu``: ``df2_scan_operands``,
+the hoists) and kernel 6 (``csrc/df2scan.cu``: ``df2_rows``; then
+``df2_top1_from_rows``), ``df_nnls_cols`` kernel 7 (``csrc/finalize.cu``);
+their plain versions are ``df2_hoist_twin``, ``df2_rows_twin`` /
 ``df2_candidates_plain`` and ``df_nnls_cols_twin``. A failed build or
 launch raises.
 
@@ -131,9 +132,10 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
     one fascicle + CSF (the CSF column as the second axis) and two
     fascicles without CSF.
 
-    On CUDA tensors M = 1 is kernel 6 (``csrc/df2scan.cu``), the top-1 of
-    ``df2_candidates_plain`` (by ``df2_scan_operands``, ``df2_rows`` and
-    ``df2_top1_from_rows``); any other call is ``df2_candidates_plain``.
+    On CUDA tensors M = 1 is kernels 9 and 6 (``csrc/df2hoist.cu``,
+    ``csrc/df2scan.cu``), the top-1 of ``df2_candidates_plain`` (by
+    ``df2_scan_operands``, ``df2_rows`` and ``df2_top1_from_rows``); any
+    other call is ``df2_candidates_plain``.
     Returns (cand (B, M, 2) int32 [i1, i2], res (B, M) residuals of the
     normalized problem, y_sq (B,) raw ||y||^2)."""
     if M == 1 and A1.is_cuda:
@@ -157,7 +159,8 @@ def df2_candidates_plain(A1, A2, y, M=8, tile=256):
     problem, y_sq (B,) raw ||y||^2)."""
     B, S, N1 = A1.shape
     N2 = A2.shape[2]
-    qA1, qA2, rows, cols, w_, yn = _df2_hoists(A1, A2, y, tile)
+    A1h, A2h, yh, yn = df2_normalized(A1, A2, y, tile)
+    qA1, qA2, rows, cols, w_ = _df2_hoists(A1h, A2h, yh)
     N1p = qA1[0].shape[2]
     tile = min(tile, N1p)
     col = lambda x: (x[0][:, None, :], x[1][:, None, :])
@@ -183,15 +186,20 @@ def df2_candidates_plain(A1, A2, y, M=8, tile=256):
     return cand, vals, yn * yn
 
 
-def _df2_hoists(A1, A2, y, tile):
-    """The df2 scan's normalization, quantize2 and per-row / per-column
-    double-float factors, rows padded to a multiple of ``tile``. Returns
-    (qA1, qA2, rows (d1, p, p^2, res1), cols (d2, q, d2 w - q^2, res2),
-    w (hi, lo of (B, 1)), y norm)."""
+def df2_normalized(A1, A2, y, tile=256):
+    """The df2 scan's normalization, rows padded with zero atoms to a
+    multiple of ``tile``. Returns (A1h, A2h, yh, y norm)."""
     A1p, _ = mfn._pad_cols(A1.float(), tile)
     A1h, _an1 = mfn._normalize_block(A1p)
     A2h, _an2 = mfn._normalize_block(A2.float())
     yh, yn, _ys = mfn._normalize_y(y.float())
+    return A1h, A2h, yh, yn
+
+
+def _df2_hoists(A1h, A2h, yh):
+    """The df2 scan's quantize2 and per-row / per-column double-float
+    factors of the normalized blocks. Returns (qA1, qA2, rows (d1, p,
+    p^2, res1), cols (d2, q, d2 w - q^2, res2), w (hi, lo of (B, 1)))."""
     qA1 = quantize2(A1h)
     qA2 = quantize2(A2h)
     qy = quantize2(yh)
@@ -209,7 +217,7 @@ def _df2_hoists(A1, A2, y, tile):
     res2_col = _val(_add(_mul(d2, w_), _neg(Cq2))) / _val(d2)
     d2w_q2 = _add(_mul(d2, w_), _neg(_mul(q_, q_)))
     return (qA1, qA2, (d1, p_, Rp2, res1_row), (d2, q_, d2w_q2, res2_col),
-            w_, yn)
+            w_)
 
 
 def _df2_res(aa, row, col, wv, wf):
@@ -240,29 +248,92 @@ DF2_TN = 64
 DF2_NARROW = 128
 
 
-def df2_scan_operands(A1, A2, y, tile=256):
-    """Normalize, quantize and hoist for the df2 scan, as
-    ``df2_candidates_plain`` does: rows padded to a multiple of ``tile``
-    (zero atoms), columns to one of DF2_TN where N2 > 1. Returns (kernel
-    operands (q1a, q2a, a1h, ra int8/f32 (B, S, N1p); q1b, q2b, rb, ab
-    (B, S, N2pb); row_pack (B, 8, N1p) = d1, p, p^2 (hi, lo each), res1;
-    col_pack (B, 8, N2pb) = d2, q, d2 w - q^2 (hi, lo each), res2; vox
-    (B, 4) = w (hi, lo), its value), y norm (B,))."""
-    N2 = A2.shape[2]
-    qA1, qA2, rows, cols, w_, yn = _df2_hoists(A1, A2, y, tile)
+def df2_hoist_twin(A1h, A2h, yh, n2pb):
+    """Plain PyTorch version of kernel 9: the df2 scan's operands from the
+    normalized blocks A1h (B, S, N1p), A2h (B, S, N2) and yh (B, S), the
+    columns zero-padded to ``n2pb``: (q1a, q2a, a1h, ra int8/f32
+    (B, S, N1p) with a1h = a + R of quantize2; q1b, q2b, rb, ab
+    (B, S, n2pb); row_pack (B, 8, N1p) = d1, p, p^2 (hi, lo each), res1,
+    0; col_pack (B, 8, n2pb) = d2, q, d2 w - q^2 (hi, lo each), res2, 0;
+    vox (B, 4) = w (hi, lo), its value, 0)."""
+    N2 = A2h.shape[2]
+    qA1, qA2, rows, cols, w_ = _df2_hoists(A1h, A2h, yh)
     pack = lambda h: torch.stack([h[0][0], h[0][1], h[1][0], h[1][1],
                                   h[2][0], h[2][1], h[3],
                                   torch.zeros_like(h[3])], dim=1)
     wf = _val(w_)
     vox = torch.cat([w_[0], w_[1], wf, torch.zeros_like(wf)], dim=1)
-    N2pb = N2 if N2 == 1 else int(math.ceil(N2 / DF2_TN) * DF2_TN)
-    padc = lambda x: F.pad(x, (0, N2pb - N2)).contiguous()
-    # a1h = a + R of quantize2, exactly: the row block's normalized atoms
-    ops = (qA1[0].contiguous(), qA1[1].contiguous(),
-           (qA1[3] + qA1[2]).contiguous(), qA1[2].contiguous(),
-           padc(qA2[0]), padc(qA2[1]), padc(qA2[2]), padc(qA2[3]),
-           pack(rows).contiguous(), padc(pack(cols)), vox.contiguous())
-    return ops, yn
+    padc = lambda x: F.pad(x, (0, n2pb - N2)).contiguous()
+    return (qA1[0].contiguous(), qA1[1].contiguous(),
+            (qA1[3] + qA1[2]).contiguous(), qA1[2].contiguous(),
+            padc(qA2[0]), padc(qA2[1]), padc(qA2[2]), padc(qA2[3]),
+            pack(rows).contiguous(), padc(pack(cols)), vox.contiguous())
+
+
+#: atoms a block of kernel 9 (csrc/hoist.cuh kAtoms): the row block's
+#: width N1p is a multiple of it
+HOIST_ATOMS = 128
+
+
+def df2_hoist_shapes(A1h, A2h, n2pb):
+    """Raises ValueError unless kernel 9 takes the shapes: N1p a multiple
+    of HOIST_ATOMS, 1 <= N2 <= n2pb."""
+    N1p, N2 = A1h.shape[2], A2h.shape[2]
+    if N1p % HOIST_ATOMS or not 1 <= N2 <= n2pb:
+        raise ValueError("unsupported df2 hoist shape (N1p %d, N2 %d, "
+                         "N2pb %d)" % (N1p, N2, n2pb))
+
+
+def _df2_hoist_cuda(A1h, A2h, yh, n2pb):
+    A1h, A2h, yh = (x.contiguous() for x in (A1h, A2h, yh))
+    B, S, N1p = A1h.shape
+    N2 = A2h.shape[2]
+    c = kernels.check
+    c(A1h, torch.float32, (B, S, N1p), "A1h")
+    c(A2h, torch.float32, (B, S, N2), "A2h")
+    c(yh, torch.float32, (B, S), "yh")
+    df2_hoist_shapes(A1h, A2h, n2pb)
+    new = lambda *shape, dt=torch.float32: torch.empty(
+        *shape, dtype=dt, device=A1h.device)
+    q1a, q2a = (new(B, S, N1p, dt=torch.int8) for _ in range(2))
+    a1h, ra = new(B, S, N1p), new(B, S, N1p)
+    q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
+    rb, ab = new(B, S, n2pb), new(B, S, n2pb)
+    row_pack, col_pack, vox = new(B, 8, N1p), new(B, 8, n2pb), new(B, 4)
+    kernels.launch("df2hoist", A1h, A2h, yh, q1a, q2a, a1h, ra, q1b, q2b,
+                   rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb)
+    return (q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
+
+
+def df2_hoist(A1h, A2h, yh, n2pb):
+    """Kernel 9 dispatch on the device of the blocks: CUDA tensors launch
+    ``csrc/df2hoist.cu`` (or raise), CPU tensors run ``df2_hoist_twin``."""
+    fn = _df2_hoist_cuda if A1h.is_cuda else df2_hoist_twin
+    return fn(A1h, A2h, yh, n2pb)
+
+
+def df2_cols(N2):
+    """Kernel 6's column width: N2 = 1 on its narrow path, else N2 padded
+    to a multiple of DF2_TN."""
+    return N2 if N2 == 1 else int(math.ceil(N2 / DF2_TN) * DF2_TN)
+
+
+def df2_scan_operands(A1, A2, y, tile=256):
+    """Normalize (torch), then quantize and hoist for the df2 scan, as
+    ``df2_candidates_plain`` does: kernel 9 on CUDA tensors, its plain
+    version on CPU tensors. Rows are padded to a multiple of ``tile``
+    (zero atoms), columns to one of DF2_TN where N2 > 1. Returns (kernel
+    operands (``df2_hoist_twin``'s), y norm (B,))."""
+    A1h, A2h, yh, yn = df2_normalized(A1, A2, y, tile)
+    return df2_hoist(A1h, A2h, yh, df2_cols(A2.shape[2])), yn
+
+
+def df2_scan_operands_plain(A1, A2, y, tile=256):
+    """``df2_scan_operands`` with the hoists in plain torch on any device
+    (kernel 9's plain version): the reference a card holds the kernel
+    against."""
+    A1h, A2h, yh, yn = df2_normalized(A1, A2, y, tile)
+    return df2_hoist_twin(A1h, A2h, yh, df2_cols(A2.shape[2])), yn
 
 
 def df2_rows_twin(q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack,

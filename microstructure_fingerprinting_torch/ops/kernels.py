@@ -52,7 +52,8 @@ USER_BUILD_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                               "microstructure_fingerprinting_torch",
                               "kernels")
 SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
-           "rescan4.cu", "df2scan.cu", "finalize.cu")
+           "rescan4.cu", "df2scan.cu", "finalize.cu", "df4hoist.cu",
+           "df2hoist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "rescan4": ("mf_rescan4", "ppppppppppppp" + "iiiiiiiiii" + "f"),
     "df2scan": ("mf_df2scan", "ppppppppppppp" + "iiiiii"),
     "finalize": ("mf_finalize", "pppp" + "iii" + "f"),
+    "df4hoist": ("mf_df4hoist", "p" * 15 + "i" * 9 + "f"),
+    "df2hoist": ("mf_df2hoist", "p" * 14 + "i" * 5),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

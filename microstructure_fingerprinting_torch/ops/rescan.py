@@ -17,6 +17,11 @@ and takes each product's error by a fused multiply-add, the same float
 for every product above 2^-101. ``row_scan_df3`` dispatches the
 per-point scan on the device of its inputs: CUDA tensors launch
 ``csrc/rescan3.cu`` (or raise), CPU tensors run ``rescan3_twin``.
+
+Kernel 5, the 4-block (EAR) re-scan (``row_scan_df4``), is fed by kernel
+8 (``csrc/df4hoist.cu``): the JAX function's prologue (quantize, Grams,
+LDL' hoists, packs) in one launch on CUDA tensors (``df4_hoist``), its
+plain version ``df4_hoist_twin`` (``_df4_hoists``) on CPU tensors.
 """
 
 import math
@@ -851,27 +856,118 @@ def rescan4_rows(*ops, n2, n3, n4, segw):
     return fn(*ops, n2=n2, n3=n3, n4=n4, segw=segw)
 
 
-def row_scan_df4_operands(A1, A2, a3, a4, y, segments=1):
-    """Normalize, quantize and hoist for the 4-block re-scan. Returns
-    (kernel operands tuple, segment width, y norm)."""
-    N2 = A2.shape[2]
+# ---------------------------------------------------------------------------
+# kernel 8: the 4-block re-scan's operands (the prologue of row_scan_df4)
+# ---------------------------------------------------------------------------
+
+#: EAR columns kernel 8 takes at most (csrc/df4hoist.cu kMaxE)
+DF4_HOIST_MAX_E = 16
+
+
+def df4_pack_rows(n3, n4):
+    """(NR, NC, NV): the sizes of the 4-block re-scan's row pack, column
+    pack and voxel vector, ``df4_pack_sizes`` padded to multiples of 8."""
+    s = df4_pack_sizes(n3, n4)
+    return tuple(_round_up(n, 8) for n in (s["row"][0], s["col"][0],
+                                           s["vox"]))
+
+
+def df4_hoist_twin(A1h, A2h, A3h, A4h, yh, n2pb):
+    """Plain PyTorch version of kernel 8: the 4-block re-scan's operands
+    from the normalized blocks A1h (B, S, N1p), A2h (B, S, N2), A3h,
+    A4h and yh (B, S), the columns zero-padded to ``n2pb``: (q1a, q2a,
+    a1h = A1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox), the packs
+    in ``_df4_hoists``' layout, padded with zero entries to multiples of
+    8."""
+    N2 = A2h.shape[2]
+    qA1, qA2, rows, cols, vox = _df4_hoists(A1h, A2h, A3h, A4h, yh)
+    pack = lambda xs: F.pad(torch.stack(xs, dim=1).float(),
+                            (0, 0, 0, -len(xs) % 8))
+    padc = lambda x: F.pad(x, (0, n2pb - N2)).contiguous()
+    vox = torch.stack(vox, dim=1).float()
+    return (qA1[0].contiguous(), qA1[1].contiguous(), A1h.contiguous(),
+            qA1[2].contiguous(), padc(qA2[0]), padc(qA2[1]), padc(qA2[2]),
+            padc(qA2[3]), pack(rows).contiguous(), padc(pack(cols)),
+            F.pad(vox, (0, -vox.shape[1] % 8)).contiguous())
+
+
+def df4_hoist_shapes(A1h, A2h, A3h, A4h, n2pb):
+    """Raises ValueError unless kernel 8 takes the shapes: N3 = 1,
+    1 <= N4 <= DF4_HOIST_MAX_E, N1p a multiple of dfscan.HOIST_ATOMS,
+    1 <= N2 <= n2pb (every shape kernel 5 takes on the card)."""
+    N1p, N2 = A1h.shape[2], A2h.shape[2]
+    N3, N4 = A3h.shape[2], A4h.shape[2]
+    if (N3 != 1 or not 1 <= N4 <= DF4_HOIST_MAX_E
+            or N1p % dfscan.HOIST_ATOMS or not 1 <= N2 <= n2pb):
+        raise ValueError("unsupported 4-block hoist shape (N1p %d, N2 %d, "
+                         "N3 %d, N4 %d, N2pb %d)" % (N1p, N2, N3, N4, n2pb))
+
+
+def _df4_hoist_cuda(A1h, A2h, A3h, A4h, yh, n2pb):
+    A1h, A2h, A3h, A4h, yh = (x.contiguous() for x in (A1h, A2h, A3h, A4h,
+                                                        yh))
+    B, S, N1p = A1h.shape
+    N2, N3, N4 = A2h.shape[2], A3h.shape[2], A4h.shape[2]
+    c = kernels.check
+    c(A1h, torch.float32, (B, S, N1p), "A1h")
+    c(A2h, torch.float32, (B, S, N2), "A2h")
+    c(A3h, torch.float32, (B, S, N3), "A3h")
+    c(A4h, torch.float32, (B, S, N4), "A4h")
+    c(yh, torch.float32, (B, S), "yh")
+    df4_hoist_shapes(A1h, A2h, A3h, A4h, n2pb)
+    NR, NC, NV = df4_pack_rows(N3, N4)
+    new = lambda *shape, dt=torch.float32: torch.empty(
+        *shape, dtype=dt, device=A1h.device)
+    q1a, q2a = (new(B, S, N1p, dt=torch.int8) for _ in range(2))
+    ra = new(B, S, N1p)
+    q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
+    rb, ab = new(B, S, n2pb), new(B, S, n2pb)
+    row_pack, col_pack, vox = new(B, NR, N1p), new(B, NC, n2pb), new(B, NV)
+    kernels.launch("df4hoist", A1h, A2h, A3h, A4h, yh, q1a, q2a, ra, q1b,
+                   q2b, rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb,
+                   N4, NR, NC, NV, dfscan._TOL)
+    return (q1a, q2a, A1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
+
+
+def df4_hoist(A1h, A2h, A3h, A4h, yh, n2pb):
+    """Kernel 8 dispatch on the device of the blocks: CUDA tensors launch
+    ``csrc/df4hoist.cu`` (or raise), CPU tensors run ``df4_hoist_twin``."""
+    fn = _df4_hoist_cuda if A1h.is_cuda else df4_hoist_twin
+    return fn(A1h, A2h, A3h, A4h, yh, n2pb)
+
+
+def df4_normalized(A1, A2, a3, a4, y):
+    """The 4-block re-scan's inputs to kernel 8, in torch: (A1h (rows
+    zero-padded to a multiple of 128), A2h, A3h, A4h, yh, the columns'
+    padded width n2pb, y norm)."""
     A1p, _ = mfn._pad_cols(A1.float(), _LANE)
     A1h, _ = mfn._normalize_block(A1p)
     A2h, _ = mfn._normalize_block(A2.float())
     A3h, _ = mfn._normalize_block(a3.float())
     A4h, _ = mfn._normalize_block(a4.float())
     yh, yn, _ = mfn._normalize_y(y.float())
-    qA1, qA2, rows, cols, vox = _df4_hoists(A1h, A2h, A3h, A4h, yh)
-    NB, N2B = col_blocks(N2, 256, 16)
-    pack = lambda xs: F.pad(torch.stack(xs, dim=1).float(),
-                            (0, 0, 0, -len(xs) % 8))
-    padc = lambda x: F.pad(x, (0, NB * N2B - N2)).contiguous()
-    vox = torch.stack(vox, dim=1).float()
-    ops = (qA1[0].contiguous(), qA1[1].contiguous(), A1h.contiguous(),
-           qA1[2].contiguous(), padc(qA2[0]), padc(qA2[1]), padc(qA2[2]),
-           padc(qA2[3]), pack(rows).contiguous(), padc(pack(cols)),
-           F.pad(vox, (0, -vox.shape[1] % 8)).contiguous())
-    return ops, N2B // segments, yn
+    NB, N2B = col_blocks(A2.shape[2], 256, 16)
+    return A1h, A2h, A3h, A4h, yh, NB * N2B, yn
+
+
+def _df4_operands(hoist, A1, A2, a3, a4, y, segments):
+    *blocks, n2pb, yn = df4_normalized(A1, A2, a3, a4, y)
+    N2B = col_blocks(A2.shape[2], 256, 16)[1]
+    return hoist(*blocks, n2pb), N2B // segments, yn
+
+
+def row_scan_df4_operands(A1, A2, a3, a4, y, segments=1):
+    """Normalize (torch), then quantize and hoist for the 4-block
+    re-scan: kernel 8 on CUDA tensors, its plain version on CPU tensors.
+    Returns (kernel operands tuple, segment width, y norm)."""
+    return _df4_operands(df4_hoist, A1, A2, a3, a4, y, segments)
+
+
+def row_scan_df4_operands_plain(A1, A2, a3, a4, y, segments=1):
+    """``row_scan_df4_operands`` with the hoists in plain torch on any
+    device (kernel 8's plain version): the reference a card holds the
+    kernel against."""
+    return _df4_operands(df4_hoist_twin, A1, A2, a3, a4, y, segments)
 
 
 def row_scan_df4(A1, A2, a3, a4, y, segments=1):

@@ -1,5 +1,6 @@
-"""Synthetic workload generators (smoke runs and tests), and the rule
-that holds a CUDA kernel against its plain version.
+"""Synthetic workload generators (smoke runs and tests), the rule that
+holds a CUDA kernel against its plain version, and the plain versions'
+float64 sums in the order of kernels 8 and 9.
 
 Same generators as ``microstructure_fingerprinting_tpu/testing.py``: an
 HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
@@ -61,6 +62,20 @@ def kernel_agreement(k, p, exact=False):
                 pf.abs().max())
             ok = ok and err <= tol
     return ok, n_diff, k.numel(), err, tol
+
+
+def fdot_sample_order(contract, x, y):
+    """``ops/dfscan.fdot`` (a float64 sum of exact float32 products,
+    rounded once) summed as kernels 8 and 9 sum: from +0, one sample
+    after the other (the sample axis is axis 1 of both operands). Patch
+    it over ``dfscan.fdot`` to run a plain version in the kernels'
+    order."""
+    x, y = x.double(), y.double()
+    acc = None
+    for s in range(x.shape[1]):
+        t = torch.einsum(contract, x[:, s:s + 1], y[:, s:s + 1])
+        acc = (torch.zeros_like(t) if acc is None else acc) + t
+    return acc.float()
 
 
 def fibonacci_sphere(n):

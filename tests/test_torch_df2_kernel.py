@@ -15,6 +15,15 @@ both the plain version picks the same rows and values within
 ``testing.kernel_agreement``. The wrapper's tiling is read from the
 source. The ``cuda`` test holds the kernel against its plain version on
 a card.
+
+Kernel 9 (``csrc/df2hoist.cu``) builds kernel 6's operands on the card
+(``df2_scan_operands``: normalization in torch, then ``df2_hoist``); on
+the CPU the plain version ``df2_hoist_twin`` runs, bit for bit
+``df2_scan_operands_plain``. Its float64 sums run in sample order
+(``testing.fdot_sample_order``): the plain version in that order agrees
+with the einsum order's and the route on such operands still matches
+the JAX ``df2_candidates``. Its padded columns are zeros and its pack
+sizes are kernel 6's.
 """
 
 import os
@@ -251,3 +260,137 @@ def test_cuda_df2_kernel_matches_plain_version(rng):
         cp, _vp, _qp = tdfscan.df2_candidates_plain(A1, A2, y, 1)
         assert kernels.LAUNCHES["df2scan"] == 1
         assert torch.equal(ck, cp)
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: the df2 scan's operands (csrc/df2hoist.cu)
+# ---------------------------------------------------------------------------
+
+OPS = ("q1a", "q2a", "a1h", "ra", "q1b", "q2b", "rb", "ab", "row_pack",
+       "col_pack", "vox")
+
+
+@pytest.mark.parametrize("N2", [28, 1])
+def test_df2_hoist_cpu_dispatch_runs_the_plain_version(rng, N2):
+    """On CPU tensors df2_scan_operands is df2_scan_operands_plain bit
+    for bit (the all-zero atom's NaN included), with no launch."""
+    A1, A2, y = (_t(x) for x in _problem(rng, "zero_atom", N2))
+    kernels.reset_counts()
+    got, yn = tdfscan.df2_scan_operands(A1, A2, y)
+    want, yn_p = tdfscan.df2_scan_operands_plain(A1, A2, y)
+    assert _same_bits(yn, yn_p)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert bool(torch.isnan(got[8][:, 6, 5]).all())
+    assert kernels.LAUNCHES["df2hoist"] == 0
+
+
+@pytest.mark.parametrize("N2", [28, 1])
+def test_df2_hoist_padding_is_zero(rng, N2):
+    """What kernel 9 must write where the plain version pads: the
+    columns past N2 of the column planes and col_pack, each pack's 8th
+    entry and vox's 4th are zeros; a1h is a + R, the normalized atoms
+    themselves."""
+    A1, A2, y = (_t(x) for x in _problem(rng, "plain", N2))
+    ops, _yn = tdfscan.df2_scan_operands(A1, A2, y)
+    A1h, _A2h, _yh, _yn = tdfscan.df2_normalized(A1, A2, y)
+    assert ops[4].shape[2] == tdfscan.df2_cols(N2) == (1 if N2 == 1 else 64)
+    for k in (4, 5, 6, 7, 9):
+        assert not ops[k][:, :, N2:].any()
+    assert not ops[8][:, 7].any() and not ops[9][:, 7].any()
+    assert not ops[10][:, 3].any()
+    assert _same_bits(ops[2], A1h)
+
+
+@pytest.mark.parametrize("N2", [28, 1])
+def test_df2_hoist_summation_order(rng, monkeypatch, N2):
+    """Summed as kernel 9 sums (sample after sample), the plain
+    version's operands agree with the einsum order's by
+    ``testing.kernel_agreement`` (levels exactly), and kernel 6's plain
+    version picks the same i2 on every row and the same top-1."""
+    A1, A2, y = (_t(x) for x in _problem(rng, "plain", N2, S=64, N1=40))
+    ops0, _yn = tdfscan.df2_scan_operands(A1, A2, y)
+    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    ops1, _yn = tdfscan.df2_scan_operands(A1, A2, y)
+    monkeypatch.undo()
+    for name, a, b in zip(OPS, ops1, ops0):
+        ok, n_diff, _n, err, tol = ttesting.kernel_agreement(
+            a, b, a.dtype == torch.int8)
+        assert ok, (name, n_diff, err, tol)
+    rv0, ri0 = tdfscan.df2_rows_twin(*ops0, n1=40, n2=N2)
+    rv1, ri1 = tdfscan.df2_rows_twin(*ops1, n1=40, n2=N2)
+    assert torch.equal(ri1, ri0)
+    assert ttesting.kernel_agreement(rv1, rv0)[0]
+    assert torch.equal(tdfscan.df2_top1_from_rows(rv1, ri1, N2)[0],
+                       tdfscan.df2_top1_from_rows(rv0, ri0, N2)[0])
+
+
+def test_df2_hoist_layout_is_the_sources():
+    """Kernel 9 writes kernel 6's pack sizes; its block width divides
+    every row padding the route makes (the 256-row tile) as kernel 6's
+    narrow block does; the wrapper raises on a width it does not take."""
+    with open(os.path.join(os.path.dirname(CU), "df2hoist.cu")) as f:
+        text = f.read()
+    const = lambda t, n: int(re.search(r"\b%s = (\d+)" % n, t).group(1))
+    assert (const(text, "kPack"), const(text, "kVox")) == (
+        _const("kPack"), _const("kVox"))
+    with open(os.path.join(os.path.dirname(CU), "hoist.cuh")) as f:
+        assert const(f.read(), "kAtoms") == tdfscan.HOIST_ATOMS
+    assert 256 % tdfscan.HOIST_ATOMS == 0 and 256 % tdfscan.DF2_NARROW == 0
+    assert [tdfscan.df2_cols(n) for n in (1, 2, 64, 65, 782)] == [
+        1, 64, 64, 128, 832]
+    z = lambda *s: torch.zeros(s)
+    tdfscan.df2_hoist_shapes(z(2, 8, 1024), z(2, 8, 782), 832)
+    for bad in ((z(2, 8, 1000), z(2, 8, 782), 832),
+                (z(2, 8, 1024), z(2, 8, 782), 768)):
+        with pytest.raises(ValueError, match="unsupported df2 hoist"):
+            tdfscan.df2_hoist_shapes(*bad)
+
+
+@pytest.mark.parametrize("N2", [28, 1])
+def test_route_on_kernel9_order_operands_matches_jax(wl_blocks, monkeypatch,
+                                                     N2):
+    """The route on operands summed as kernel 9 sums them against the
+    JAX ``df2_candidates(M=1)`` on ``test_route_matches_jax``'s inputs
+    (its programs are compiled once in this module): equal candidates,
+    residuals within 1e-6."""
+    D, y, csf = wl_blocks
+    A1, A2 = D[:, 0], D[:, 1, :, :N2]
+    if N2 == 1:
+        A2 = np.broadcast_to(csf[None, :, None], (8, csf.size, 1))
+    A1, A2 = (np.ascontiguousarray(x, np.float32) for x in (A1, A2))
+    cj, vj, _qj = jdfscan.df2_candidates(jnp.asarray(A1), jnp.asarray(A2),
+                                         jnp.asarray(y), M=1)
+    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    ops, _yn = tdfscan.df2_scan_operands(_t(A1), _t(A2), _t(y))
+    monkeypatch.undo()
+    rv, ri = tdfscan.df2_rows_twin(*ops, n1=A1.shape[2], n2=N2)
+    ct, vt = tdfscan.df2_top1_from_rows(rv, ri, N2)
+    assert np.array_equal(np.asarray(cj), ct.numpy())
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_df2_hoist_matches_plain_version(rng):
+    """On the card, both shapes: every operand of kernel 9 by
+    ``testing.kernel_agreement`` (levels exactly, NaN bits included)
+    against its plain version, kernel 6 fed either set picks the same
+    i2 on every row; df2_candidates(M=1) launches kernel 9 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for N2 in (300, 1):
+        A1, A2, y = (_t(x).cuda() for x in
+                     _problem(rng, "zero_atom", N2, B=4, S=64, N1=200))
+        ops_k, _yn = tdfscan.df2_scan_operands(A1, A2, y)
+        ops_p, _yn = tdfscan.df2_scan_operands_plain(A1, A2, y)
+        for a, b in zip(ops_k, ops_p):
+            assert ttesting.kernel_agreement(a, b, a.dtype == torch.int8)[0]
+        nan = torch.isnan(ops_p[8])
+        assert torch.equal(ops_k[8][nan].view(torch.int32),
+                           ops_p[8][nan].view(torch.int32))
+        rk, ik = tdfscan.df2_rows(*ops_k, n1=200, n2=N2)
+        rp, ip = tdfscan.df2_rows(*ops_p, n1=200, n2=N2)
+        assert ttesting.kernel_agreement(rk, rp)[0] and torch.equal(ik, ip)
+        kernels.reset_counts()
+        tdfscan.df2_candidates(A1, A2, y, M=1)
+        assert kernels.LAUNCHES["df2hoist"] == 1

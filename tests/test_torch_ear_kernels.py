@@ -216,6 +216,35 @@ def test_rescan4_matches_jax(rng, case, shape):
                                    atol=1e-9)
 
 
+def test_rescan4_on_kernel8_order_operands_matches_jax(rng, monkeypatch):
+    """``rescan.row_scan_df4`` on operands summed as kernel 8 sums them
+    (float64 cross products sample after sample,
+    ``testing.fdot_sample_order``) against JAX row_scan_df4
+    (interpret=True) on the production case's shape (its program is
+    compiled once in this module): top-1 (i1, i2, i3, i4) equal, values
+    to rtol 1e-6 atol 1e-9, as ``test_rescan4_matches_jax``."""
+    B, S, N1, N2, N3, N4 = 2, 40, 72, 140, 1, 6
+    args = _corr_problem(rng, B, S, N1, N2, N3, N4)
+    rr, ri, _ysq = jpdf.row_scan_df4(*[jnp.asarray(x) for x in args],
+                                     interpret=True)
+    segs = jpdf.n_segments_df4(N2)
+    cj, vj = jpdf.candidates_from_rows_df4(rr, ri, 1, N3 * N4, N4, N2,
+                                           segments_total=segs)
+    ops, segw, _yn = trescan.row_scan_df4_operands(*[_t(x) for x in args])
+    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    ops_k, segw_k, _yn = trescan.row_scan_df4_operands(
+        *[_t(x) for x in args])
+    monkeypatch.undo()
+    assert segw_k == segw
+    rrt, rit = trescan.rescan4_rows(*ops_k, n2=N2, n3=N3, n4=N4, segw=segw)
+    ct, vt = trescan.candidates_from_rows_df4(
+        rrt.reshape(B, -1), rit.reshape(B, -1), N3 * N4, N4, N2,
+        segments_total=segs)
+    assert np.array_equal(np.asarray(cj), ct.numpy())
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-6,
+                               atol=1e-9)
+
+
 def test_candidates_from_rows_df4_tie_order():
     """Equal minima resolve to the smallest global flat rank
     i1 * (N2 * NS) + i2 * NS + s, whatever their segment; +inf everywhere
