@@ -2,18 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA kernels of ``microstructure_fingerprinting_torch``
+Builds the eleven CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
 both (kernels 9 and 6, the df2 scan's operands and the scan, on a chunk
-at [782, 782] and [782, 1]; kernel 8, the EAR re-scan's operands, on an
-EAR chunk at 256 x 256 and on the 782 x 782 grid for 8 voxels, each
-operand, and kernels 5 and 6 fed them and the plain ones; kernel 7, the
+at [782, 782] and [782, 1]; kernel 10, the re-scan's operands, on a chunk
+at 128 x 128 and 256 x 256, on the 782 x 782 grid for 8 voxels and on
+the EAR-mixed volume's 782 x 10 grid; kernel 8, the EAR re-scan's
+operands, on an EAR chunk at 256 x 256 and on the 782 x 782 grid for 8
+voxels; kernel 11, the EAR row pass's hoists, on an EAR chunk at
+782 x 782; each operand, and kernels 3, 5, 6 and 4 fed them and the
+plain ones; kernel 7, the
 double-float finalize, on the gathered columns of
 flagship, mixed and EAR chunks and, bit for bit, on columns whose
-largest value sits an ulp off a power of two), times the two scans'
-routes a chunk against the routes with the plain hoists and the plain
-versions, in turns, then drives the main
+largest value sits an ulp off a power of two), times the four hoisted
+functions' routes a chunk (the df2 scan, the two re-scans, the EAR row
+pass) against the routes with the plain hoists and the plain versions,
+in turns, then drives the main
 paths through ``MFModel.fit``: the flagship
 [782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
 [782, 782, 1, 10] volume (552 sequences, 4096 voxels each, random
@@ -113,16 +118,29 @@ CHAIN_OPS = {
     "rowmin4": lambda nx, ns: 30 + 37 * nx + 47 * ns,
     "rescan4": lambda nx, ns: 120 + 173 * nx + 145 * ns,
 }
-#: float32 operations of the chain of kernels 8 and 9 per atom, counted by
-#: hand from csrc/df4hoist.cu and csrc/df2hoist.cu as ``CHAIN_OPS`` counts
-#: (a Dekker product 24, a double-float sum 11, a divide ~30, a presplit
-#: write 3; the sub-supports {A, 3} ~450 and {A, 3, 4} ~1,000): a row and a
-#: column, nx = n3 + n4 extra columns, ns = n3 * n4 sweeps
+#: float32 operations of the chain of kernels 8, 9 and 10 per atom,
+#: counted by hand from csrc/df4hoist.cu, csrc/df2hoist.cu and
+#: csrc/df3hoist.cu as ``CHAIN_OPS`` counts (a Dekker product 24, a
+#: double-float sum 11, a divide ~30, a presplit write 3; the sub-supports
+#: {A, 3} ~450 and {A, 3, 4} ~1,000; kernel 10: 21 products of a row, 31
+#: of a column, compensated sums and the case logic): a row and a column,
+#: nx = n3 + n4 extra columns, ns = n3 * n4 sweeps
 HOIST_CHAIN_OPS = {
     "df4hoist": (lambda nx, ns: 600 + 57 * nx + 1750 * ns,
                  lambda nx, ns: 600 + 510 * nx + 1660 * ns),
     "df2hoist": (lambda nx, ns: 65, lambda nx, ns: 65),
+    "df3hoist": (lambda nx, ns: 650, lambda nx, ns: 1000),
 }
+#: float32 operations of kernel 11's plain float32 chain, counted by hand
+#: from csrc/row4hoist.cu as ``CHAIN_OPS`` counts (an x_chain 14, a pair
+#: 17 a row and 8 a column, the sub-supports {a} 10, {a, b} 32 and
+#: {a, b, c} 64 with their folds): a row and a column
+ROW4_CHAIN_OPS = (lambda nx, ns: 43 + 14 * nx + 121 * ns,
+                  lambda nx, ns: 42 + 5 * nx + 108 * ns)
+#: operations of f32scan._gram3_hi a sample (9 int8 level products, 2
+#: float64 corrections) and of quantize3 an element (quantize2's 19 and a
+#: third level, 3 bf16 roundings)
+GRAM3_INT_OPS, GRAM3_F32_OPS, QUANTIZE3_OPS = 9, 2, 30
 #: float32 operations of quantize2 on one element (two levels: a divide,
 #: round, clamp, convert and multiply each, a subtract, an add, a subtract;
 #: the add of a + R and the two float64 conversions)
@@ -270,6 +288,21 @@ def hoist_ops(name, B, S, n1, n2, n_small, nx=0, ns=0):
     row, col = HOIST_CHAIN_OPS[name]
     return {"int8": 2 * 4 * grams,
             "f32": (QUANTIZE_OPS * atoms * S + 2 * 2 * grams
+                    + float(B) * (n1 * row(nx, ns) + n2 * col(nx, ns)))}
+
+
+def row4_hoist_ops(B, S, n1, n2, n4):
+    """Operations of kernel 11 on the real atoms (n1 rows, n2 columns)
+    of B voxels: the voxel's 3 + 3 n4 small Grams and the quantize3 of
+    its 2 + n4 small columns once, and each atom's chain (what the
+    function needs; the kernel sums the small Grams again in every block
+    of the voxel)."""
+    nx, ns = 1 + n4, n4
+    grams = float(B) * (3 + 3 * n4) * S
+    row, col = ROW4_CHAIN_OPS
+    return {"int8": 2 * GRAM3_INT_OPS * grams,
+            "f32": (2 * GRAM3_F32_OPS * grams
+                    + QUANTIZE3_OPS * float(B) * (2 + n4) * S
                     + float(B) * (n1 * row(nx, ns) + n2 * col(nx, ns)))}
 
 
@@ -508,15 +541,16 @@ HOIST_NAMES = ("q1a", "q2a", "a1h", "ra", "q1b", "q2b", "rb", "ab",
                "row_pack", "col_pack", "vox")
 
 
-def check_hoist(what, k, p, flags=()):
-    """Kernel 8's or 9's operands ``k`` against its plain version's ``p``,
-    each by ``held``: the int8 levels exactly, the float planes and packs
-    by the agreement rule, and the entries ``flags`` ((operand, pack
-    entries) of 0/1 flags) exactly; the NaN entries (the padded zero
-    atoms' res1 = 0/0) bit for bit, sign included. Returns max|err|."""
+def check_hoist(what, k, p, flags=(), names=HOIST_NAMES):
+    """Kernel 8's, 9's, 10's or 11's outputs ``k`` (``names``) against its
+    plain version's ``p``, each by ``held``: the int8 levels exactly, the
+    float planes and packs by the agreement rule, and the entries
+    ``flags`` ((operand, pack entries) of 0/1 flags) exactly; the NaN
+    entries (the padded zero atoms' res1 = 0/0) bit for bit, sign
+    included. Returns max|err|."""
     import torch
     err = 0.0
-    for name, a, b in zip(HOIST_NAMES, k, p):
+    for name, a, b in zip(names, k, p):
         err = max(err, held("%s %s" % (what, name), a, b,
                             exact=a.dtype == torch.int8))
         if a.dtype == torch.float32:
@@ -525,7 +559,7 @@ def check_hoist(what, k, p, flags=()):
                                b[nan].view(torch.int32)):
                 raise AssertionError("%s %s: NaN bits differ" % (what, name))
     for k_op, entries in flags:
-        held("%s %s flags" % (what, HOIST_NAMES[k_op]), k[k_op][:, entries],
+        held("%s %s flags" % (what, names[k_op]), k[k_op][:, entries],
              p[k_op][:, entries], exact=True)
     return err
 
@@ -537,6 +571,59 @@ def df4_flags(n4):
     r_ok = 12 + 12 * nx + 16 * ns + 1
     return ((8, [r_ok + 3 * s for s in range(ns)]),
             (10, [4 + 6 * nx + 4 * s for s in range(ns)]))
+
+
+ROW4_NAMES = ("row_pack", "col_pack", "vox", "lo_c_sup", "upf")
+
+
+def row4_flags(n4):
+    """(output, entries) of the 0/1 flags of kernel 11's packs: stab3r,
+    stab4r and stabr of every pair in row_pack, stab34 in vox (n3 = 1)."""
+    nx = 1 + n4
+    rows = ([2 + 5 * x + 4 for x in range(nx)]
+            + [2 + 5 * nx + 5 * s + 4 for s in range(n4)])
+    return ((0, rows), (2, [1 + nx + 3 * s + 2 for s in range(n4)]))
+
+
+def check_df3hoist(what, A1, A2, a3, y):
+    """Kernel 10 on the re-scan's inputs (A1, A2, a3, y) against its plain
+    version: every operand by ``check_hoist``, then kernel 3 fed both
+    operand sets: row minima by ``held``, first-minimum indices and the
+    top-1 exact. Returns (max|err|, its row (times, bound) on the real
+    atoms)."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import rescan
+    B, S = y.shape
+    n1, n2 = A1.shape[2], A2.shape[2]
+    *blk, n2pb, _yn = rescan.df3_normalized(A1, A2, a3, y)
+    kern = lambda: rescan.df3_hoist(*blk, n2pb)
+    plain = lambda: rescan.df3_hoist_twin(*blk, n2pb)
+    ops, ops_p = kern(), plain()
+    err = check_hoist(what, ops, ops_p)
+    segw = rescan.col_blocks(n2)[1] // 8
+    seg = rescan.n_segments(n2)
+    fed = [rescan.rescan3_rows(*o, n2=n2, segw=segw) for o in (ops, ops_p)]
+    held(what + ": kernel 3 fed both, row minima", fed[0][0], fed[1][0])
+    held(what + ": kernel 3 fed both, first-minimum index", fed[0][1],
+         fed[1][1], exact=True)
+    top1 = [rescan.candidates_from_rows(
+        f[0].reshape(B, -1), f[1].reshape(B, -1), segments=seg)[0]
+        for f in fed]
+    if not torch.equal(*top1):
+        raise AssertionError(what + ": kernel 3 fed both: top-1 "
+                             "candidates differ")
+    # the real rows' and columns' bytes: the inputs once, the operands
+    # once (a1h is A1h itself, not written)
+    cut = lambda i: n1 if i < 4 else n2
+    real = [o[..., :cut(i)] for i, o in enumerate(ops) if i not in (2, 8,
+                                                                    9, 10)]
+    r = row(err, timed(kern), timed(plain, reps=1),
+            nbytes(blk[0][..., :n1], blk[1:], real, ops[8][..., :n1],
+                   ops[9][..., :n2], ops[10]),
+            hoist_ops("df3hoist", B, S, n1, n2, 2))
+    log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
+        what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    return err, r
 
 
 def check_df2(rows, A1, A2, a3, y):
@@ -712,6 +799,28 @@ def phase_kernels(wl):
                           nbytes(ops, outs),
                           scan_ops("rowmin3", CHUNK, S, n1p, n2p))
     del ops, outs
+    # the function a chunk: the JAX rowmin_3 (colmin, as df3_twopass calls
+    # it at N2 > R) on the port's route: kernel 1 twice, the torch hoists,
+    # kernel 2 and the folds
+    RECORD["rowmin3_function_ms"] = timed(
+        lambda: f32scan.rowmin_3(A1, A2, a3, y, colmin=True))
+    record_ops("rowmin_3_operands 782 x 782",
+               route=lambda: f32scan.rowmin_3_operands(A1[:8], A2[:8],
+                                                        a3[:8], y[:8]))
+
+    # kernel 10: the re-scan's operands at the two-pass shapes 128 x 128
+    # (timed for its row) and 256 x 256 on the chunk, and on the full
+    # 782 x 782 grid for 8 voxels, each with kernel 3 fed both operand sets
+    err10 = 0.0
+    for n, B in ((128, CHUNK), (256, CHUNK), (N_ATOM, 8)):
+        e, r = check_df3hoist("df3hoist %d x %d, %d voxels" % (n, n, B),
+                              A1[:B, :, :n], A2[:B, :, :n], a3[:B], y[:B])
+        err10 = max(err10, e)
+        RECORD.setdefault("df3hoist", {})["%d x %d" % (n, n)] = dict(
+            r, voxels=B)
+        if n == 128:
+            rows["df3hoist"] = r
+    rows["df3hoist"]["max_abs_err"] = err10
 
     # kernel 3: the re-scan at the two-pass shape 128 x 128 on the chunk
     # (timed), then on the full 782 x 782 grid for a few voxels
@@ -738,17 +847,20 @@ def phase_kernels(wl):
                 scan_ops("rescan3", *shape, chain=CHAIN_OPS_DEKKER))[0]
             few_samples_ms("rescan3", rescan.rescan3_rows, ops,
                            rows["rescan3"]["ms"], S, n2=n, segw=segw)
-            # the function a chunk: kernel 3 with the torch hoists and the
-            # normalization around it, as the JAX row_scan_df3 computes
+            # the function a chunk: kernels 10 and 3 and the normalization
+            # around them, as the JAX row_scan_df3 computes
             fn = lambda: rescan.row_scan_df3(A1[:B, :, :n], A2[:B, :, :n],
                                              a3[:B], y[:B])
             RECORD["rescan3_function_ms"] = timed(fn)
+            few = (A1[:8, :, :n], A2[:8, :, :n], a3[:8], y[:8])
             record_ops("row_scan_df3_operands %d x %d" % (n, n),
-                       torch_hoists=lambda: rescan.row_scan_df3_operands(
-                           A1[:8, :, :n], A2[:8, :, :n], a3[:8], y[:8]))
+                       route=lambda: rescan.row_scan_df3_operands(*few),
+                       plain=lambda: rescan.row_scan_df3_operands_plain(
+                           *few))
             log("row_scan_df3 %d x %d, %d voxels: %.3f ms a chunk "
-                "(kernel 3 %.3f)" % (n, n, B, RECORD["rescan3_function_ms"],
-                                     rows["rescan3"]["ms"]))
+                "(kernel 3 %.3f, kernel 10 %.3f)" % (
+                    n, n, B, RECORD["rescan3_function_ms"],
+                    rows["rescan3"]["ms"], rows["df3hoist"]["ms"]))
             small = smallest_product(plain)
             RECORD["rescan3_smallest_product"] = small
             log("rescan3: smallest non-zero product of the chain %.3e "
@@ -761,6 +873,8 @@ def phase_kernels(wl):
             RECORD["rescan3_full_grid_ms"] = [B, timed(kern), timed(plain)]
         del ops, outs
     rows["rescan3"]["max_abs_err"] = err
+    df3_chunk_cost(A1[:, :, :128].contiguous(), A2[:, :, :128].contiguous(),
+                   a3, y)
 
     # kernel 6 at [782, 782] and [782, 1]; kernel 7 on the chunk's planted
     # columns (C = 3: two fascicles + CSF, the flagship's finalize), on one
@@ -806,10 +920,60 @@ def ear_inputs(wl, sig_ear, B, device):
     return D, y, a3, a4[None].expand(B, -1, -1).contiguous()
 
 
+def check_row4hoist(A1, A2, a3, a4, y):
+    """Kernel 11 on the EAR row pass's inputs against its plain version:
+    every output by ``check_hoist`` (the flags exactly, NaN bits, the
+    column lows and the floor), kernel 4 fed both output sets (row and
+    column bounds by ``held``); timed, with the function a chunk
+    (``rowmin_4``) and the ATen ops of ``rowmin_4_operands``. Returns its
+    row (times, bound on the real atoms)."""
+    from microstructure_fingerprinting_torch.ops import f32scan
+    B, S = y.shape
+    n1, n2, n4 = A1.shape[2], A2.shape[2], a4.shape[2]
+    nx, ns = 1 + n4, n4
+    planes, ins = f32scan.rowmin_4_prep(A1, A2, a3, a4, y)
+    kern = lambda: f32scan.row4_hoist(*ins)
+    plain = lambda: f32scan.row4_hoist_twin(*ins)
+    k, p = kern(), plain()
+    what = "row4hoist %d x %d, %d voxels" % (n1, n2, B)
+    err = check_hoist(what, k, p, row4_flags(n4), ROW4_NAMES)
+    nr = f32scan.row4_pack_rows(1, n4)[0]
+    kw = dict(n1=n1, n2=n2, n3=1, n4=n4, nr=nr)
+    fed = [f32scan.rowmin4_rows(*(planes + tuple(o[:3])), **kw)
+           for o in (k, p)]
+    for name, a, b in zip(("lo_row", "up_row", "lo_col"), *fed):
+        held("%s: kernel 4 fed both, %s" % (what, name), a, b)
+    # the bytes of the real rows and columns: the Gram rows read, the
+    # small columns, the packs' entries and the outputs written once
+    ncol, nvox = 2 + 4 * nx + 4 * ns, 1 + nx + 3 * ns
+    gA, gB, yh, a3h, a4h = ins
+    r = row(err, timed(kern), timed(plain, reps=1),
+            nbytes(gA[:, :3 + n4, :n1], gB[:, :3 + n4, :n2], yh, a3h, a4h,
+                   k[0][:, :nr + 2, :n1], k[1][:, :ncol, :n2],
+                   k[2][:, :nvox], k[3][:, :n2], k[4]),
+            row4_hoist_ops(B, S, n1, n2, n4))
+    log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
+        what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    del planes, ins, k, p, fed, gA, gB
+    # the function a chunk: the JAX rowmin_4 (colmin, as df4_twopass calls
+    # it at N2 > R) on the port's route: kernel 1 twice, kernel 11, kernel 4
+    # and the folds
+    RECORD["rowmin4_function_ms"] = timed(
+        lambda: f32scan.rowmin_4(A1, A2, a3, a4, y, colmin=True))
+    few = (A1[:8], A2[:8], a3[:8], a4[:8], y[:8])
+    record_ops("rowmin_4_operands %d x %d" % (n1, n2),
+               route=lambda: f32scan.rowmin_4_operands(*few),
+               plain=lambda: f32scan.rowmin_4_operands_plain(*few))
+    return r
+
+
 def phase_ear_kernels(wl, sig_ear):
-    """Kernels 1, 4, 8 and 5 against their plain versions at the EAR
-    path's shapes: prep with 12 rhs columns on both blocks and the row
-    pass on a CHUNK-voxel chunk at [782, 782, 1, 10]; the re-scan's
+    """Kernels 1, 11, 4, 8 and 5 against their plain versions at the EAR
+    path's shapes: prep with 12 rhs columns on both blocks, the row
+    pass's hoists (kernel 11: every output by ``check_hoist``, kernel 4
+    fed them and the plain ones; the row pass's route cost a chunk,
+    ``row4_chunk_cost``) and the row pass on a CHUNK-voxel chunk at
+    [782, 782, 1, 10]; the re-scan's
     operands (kernel 8: every operand by ``check_hoist``, kernel 5 fed
     them and the plain ones agreeing with the same top-1) and the
     re-scan at the two-pass shape R_EAR x R_EAR on the chunk and on the
@@ -835,6 +999,10 @@ def phase_ear_kernels(wl, sig_ear):
     NB, N2B = rescan.col_blocks(N_ATOM, 512, 16)
     check_prep(rows, "prep_block_ear", ((A1, 128, "xr"), (A2, N2B, "ra")),
                rhs, 2 + N_EAR)
+
+    # kernel 11: the row pass's hoists, and the row pass's route a chunk
+    rows["row4hoist"] = check_row4hoist(A1, A2, a3, a4, y)
+    row4_chunk_cost(A1, A2, a3, a4, y)
 
     # kernel 4: the EAR row pass at N1 = N2 = 782
     ops, nr, _ = f32scan.rowmin_4_operands(A1, A2, a3, a4, y)
@@ -974,8 +1142,10 @@ def cold_fit(label, model, args, kw, path):
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the %s path was never launched"
                              % label)
-    # kernels 8 and 9 build the operands of one launch of 5 and 6 each
-    for hoist, scan in (("df4hoist", "rescan4"), ("df2hoist", "df2scan")):
+    # kernels 8, 9, 10 and 11 build the operands of one launch of 5, 6,
+    # 3 and 4 each
+    for hoist, scan in (("df4hoist", "rescan4"), ("df2hoist", "df2scan"),
+                        ("df3hoist", "rescan3"), ("row4hoist", "rowmin4")):
         if hoist in launches and launches[hoist] != launches[scan]:
             raise AssertionError("%s: %d launches of %s, %d of %s" % (
                 label, launches[hoist], hoist, launches[scan], scan))
@@ -1212,9 +1382,9 @@ def phase_fit(wl, sig_ear=None):
     label = "EAR" if ear else "flagship"
     ys_np = wl["y_ear"] if ear else wl["y"]
     model, args, kw, _mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4", "finalize",
-            "df4hoist") if ear else (
-        "prep_block", "rowmin3", "rescan3", "finalize")
+    path = ("prep_block", "row4hoist", "rowmin4", "rescan4", "df4hoist",
+            "finalize") if ear else (
+        "prep_block", "rowmin3", "rescan3", "df3hoist", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
                                    np.full(N_VOX, 2), np.ones(N_VOX, bool),
@@ -1223,17 +1393,20 @@ def phase_fit(wl, sig_ear=None):
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         **warm_fits(label, model, args, kw, launches,
-                    split=(("prep", (path[0],)),
-                           ("re-scan", path[2:3] + path[4:]),
+                    split=(("prep", ("prep_block", "row4hoist") if ear
+                            else ("prep_block",)),
+                           ("re-scan", ("rescan4", "df4hoist") if ear
+                            else ("rescan3", "df3hoist")),
                            ("finalize", ("finalize",)))))
     return launches
 
 
 def check_rescan3_ear_grid(wl, mix, sig_ear):
-    """Kernel 3 on the one-fascicle + CSF + EAR bucket's full
+    """Kernels 10 and 3 on the one-fascicle + CSF + EAR bucket's full
     [782, 10, 1] grid (the EAR atoms as the second axis, CSF the fixed
     third block), on the chunk of that bucket's CHUNK voxels that the fit
-    gives it, against its plain version; timed. Returns its row."""
+    gives it, against their plain versions (kernel 3 also fed both
+    operand sets); timed. Returns (kernel 3's row, kernel 10's row)."""
     import torch
     from microstructure_fingerprinting_torch.ops import interp as mfi
     from microstructure_fingerprinting_torch.ops import rescan
@@ -1245,6 +1418,9 @@ def check_rescan3_ear_grid(wl, mix, sig_ear):
     _r, perm = mfi.make_grouped_rotation_paired(wl["msinterp"], wl["plan"])
     a4 = torch.as_tensor(sig_ear[perm], dtype=torch.float32, device="cuda")
     a4 = a4[None].expand(B, -1, -1)
+    _e, r10 = check_df3hoist("df3hoist %d x %d EAR grid, %d voxels" % (
+        N_ATOM, N_EAR, B), A1, a4, a3, y)
+    RECORD["df3hoist_ear_grid"] = dict(r10, voxels=B)
     ops, segw, _yn = rescan.row_scan_df3_operands(A1, a4, a3, y)
     kern = lambda: rescan.rescan3_rows(*ops, n2=N_EAR, segw=segw)
     plain = lambda: plain_sliced(
@@ -1264,7 +1440,7 @@ def check_rescan3_ear_grid(wl, mix, sig_ear):
         "%.3f (bound %.3f, %s)" % (N_ATOM, N_EAR, B, r["ms"],
                                    r["plain_ms"], r["bound_ms"],
                                    r["bound_by"]))
-    return r
+    return r, r10
 
 
 ROUTE_TURNS = ("plain", "plain hoists", "kernel", "kernel", "plain hoists",
@@ -1321,6 +1497,66 @@ def df2_chunk_cost(wl):
                                                          1)})
     RECORD["df2_chunk"] = out
     del D, y, a3
+    torch.cuda.empty_cache()
+
+
+def df3_chunk_cost(A1, A2, a3, y):
+    """The re-scan (``rescan.row_scan_df3`` and its top-1) on one chunk
+    at the flagship's two-pass shape (the width of A1 and A2), in turns
+    (``route_cost``): the fit's route ("kernel": kernels 10 and 3), the
+    same with the hoists' plain version ("plain hoists":
+    ``row_scan_df3_operands_plain`` before kernel 3, the route before
+    kernel 10) and the plain version of both ("plain": kernel 3's plain
+    version over slices of SLICE["rescan3"] voxels)."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import rescan
+    B, n = y.shape[0], A1.shape[2]
+    seg = rescan.n_segments(n)
+    top1 = lambda res, idx: rescan.candidates_from_rows(
+        res.reshape(B, -1), idx.reshape(B, -1), segments=seg)
+
+    def route(rows):
+        ops, segw, _yn = rescan.row_scan_df3_operands_plain(A1, A2, a3, y)
+        return top1(*rows(ops, segw))
+
+    kern3 = lambda ops, segw: rescan.rescan3_rows(*ops, n2=n, segw=segw)
+    plain3 = lambda ops, segw: plain_sliced(
+        lambda *o: rescan.rescan3_twin(*o, n2=n, segw=segw), ops,
+        SLICE["rescan3"])
+    RECORD["df3_chunk"] = route_cost("df3 re-scan %d x %d" % (n, n), {
+        "kernel": lambda: top1(*rescan.row_scan_df3(A1, A2, a3, y)[:2]),
+        "plain hoists": lambda: route(kern3),
+        "plain": lambda: route(plain3)})
+    torch.cuda.empty_cache()
+
+
+def row4_chunk_cost(A1, A2, a3, a4, y):
+    """The EAR row pass (``f32scan.rowmin_4`` with column minima, as
+    ``df4_twopass`` calls it at N2 > R) on one chunk at 782 x 782, in turns
+    (``route_cost``): the fit's route ("kernel": kernel 1 twice, kernel
+    11, kernel 4 and the folds), the same with the hoists' plain version
+    ("plain hoists": ``rowmin_4_operands_plain`` before kernel 4, the
+    route before kernel 11) and the plain hoists with kernel 4's plain
+    version ("plain", over slices of SLICE["rowmin4"] voxels; kernel 1
+    stays: its plain version is timed on its own row)."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import f32scan
+    n1, n2 = A1.shape[2], A2.shape[2]
+    kw = dict(n1=n1, n2=n2, n3=1, n4=a4.shape[2])
+
+    def route(rows):
+        ops, nr, (lo_c, upf) = f32scan.rowmin_4_operands_plain(A1, A2, a3,
+                                                               a4, y)
+        lo, up, lo_col = rows(ops, dict(kw, nr=nr))
+        return lo, up, upf, torch.minimum(lo_col[:, :n2], lo_c[:, :n2])
+
+    kern4 = lambda ops, k: f32scan.rowmin4_rows(*ops, **k)
+    plain4 = lambda ops, k: plain_sliced(
+        lambda *o: f32scan.rowmin4_twin(*o, **k), ops, SLICE["rowmin4"])
+    RECORD["row4_chunk"] = route_cost("EAR row pass %d x %d" % (n1, n2), {
+        "kernel": lambda: f32scan.rowmin_4(A1, A2, a3, a4, y, colmin=True),
+        "plain hoists": lambda: route(kern4),
+        "plain": lambda: route(plain4)})
     torch.cuda.empty_cache()
 
 
@@ -1411,9 +1647,10 @@ def phase_mixed(wl, sig_ear=None):
     ear = sig_ear is not None
     label = "ear_mixed" if ear else "mixed"
     model, args, kw, mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "rowmin4", "rescan4", "rescan3", "finalize",
-            "df4hoist") if ear else ("prep_block", "rowmin3", "rescan3",
-                                     "df2scan", "finalize", "df2hoist")
+    path = ("prep_block", "row4hoist", "rowmin4", "rescan4", "df4hoist",
+            "rescan3", "df3hoist", "finalize") if ear else (
+        "prep_block", "rowmin3", "rescan3", "df3hoist", "df2scan",
+        "df2hoist", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear)
@@ -2481,6 +2718,9 @@ KERNEL_META = {
     # the XLA prologues of the JAX functions of rows rescan4 and df2scan
     "df4hoist": ("csrc/df4hoist.cu", "ops/pallas_dfscan.py:696"),
     "df2hoist": ("csrc/df2hoist.cu", "ops/dfscan.py:444"),
+    # the XLA prologues of the JAX functions of rows rescan3 and rowmin4
+    "df3hoist": ("csrc/df3hoist.cu", "ops/pallas_dfscan.py:258"),
+    "row4hoist": ("csrc/row4hoist.cu", "ops/f32scan.py:823"),
 }
 
 
@@ -2500,16 +2740,17 @@ def main():
     wl["Dear"] = np.linspace(0.8e-9, 2.6e-9, N_EAR)
     log("workload synthesized in %.1f s" % (time.time() - t0))
     # kernel rows, and the launches of each fit summed per row: kernel 1
-    # has a row per rhs width (2 columns without EAR, 12 with), kernel 3
-    # runs in the flagship and mixed fits and, on the EAR grid, in the
-    # EAR-mixed one, kernels 6 and 9 in the mixed one, kernels 5 and 8 in
-    # the EAR and EAR-mixed ones, kernel 7 in all four
+    # has a row per rhs width (2 columns without EAR, 12 with), kernels 3
+    # and 10 run in the flagship and mixed fits and, on the EAR grid, in
+    # the EAR-mixed one, kernels 6 and 9 in the mixed one, kernels 11, 4,
+    # 5 and 8 in the EAR and EAR-mixed ones, kernel 7 in all four
     rows, launches = {}, {}
     plain3 = {"prep_block": "prep_block", "rowmin3": "rowmin3",
-              "rescan3": "rescan3", "finalize": "finalize"}
+              "rescan3": "rescan3", "finalize": "finalize",
+              "df3hoist": "df3hoist"}
     plain4 = {"prep_block_ear": "prep_block", "rowmin4": "rowmin4",
               "rescan4": "rescan4", "finalize": "finalize",
-              "df4hoist": "df4hoist"}
+              "df4hoist": "df4hoist", "row4hoist": "row4hoist"}
 
     def counted(label, counts, by_row):
         RECORD.setdefault("launches_by_fit", {})[label] = counts
@@ -2517,10 +2758,12 @@ def main():
             launches[name] = launches.get(name, 0) + counts[kernel]
 
     def ear_mixed():
-        counts, r3 = phase_mixed(wl, sig_ear)
-        counted("ear_mixed", counts, dict(plain4, rescan3="rescan3"))
-        rows["rescan3"]["max_abs_err"] = max(rows["rescan3"]["max_abs_err"],
-                                             r3["max_abs_err"])
+        counts, (r3, r10) = phase_mixed(wl, sig_ear)
+        counted("ear_mixed", counts, dict(plain4, rescan3="rescan3",
+                                          df3hoist="df3hoist"))
+        for name, r in (("rescan3", r3), ("df3hoist", r10)):
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            r["max_abs_err"])
 
     for name, step in (
             ("kernels", lambda: rows.update(phase_kernels(wl))),

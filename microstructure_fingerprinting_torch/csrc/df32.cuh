@@ -83,6 +83,23 @@ __device__ __forceinline__ P2 df_from_sum(const float (&v)[N]) {
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// the reference's 2-variable NNLS case selection (dfscan._two_var_cases),
+// kernels 3 and 10
+__device__ __forceinline__ float two_var_cases(float res_full, float w1D,
+                                               float w2D, float Y1, float Y2,
+                                               float res1, float res2,
+                                               float y_sq) {
+  const bool case1 = (w1D > 0.0f) && (w2D > 0.0f);
+  const bool case2 = !case1 && (w1D >= 0.0f) && (w2D <= 0.0f);
+  const bool case3 = !case1 && !case2 && (w1D <= 0.0f) && (w2D >= 0.0f);
+  const bool case4 = !case1 && !case2 && !case3 && (w1D < 0.0f) && (w2D < 0.0f);
+  const bool take1 = (case2 && Y1 >= 0.0f) || (case4 && Y1 > 0.0f);
+  const bool take2 = (case3 && Y2 >= 0.0f) ||
+                     (case4 && Y1 <= 0.0f && Y2 > 0.0f);
+  return case1 ? nan_to_inf(res_full)
+               : (take1 ? res1 : (take2 ? res2 : y_sq));
+}
+
 // ---- products (kernels 3 and 5) ----
 // The H100's float32 pipe has a fused multiply-add, which the TPU's vector
 // unit did not offer to the kernel: fma(a, b, -fl(a * b)) is the exact error

@@ -78,22 +78,6 @@ __device__ __forceinline__ P2 twice(P2 x) {
   return {mf::mul(2.0f, x.p), mf::mul(2.0f, x.e)};
 }
 
-// reference 2-variable NNLS case selection (dfscan._two_var_cases)
-__device__ __forceinline__ float two_var_cases(float res_full, float w1D,
-                                               float w2D, float Y1, float Y2,
-                                               float res1, float res2,
-                                               float y_sq) {
-  const bool case1 = (w1D > 0.0f) && (w2D > 0.0f);
-  const bool case2 = !case1 && (w1D >= 0.0f) && (w2D <= 0.0f);
-  const bool case3 = !case1 && !case2 && (w1D <= 0.0f) && (w2D >= 0.0f);
-  const bool case4 = !case1 && !case2 && !case3 && (w1D < 0.0f) && (w2D < 0.0f);
-  const bool take1 = (case2 && Y1 >= 0.0f) || (case4 && Y1 > 0.0f);
-  const bool take2 = (case3 && Y2 >= 0.0f) ||
-                     (case4 && Y1 <= 0.0f && Y2 > 0.0f);
-  return case1 ? mf::nan_to_inf(res_full)
-               : (take1 ? res1 : (take2 ? res2 : y_sq));
-}
-
 // two blocks an SM: at most 128 registers a thread
 __global__ void __launch_bounds__(kThreads, 2)
 rescan3_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
@@ -241,8 +225,8 @@ rescan3_kernel(const int8_t* __restrict__ q1a, const int8_t* __restrict__ q2a,
       const P2 w2_parts[2] = {mul_df_fma(d1p, q_p),
                               neg(mul_df_fma(a_, p_p))};
       const float w1D = mf::acc(w1_parts), w2D = mf::acc(w2_parts);
-      const float res12 = two_var_cases(res12full, w1D, w2D, p_p.p, q_p.p,
-                                        res1_row, res2_col, wf);
+      const float res12 = mf::two_var_cases(res12full, w1D, w2D, p_p.p,
+                                            q_p.p, res1_row, res2_col, wf);
 
       // fallback chain (reference priority: 12, then 13, then 23)
       float fb = res12;

@@ -24,7 +24,10 @@ The EAR scan has the same shape: ``rowmin_4`` (prep with the signal, the
 CSF and the EAR columns as rhs, then ``csrc/rowmin4.cu``) bounds every
 support containing {1, 2} by LDL chains with three-zone pivot guards and
 the radius KERR4 for the full supports; ``rescan.row_scan_df4`` re-ranks
-the selected sub-grid.
+the selected sub-grid. Kernel 4's operands after prep (the small Grams,
+the floor, the column lows, the row-level supports and the chain
+prefixes) come from kernel 11 (``csrc/row4hoist.cu``, ``row4_hoist``) on
+CUDA tensors, from its plain version ``row4_hoist_twin`` on CPU tensors.
 """
 
 import numpy as np
@@ -552,28 +555,35 @@ def _pack8(xs):
     return F.pad(p, (0, 0, 0, -len(xs) % 8)).contiguous()
 
 
-def rowmin_4_operands(A1, A2, a3, a4, y, colcap=512):
-    """Prep (kernel 1, twice, with 1 + N3 + N4 rhs columns) and the
-    hoists of the 4-block row pass: the block-1-free floor, the
-    per-column lows of the block-2 supports, the row-level supports and
-    the chain prefixes of ``_rowmin4_body``. Returns (kernel operands
-    tuple, nr, (lo_c_sup, upf))."""
-    B = A1.shape[0]
-    N2, N3, N4 = A2.shape[2], a3.shape[2], a4.shape[2]
-    NB, N2B = rescan.col_blocks(N2, colcap, 16)
-    A3h, _ = mfn._normalize_block(a3.float())
-    A4h, _ = mfn._normalize_block(a4.float())
-    yh, _yn, _ys = mfn._normalize_y(y.float())
-    rhs_cols = ([yh] + [A3h[:, :, i] for i in range(N3)]
-                + [A4h[:, :, i] for i in range(N4)])
-    n_rhs = len(rhs_cols)
-    rhs_q, rhs_r, rhs_a, q3s = pp.pack_rhs(rhs_cols)
-    A1p, _ = pp.pad_block(A1.float(), _PTILE)
-    A2p = F.pad(A2.float(), (0, NB * N2B - N2))
-    q123_t, a1bf_t, rabf_t, _x, gramA = pp.prep_block(
-        A1p, rhs_q, rhs_r, rhs_a, _PTILE, planes="xr", n_rhs=n_rhs)
-    qb3, _x2, rbbf, abbf, gramB = pp.prep_block(
-        A2p, rhs_q, rhs_r, rhs_a, N2B, planes="ra", n_rhs=n_rhs)
+def _rhs_cols(yh, A3h, A4h):
+    """The row pass's rhs columns: the signal, then the N3 and N4 fixed
+    columns (kernel 1's gram rows 1, 2 .. 1 + N3, 2 + N3 ..)."""
+    return ([yh] + [A3h[:, :, i] for i in range(A3h.shape[2])]
+            + [A4h[:, :, i] for i in range(A4h.shape[2])])
+
+
+def row4_pack_rows(n3, n4):
+    """(nr, NR, NC, NV): the row-level supports' entry nr of the 4-block
+    row pass's row pack (its chain prefixes before it), and the sizes of
+    the row pack (with the two row-level entries), the column pack and
+    the voxel vector, each padded to a multiple of 8 (``_pack8``)."""
+    nx, ns = n3 + n4, n3 * n4
+    nr = 2 + 5 * nx + 5 * ns
+    pad8 = lambda n: n + -n % 8
+    return nr, pad8(nr + 2), pad8(2 + 4 * nx + 4 * ns), pad8(1 + nx + 3 * ns)
+
+
+def row4_hoist_twin(gramA, gramB, yh, A3h, A4h):
+    """Plain PyTorch version of kernel 11: the hoists of the 4-block row
+    pass from kernel 1's Grams gramA (B, 16, N1p) and gramB (B, 16, N2pb)
+    and the normalized rhs columns yh (B, S), A3h (B, S, N3), A4h
+    (B, S, N4): the block-1-free floor, the per-column lows of the
+    block-2 supports, the row-level supports and the chain prefixes of
+    ``_rowmin4_body``. Returns (row_pack (B, NR, N1p), col_pack
+    (B, NC, N2pb), vox_pack (B, NV), lo_c_sup (B, N2pb), upf (B,)),
+    sized by ``row4_pack_rows``."""
+    B = gramA.shape[0]
+    N3, N4 = A3h.shape[2], A4h.shape[2]
     d1, p_ = gramA[:, 0], gramA[:, 1]                      # (B, N1p)
     b3 = gramA[:, 2:2 + N3].transpose(1, 2)                # (B, N1p, N3)
     b4 = gramA[:, 2 + N3:2 + N3 + N4].transpose(1, 2)
@@ -581,6 +591,7 @@ def rowmin_4_operands(A1, A2, a3, a4, y, colcap=512):
     c3 = gramB[:, 2:2 + N3].transpose(1, 2)
     c4 = gramB[:, 2 + N3:2 + N3 + N4].transpose(1, 2)
     gs = lambda qa, qb: _gram3_hi(qa, qb, "bs,bs->b")
+    q3s = [dfscan.quantize3(c.float()) for c in _rhs_cols(yh, A3h, A4h)]
     qy3, qa3s, qa4s = q3s[0], q3s[1:1 + N3], q3s[1 + N3:]
     d3 = torch.stack([gs(q, q) for q in qa3s], 1)          # (B, N3)
     d4 = torch.stack([gs(q, q) for q in qa4s], 1)
@@ -725,14 +736,108 @@ def rowmin_4_operands(A1, A2, a3, a4, y, colcap=512):
         i3, i4 = divmod(s, N4)
         vox += [u4[:, i3, i4], L43[:, i3, i4], stab34[:, i3, i4].float()]
 
-    nr = len(rows)
     row_pack = _pack8(rows + [lo_r, up_r])                 # (B, NR, N1p)
     col_pack = _pack8(cols)                                # (B, NC, N2pb)
     vox_pack = torch.stack(vox, dim=1)
     vox_pack = F.pad(vox_pack, (0, -len(vox) % 8)).contiguous()  # (B, NV)
-    ops = (q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf, row_pack, col_pack,
-           vox_pack)
-    return ops, nr, (lo_c_sup, upf)
+    return row_pack, col_pack, vox_pack, lo_c_sup, upf
+
+
+#: EAR columns kernel 11 takes at most (csrc/row4hoist.cu kMaxE): kernel
+#: 1's Grams hold pp.MAX_RHS rhs columns, the signal and CSF among them
+ROW4_HOIST_MAX_E = pp.MAX_RHS - 2
+#: rows of kernel 1's Grams, the diagonal and one a rhs column
+#: (csrc/row4hoist.cu kGramRows)
+GRAM_ROWS = 1 + pp.MAX_RHS
+
+
+def row4_hoist_shapes(gramA, gramB, A3h, A4h):
+    """Raises ValueError unless kernel 11 takes the shapes: N3 = 1,
+    1 <= N4 <= ROW4_HOIST_MAX_E, N1p and N2pb multiples of
+    dfscan.HOIST_ATOMS (every shape kernel 4 takes on the card)."""
+    N1p, N2pb = gramA.shape[2], gramB.shape[2]
+    N3, N4 = A3h.shape[2], A4h.shape[2]
+    if (N3 != 1 or not 1 <= N4 <= ROW4_HOIST_MAX_E
+            or N1p % dfscan.HOIST_ATOMS or N2pb % dfscan.HOIST_ATOMS):
+        raise ValueError("unsupported row-pass hoist shape (N1p %d, N2pb "
+                         "%d, N3 %d, N4 %d)" % (N1p, N2pb, N3, N4))
+
+
+def _row4_hoist_cuda(gramA, gramB, yh, A3h, A4h):
+    yh, A3h, A4h = (x.contiguous() for x in (yh, A3h, A4h))
+    B, S = yh.shape
+    N1p, N2pb = gramA.shape[2], gramB.shape[2]
+    N3, N4 = A3h.shape[2], A4h.shape[2]
+    c = kernels.check
+    c(gramA, torch.float32, (B, GRAM_ROWS, N1p), "gramA")
+    c(gramB, torch.float32, (B, GRAM_ROWS, N2pb), "gramB")
+    c(yh, torch.float32, (B, S), "yh")
+    c(A3h, torch.float32, (B, S, N3), "A3h")
+    c(A4h, torch.float32, (B, S, N4), "A4h")
+    row4_hoist_shapes(gramA, gramB, A3h, A4h)
+    nr, NR, NC, NV = row4_pack_rows(N3, N4)
+    new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
+                                     device=gramA.device)
+    row_pack, col_pack, vox = new(B, NR, N1p), new(B, NC, N2pb), new(B, NV)
+    lo_c_sup, upf = new(B, N2pb), new(B)
+    part = new(B, N2pb // dfscan.HOIST_ATOMS)
+    kernels.launch("row4hoist", gramA, gramB, yh, A3h, A4h, row_pack,
+                   col_pack, vox, lo_c_sup, part, upf, B, S, N1p, N2pb, N4,
+                   NR, NC, NV, nr, _EPS, _TOL, KERR)
+    return row_pack, col_pack, vox, lo_c_sup, upf
+
+
+def row4_hoist(gramA, gramB, yh, A3h, A4h):
+    """Kernel 11 dispatch on the device of the Grams: CUDA tensors launch
+    ``csrc/row4hoist.cu`` (or raise), CPU tensors run
+    ``row4_hoist_twin``."""
+    fn = _row4_hoist_cuda if gramA.is_cuda else row4_hoist_twin
+    return fn(gramA, gramB, yh, A3h, A4h)
+
+
+def rowmin_4_prep(A1, A2, a3, a4, y, colcap=512):
+    """The torch normalization and kernel 1 (twice, with 1 + N3 + N4 rhs
+    columns) of the 4-block row pass. Returns (the row pass's level and
+    plane operands (q123, a1bf, rabf, qb3, rbbf, abbf), kernel 11's
+    inputs (gramA, gramB, yh, A3h, A4h))."""
+    N2 = A2.shape[2]
+    NB, N2B = rescan.col_blocks(N2, colcap, 16)
+    A3h, _ = mfn._normalize_block(a3.float())
+    A4h, _ = mfn._normalize_block(a4.float())
+    yh, _yn, _ys = mfn._normalize_y(y.float())
+    rhs_cols = _rhs_cols(yh, A3h, A4h)
+    n_rhs = len(rhs_cols)
+    rhs_q, rhs_r, rhs_a, _q3s = pp.pack_rhs(rhs_cols)
+    A1p, _ = pp.pad_block(A1.float(), _PTILE)
+    A2p = F.pad(A2.float(), (0, NB * N2B - N2))
+    q123_t, a1bf_t, rabf_t, _x, gramA = pp.prep_block(
+        A1p, rhs_q, rhs_r, rhs_a, _PTILE, planes="xr", n_rhs=n_rhs)
+    qb3, _x2, rbbf, abbf, gramB = pp.prep_block(
+        A2p, rhs_q, rhs_r, rhs_a, N2B, planes="ra", n_rhs=n_rhs)
+    return ((q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf),
+            (gramA, gramB, yh, A3h, A4h))
+
+
+def _row4_operands(hoist, A1, A2, a3, a4, y, colcap):
+    planes, ins = rowmin_4_prep(A1, A2, a3, a4, y, colcap)
+    row_pack, col_pack, vox_pack, lo_c_sup, upf = hoist(*ins)
+    nr = row4_pack_rows(a3.shape[2], a4.shape[2])[0]
+    return planes + (row_pack, col_pack, vox_pack), nr, (lo_c_sup, upf)
+
+
+def rowmin_4_operands(A1, A2, a3, a4, y, colcap=512):
+    """Prep (kernel 1, twice, with 1 + N3 + N4 rhs columns) and the
+    hoists of the 4-block row pass: kernel 11 on CUDA tensors, its plain
+    version on CPU tensors. Returns (kernel operands tuple, nr,
+    (lo_c_sup, upf))."""
+    return _row4_operands(row4_hoist, A1, A2, a3, a4, y, colcap)
+
+
+def rowmin_4_operands_plain(A1, A2, a3, a4, y, colcap=512):
+    """``rowmin_4_operands`` with the hoists in plain torch on any device
+    (kernel 11's plain version): the reference a card holds the kernel
+    against."""
+    return _row4_operands(row4_hoist_twin, A1, A2, a3, a4, y, colcap)
 
 
 def rowmin_4(A1, A2, a3, a4, y, colmin=False, colcap=512):

@@ -53,7 +53,7 @@ USER_BUILD_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                               "kernels")
 SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
            "rescan4.cu", "df2scan.cu", "finalize.cu", "df4hoist.cu",
-           "df2hoist.cu")
+           "df2hoist.cu", "df3hoist.cu", "row4hoist.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -70,6 +70,8 @@ _SIGNATURES = {
     "finalize": ("mf_finalize", "pppp" + "iii" + "f"),
     "df4hoist": ("mf_df4hoist", "p" * 15 + "i" * 9 + "f"),
     "df2hoist": ("mf_df2hoist", "p" * 14 + "i" * 5),
+    "df3hoist": ("mf_df3hoist", "p" * 14 + "i" * 5),
+    "row4hoist": ("mf_row4hoist", "p" * 11 + "i" * 9 + "fff"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -18,10 +18,13 @@ for every product above 2^-101. ``row_scan_df3`` dispatches the
 per-point scan on the device of its inputs: CUDA tensors launch
 ``csrc/rescan3.cu`` (or raise), CPU tensors run ``rescan3_twin``.
 
-Kernel 5, the 4-block (EAR) re-scan (``row_scan_df4``), is fed by kernel
-8 (``csrc/df4hoist.cu``): the JAX function's prologue (quantize, Grams,
-LDL' hoists, packs) in one launch on CUDA tensors (``df4_hoist``), its
-plain version ``df4_hoist_twin`` (``_df4_hoists``) on CPU tensors.
+Kernel 3's operands come from kernel 10 (``csrc/df3hoist.cu``): the JAX
+function's prologue (quantize, Grams, the compensated chain, packs) in
+one launch on CUDA tensors (``df3_hoist``), its plain version
+``df3_hoist_twin`` (``_hoists``) on CPU tensors. Likewise kernel 5, the
+4-block (EAR) re-scan (``row_scan_df4``), is fed by kernel 8
+(``csrc/df4hoist.cu``, ``df4_hoist``; plain version ``df4_hoist_twin``,
+``_df4_hoists``).
 """
 
 import math
@@ -332,24 +335,95 @@ def rescan3_rows(*ops, n2, segw):
     return rescan3_twin(*ops, n2=n2, segw=segw)
 
 
-def row_scan_df3_operands(A1, A2, a3, y, segments=_SEGMENTS):
-    """Normalize, quantize and hoist for the re-scan. Returns (kernel
-    operands tuple, segment width, y norm)."""
-    B, S, N1 = A1.shape
-    N2 = A2.shape[2]
+# ---------------------------------------------------------------------------
+# kernel 10: the re-scan's operands (the prologue of row_scan_df3)
+# ---------------------------------------------------------------------------
+
+def df3_hoist_twin(A1h, A2h, A3h, yh, n2pb):
+    """Plain PyTorch version of kernel 10: the re-scan's operands from the
+    normalized blocks A1h (B, S, N1p), A2h (B, S, N2), A3h (B, S, 1) and
+    yh (B, S), the columns zero-padded to ``n2pb``: (q1a, q2a, a1h = A1h,
+    ra, q1b, q2b, rb, ab, row_pack (B, 38, N1p), col_pack (B, 58, n2pb),
+    vox (B, 24)), the packs in ``_hoists``' layout."""
+    N2 = A2h.shape[2]
+    qA1, qA2, row_pack, col_pack, vox = _hoists(A1h, A2h, A3h, yh)
+    padc = lambda x: F.pad(x, (0, n2pb - N2)).contiguous()
+    return (qA1[0].contiguous(), qA1[1].contiguous(), A1h.contiguous(),
+            qA1[2].contiguous(), padc(qA2[0]), padc(qA2[1]), padc(qA2[2]),
+            padc(qA2[3]), row_pack.contiguous(), padc(col_pack),
+            vox.contiguous())
+
+
+def df3_hoist_shapes(A1h, A2h, A3h, n2pb):
+    """Raises ValueError unless kernel 10 takes the shapes: N3 = 1, N1p a
+    multiple of dfscan.HOIST_ATOMS, 1 <= N2 <= n2pb (every shape kernel 3
+    takes on the card: 128 x 128 to 782 x 782, and 782 x E)."""
+    N1p, N2, N3 = A1h.shape[2], A2h.shape[2], A3h.shape[2]
+    if N3 != 1 or N1p % dfscan.HOIST_ATOMS or not 1 <= N2 <= n2pb:
+        raise ValueError("unsupported re-scan hoist shape (N1p %d, N2 %d, "
+                         "N3 %d, N2pb %d)" % (N1p, N2, N3, n2pb))
+
+
+def _df3_hoist_cuda(A1h, A2h, A3h, yh, n2pb):
+    A1h, A2h, A3h, yh = (x.contiguous() for x in (A1h, A2h, A3h, yh))
+    B, S, N1p = A1h.shape
+    N2 = A2h.shape[2]
+    c = kernels.check
+    c(A1h, torch.float32, (B, S, N1p), "A1h")
+    c(A2h, torch.float32, (B, S, N2), "A2h")
+    c(A3h, torch.float32, (B, S, A3h.shape[2]), "A3h")
+    c(yh, torch.float32, (B, S), "yh")
+    df3_hoist_shapes(A1h, A2h, A3h, n2pb)
+    new = lambda *shape, dt=torch.float32: torch.empty(
+        *shape, dtype=dt, device=A1h.device)
+    q1a, q2a = (new(B, S, N1p, dt=torch.int8) for _ in range(2))
+    ra = new(B, S, N1p)
+    q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
+    rb, ab = new(B, S, n2pb), new(B, S, n2pb)
+    row_pack, col_pack, vox = new(B, 38, N1p), new(B, 58, n2pb), new(B, 24)
+    kernels.launch("df3hoist", A1h, A2h, A3h, yh, q1a, q2a, ra, q1b, q2b,
+                   rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb)
+    return (q1a, q2a, A1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
+
+
+def df3_hoist(A1h, A2h, A3h, yh, n2pb):
+    """Kernel 10 dispatch on the device of the blocks: CUDA tensors launch
+    ``csrc/df3hoist.cu`` (or raise), CPU tensors run ``df3_hoist_twin``."""
+    fn = _df3_hoist_cuda if A1h.is_cuda else df3_hoist_twin
+    return fn(A1h, A2h, A3h, yh, n2pb)
+
+
+def df3_normalized(A1, A2, a3, y):
+    """The re-scan's inputs to kernel 10, in torch: (A1h (rows
+    zero-padded to a multiple of 128), A2h, A3h, yh, the columns' padded
+    width n2pb, y norm)."""
     A1p, _ = mfn._pad_cols(A1.float(), _LANE)
     A1h, _ = mfn._normalize_block(A1p)
     A2h, _ = mfn._normalize_block(A2.float())
     A3h, _ = mfn._normalize_block(a3.float())
     yh, yn, _ = mfn._normalize_y(y.float())
-    qA1, qA2, row_pack, col_pack, vox = _hoists(A1h, A2h, A3h, yh)
-    NB, N2B = col_blocks(N2)
-    padc = lambda x: F.pad(x, (0, NB * N2B - N2)).contiguous()
-    ops = (qA1[0].contiguous(), qA1[1].contiguous(), A1h.contiguous(),
-           qA1[2].contiguous(), padc(qA2[0]), padc(qA2[1]), padc(qA2[2]),
-           padc(qA2[3]), row_pack.contiguous(), padc(col_pack),
-           vox.contiguous())
-    return ops, N2B // segments, yn
+    NB, N2B = col_blocks(A2.shape[2])
+    return A1h, A2h, A3h, yh, NB * N2B, yn
+
+
+def _df3_operands(hoist, A1, A2, a3, y, segments):
+    *blocks, n2pb, yn = df3_normalized(A1, A2, a3, y)
+    N2B = col_blocks(A2.shape[2])[1]
+    return hoist(*blocks, n2pb), N2B // segments, yn
+
+
+def row_scan_df3_operands(A1, A2, a3, y, segments=_SEGMENTS):
+    """Normalize (torch), then quantize and hoist for the re-scan: kernel
+    10 on CUDA tensors, its plain version on CPU tensors. Returns (kernel
+    operands tuple, segment width, y norm)."""
+    return _df3_operands(df3_hoist, A1, A2, a3, y, segments)
+
+
+def row_scan_df3_operands_plain(A1, A2, a3, y, segments=_SEGMENTS):
+    """``row_scan_df3_operands`` with the hoists in plain torch on any
+    device (kernel 10's plain version): the reference a card holds the
+    kernel against."""
+    return _df3_operands(df3_hoist_twin, A1, A2, a3, y, segments)
 
 
 def row_scan_df3(A1, A2, a3, y, segments=_SEGMENTS):

@@ -262,7 +262,8 @@ def test_cpu_tensors_run_the_twins(rng):
     assert kernels.LAUNCHES == {"prep_block": 0, "rowmin3": 0,
                                 "rescan3": 0, "rowmin4": 0, "rescan4": 0,
                                 "df2scan": 0, "finalize": 0, "df4hoist": 0,
-                                "df2hoist": 0}
+                                "df2hoist": 0, "df3hoist": 0,
+                                "row4hoist": 0}
 
 
 def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
