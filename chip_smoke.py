@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels of ``microstructure_fingerprinting_torch``
+Builds the thirteen CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
-both (kernels 9 and 6, the df2 scan's operands and the scan, on a chunk
+both (kernel 13, the row passes' rhs columns normalized and packed, on
+a chunk at 2 and 12 columns; kernel 12, the flagship row pass's hoists,
+on a chunk at 782 x 782; kernels 9 and 6, the df2 scan's operands and the scan, on a chunk
 at [782, 782] and [782, 1]; kernel 10, the re-scan's operands, on a chunk
 at 128 x 128 and 256 x 256, on the 782 x 782 grid for 8 voxels and on
 the EAR-mixed volume's 782 x 10 grid; kernel 8, the EAR re-scan's
@@ -16,8 +18,8 @@ plain ones; kernel 7, the
 double-float finalize, on the gathered columns of
 flagship, mixed and EAR chunks and, bit for bit, on columns whose
 largest value sits an ulp off a power of two), times the four hoisted
-functions' routes a chunk (the df2 scan, the two re-scans, the EAR row
-pass) against the routes with the plain hoists and the plain versions,
+functions' routes a chunk (the df2 scan, the two re-scans, the two row
+passes) against the routes with the plain hoists and the plain versions,
 in turns, then drives the main
 paths through ``MFModel.fit``: the flagship
 [782, 782, 1] two-fascicle + CSF volume and the EAR (UK-Biobank)
@@ -137,6 +139,14 @@ HOIST_CHAIN_OPS = {
 #: {a, b, c} 64 with their folds): a row and a column
 ROW4_CHAIN_OPS = (lambda nx, ns: 43 + 14 * nx + 121 * ns,
                   lambda nx, ns: 42 + 5 * nx + 108 * ns)
+#: float32 operations of kernel 12's chain, counted by hand from
+#: csrc/row3hoist.cu as ``ROW4_CHAIN_OPS`` counts (the sub-supports {a} 10
+#: and {a, b} 32, their fold 2; the chain prefixes 18 a row, 6 a column,
+#: the floor's minimum 1): a row and a column
+ROW3_CHAIN_OPS = (62, 51)
+#: float32 operations of kernel 13 on one element of a column: its square
+#: into the norm (a multiply-add, 2), the quotient and quantize3
+RHS_PREP_OPS = 3
 #: operations of f32scan._gram3_hi a sample (9 int8 level products, 2
 #: float64 corrections) and of quantize3 an element (quantize2's 19 and a
 #: third level, 3 bf16 roundings)
@@ -205,7 +215,7 @@ MESH_VOX, MESH_EAR_VOX, ATOMS_VOX = 1024, 512, 256
 #: the multihost phase: flagship voxels over two processes, the kernels
 #: each must launch, and the seconds before a process is killed
 MH_VOX = 512
-MH_KERNELS = ("prep_block", "rowmin3", "rescan3")
+MH_KERNELS = ("rhsprep", "prep_block", "row3hoist", "rowmin3", "rescan3")
 MH_TIMEOUT = 240
 #: voxels of the exactness_check example
 EXACT_VOX = 256
@@ -304,6 +314,24 @@ def row4_hoist_ops(B, S, n1, n2, n4):
             "f32": (2 * GRAM3_F32_OPS * grams
                     + QUANTIZE3_OPS * float(B) * (2 + n4) * S
                     + float(B) * (n1 * row(nx, ns) + n2 * col(nx, ns)))}
+
+
+def row3_hoist_ops(B, S, n1, n2):
+    """Operations of kernel 12 on the real atoms (n1 rows, n2 columns) of
+    B voxels: the voxel's 3 small Grams and the quantize3 of its 2 small
+    columns once, and each atom's chain (the kernel sums the small Grams
+    again in every block of the voxel)."""
+    grams = float(B) * 3 * S
+    row, col = ROW3_CHAIN_OPS
+    return {"int8": 2 * GRAM3_INT_OPS * grams,
+            "f32": (2 * GRAM3_F32_OPS * grams + QUANTIZE3_OPS * float(B) * 2 * S
+                    + float(B) * (n1 * row + n2 * col))}
+
+
+def rhs_prep_ops(B, S, n_cols):
+    """Operations of kernel 13 on B voxels' n_cols columns of S samples
+    (the packs' zero lanes are no work)."""
+    return {"f32": (RHS_PREP_OPS + QUANTIZE3_OPS) * float(B) * S * n_cols}
 
 
 def finalize_ops(B, S, C):
@@ -585,6 +613,75 @@ def row4_flags(n4):
     return ((0, rows), (2, [1 + nx + 3 * s + 2 for s in range(n4)]))
 
 
+RHS_NAMES = ("rhs_q", "rhs_r", "rhs_a", "yh", "A3h", "A4h")
+
+
+def check_rhsprep(y, a3, a4=None):
+    """Kernel 13 on a chunk's rhs columns (the signal, the CSF column and
+    with ``a4`` the EAR columns) against its plain version: every output
+    by ``check_hoist`` (the int8 levels exactly); timed. Returns its row
+    (times, bound: the raw columns read once, the packs and the
+    normalized columns written once)."""
+    from microstructure_fingerprinting_torch.ops import prep
+    B, S = y.shape
+    n = 1 + a3.shape[2] + (0 if a4 is None else a4.shape[2])
+    kern = lambda: prep.rhs_prep(y, a3, a4)
+    plain = lambda: prep.rhs_prep_twin(y, a3, a4)
+    k, p = kern(), plain()
+    what = "rhsprep %d columns, %d voxels" % (n, B)
+    live = [i for i, t in enumerate(k) if t is not None]
+    err = check_hoist(what, [k[i] for i in live], [p[i] for i in live],
+                      names=[RHS_NAMES[i] for i in live])
+    r = row(err, timed(kern), timed(plain, reps=1), nbytes(y, a3, a4, k),
+            rhs_prep_ops(B, S, n))
+    log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
+        what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    return r
+
+
+def check_row3hoist(A1, A2, a3, y):
+    """Kernel 12 on the flagship row pass's inputs against its plain
+    version: every output by ``check_hoist`` (the flag stab1 exactly, NaN
+    bits, the column lows and the floor), kernel 2 fed both output sets
+    (row and column bounds by ``held``); timed, with the function a
+    chunk (``rowmin_3``) and the ATen ops of ``rowmin_3_operands`` and its
+    plain route. Returns its row (times, bound on the real atoms)."""
+    from microstructure_fingerprinting_torch.ops import f32scan
+    B, S = y.shape
+    n1, n2 = A1.shape[2], A2.shape[2]
+    planes, ins = f32scan.rowmin_3_prep(A1, A2, a3, y)
+    kern = lambda: f32scan.row3_hoist(*ins)
+    plain = lambda: f32scan.row3_hoist_twin(*ins)
+    k, p = kern(), plain()
+    what = "row3hoist %d x %d, %d voxels" % (n1, n2, B)
+    err = check_hoist(what, k, p, ((0, [11]),), ROW4_NAMES)
+    fed = [f32scan.rowmin3_rows(*(planes + tuple(o[:3])), n1=n1, n2=n2)
+           for o in (k, p)]
+    for name, a, b in zip(("lo_row", "up_row", "lo_col"), *fed):
+        held("%s: kernel 2 fed both, %s" % (what, name), a, b)
+    # the bytes of the real rows and columns: the Gram rows read, the
+    # small columns, the packs' entries and the outputs written once
+    gA, gB, yh, a3h = ins
+    r = row(err, timed(kern), timed(plain, reps=1),
+            nbytes(gA[:, :3, :n1], gB[:, :3, :n2], yh, a3h,
+                   k[0][:, :12, :n1], k[1][:, :6, :n2], k[2][:, :2],
+                   k[3][:, :n2], k[4]),
+            row3_hoist_ops(B, S, n1, n2))
+    log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
+        what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    del planes, ins, k, p, fed, gA, gB
+    # the function a chunk: the JAX rowmin_3 (colmin, as df3_twopass calls
+    # it at N2 > R) on the port's route: kernel 13, kernel 1 twice, kernel
+    # 12, kernel 2 and the folds
+    RECORD["rowmin3_function_ms"] = timed(
+        lambda: f32scan.rowmin_3(A1, A2, a3, y, colmin=True))
+    few = (A1[:8], A2[:8], a3[:8], y[:8])
+    record_ops("rowmin_3_operands %d x %d" % (n1, n2),
+               route=lambda: f32scan.rowmin_3_operands(*few),
+               plain=lambda: f32scan.rowmin_3_operands_plain(*few))
+    return r
+
+
 def check_df3hoist(what, A1, A2, a3, y):
     """Kernel 10 on the re-scan's inputs (A1, A2, a3, y) against its plain
     version: every operand by ``check_hoist``, then kernel 3 fed both
@@ -762,13 +859,13 @@ def scale_edges(C, S, seed):
 
 
 def phase_kernels(wl):
-    """Kernels 1-3 against their plain PyTorch versions, on the card, at
-    the flagship path's chunk of CHUNK voxels (the re-scan also on the
-    full 782 x 782 grid of the one-pass branch and the last overflow
-    tier)."""
+    """Kernels 13, 1, 2, 12, 10, 3, 9, 6 and 7 against their plain
+    PyTorch versions, on the card, at the flagship path's chunk of CHUNK
+    voxels (the re-scan also on the full 782 x 782 grid of the one-pass
+    branch and the last overflow tier), and the routes of the row pass,
+    the re-scan and the df2 scan a chunk."""
     import torch
     from microstructure_fingerprinting_torch.ops import f32scan, prep, rescan
-    from microstructure_fingerprinting_torch.ops import nnls as mfn
     dev = torch.device("cuda")
     D, y, a3 = voxel_inputs(wl, np.arange(CHUNK), wl["y"], dev)
     A1, A2 = D[:, 0].contiguous(), D[:, 1].contiguous()
@@ -776,10 +873,10 @@ def phase_kernels(wl):
     rows = {}
     S = y.shape[1]
 
-    # kernel 1: both prep shapes of the row pass
-    yh, _, _ = mfn._normalize_y(y)
-    a3h, _ = mfn._normalize_block(a3)
-    rhs = prep.pack_rhs([yh, a3h[:, :, 0]])[:3]
+    # kernel 13 at 2 rhs columns (signal, CSF), then kernel 1 on its
+    # packs: both prep shapes of the row pass
+    rows["rhsprep"] = check_rhsprep(y, a3)
+    rhs = prep.rhs_prep(y, a3)[:3]
     check_prep(rows, "prep_block", ((A1, 128, "xr"), (A2, 512, "ra")), rhs,
                2)
     for W, S_wide in NARROW_S.items():
@@ -799,14 +896,9 @@ def phase_kernels(wl):
                           nbytes(ops, outs),
                           scan_ops("rowmin3", CHUNK, S, n1p, n2p))
     del ops, outs
-    # the function a chunk: the JAX rowmin_3 (colmin, as df3_twopass calls
-    # it at N2 > R) on the port's route: kernel 1 twice, the torch hoists,
-    # kernel 2 and the folds
-    RECORD["rowmin3_function_ms"] = timed(
-        lambda: f32scan.rowmin_3(A1, A2, a3, y, colmin=True))
-    record_ops("rowmin_3_operands 782 x 782",
-               route=lambda: f32scan.rowmin_3_operands(A1[:8], A2[:8],
-                                                        a3[:8], y[:8]))
+    # kernel 12: the row pass's hoists, and the row pass's route a chunk
+    rows["row3hoist"] = check_row3hoist(A1, A2, a3, y)
+    row3_chunk_cost(A1, A2, a3, y)
 
     # kernel 10: the re-scan's operands at the two-pass shapes 128 x 128
     # (timed for its row) and 256 x 256 on the chunk, and on the full
@@ -968,8 +1060,9 @@ def check_row4hoist(A1, A2, a3, a4, y):
 
 
 def phase_ear_kernels(wl, sig_ear):
-    """Kernels 1, 11, 4, 8 and 5 against their plain versions at the EAR
-    path's shapes: prep with 12 rhs columns on both blocks, the row
+    """Kernels 13, 1, 11, 4, 8 and 5 against their plain versions at the
+    EAR path's shapes: the rhs pack and prep with 12 rhs columns on both
+    blocks, the row
     pass's hoists (kernel 11: every output by ``check_hoist``, kernel 4
     fed them and the plain ones; the row pass's route cost a chunk,
     ``row4_chunk_cost``) and the row pass on a CHUNK-voxel chunk at
@@ -981,7 +1074,6 @@ def phase_ear_kernels(wl, sig_ear):
     (``df4_chunk_cost``)."""
     import torch
     from microstructure_fingerprinting_torch.ops import f32scan, prep, rescan
-    from microstructure_fingerprinting_torch.ops import nnls as mfn
     dev = torch.device("cuda")
     D, y, a3, a4 = ear_inputs(wl, sig_ear, CHUNK, dev)
     A1, A2 = D[:, 0].contiguous(), D[:, 1].contiguous()
@@ -990,12 +1082,10 @@ def phase_ear_kernels(wl, sig_ear):
     S = y.shape[1]
     nx, ns = 1 + N_EAR, N_EAR
 
-    # kernel 1 at 12 rhs columns (signal, CSF, 10 EAR atoms)
-    yh, _, _ = mfn._normalize_y(y)
-    a3h, _ = mfn._normalize_block(a3)
-    a4h, _ = mfn._normalize_block(a4)
-    rhs = prep.pack_rhs([yh, a3h[:, :, 0]]
-                        + [a4h[:, :, i] for i in range(N_EAR)])[:3]
+    # kernel 13 at 12 rhs columns (signal, CSF, 10 EAR atoms), then kernel
+    # 1 on its packs
+    rows["rhsprep_ear"] = check_rhsprep(y, a3, a4)
+    rhs = prep.rhs_prep(y, a3, a4)[:3]
     NB, N2B = rescan.col_blocks(N_ATOM, 512, 16)
     check_prep(rows, "prep_block_ear", ((A1, 128, "xr"), (A2, N2B, "ra")),
                rhs, 2 + N_EAR)
@@ -1142,13 +1232,18 @@ def cold_fit(label, model, args, kw, path):
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel of the %s path was never launched"
                              % label)
-    # kernels 8, 9, 10 and 11 build the operands of one launch of 5, 6,
-    # 3 and 4 each
+    # kernels 8, 9, 10, 11 and 12 build the operands of one launch of 5,
+    # 6, 3, 4 and 2 each, kernel 13 the rhs columns of one row pass
     for hoist, scan in (("df4hoist", "rescan4"), ("df2hoist", "df2scan"),
-                        ("df3hoist", "rescan3"), ("row4hoist", "rowmin4")):
+                        ("df3hoist", "rescan3"), ("row4hoist", "rowmin4"),
+                        ("row3hoist", "rowmin3")):
         if hoist in launches and launches[hoist] != launches[scan]:
             raise AssertionError("%s: %d launches of %s, %d of %s" % (
                 label, launches[hoist], hoist, launches[scan], scan))
+    row_passes = mft.LAUNCHES["rowmin3"] + mft.LAUNCHES["rowmin4"]
+    if mft.LAUNCHES["rhsprep"] != row_passes:
+        raise AssertionError("%s: %d launches of rhsprep, %d row passes" % (
+            label, mft.LAUNCHES["rhsprep"], row_passes))
     return fit, launches, cold_s
 
 
@@ -1382,9 +1477,10 @@ def phase_fit(wl, sig_ear=None):
     label = "EAR" if ear else "flagship"
     ys_np = wl["y_ear"] if ear else wl["y"]
     model, args, kw, _mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "row4hoist", "rowmin4", "rescan4", "df4hoist",
-            "finalize") if ear else (
-        "prep_block", "rowmin3", "rescan3", "df3hoist", "finalize")
+    path = ("rhsprep", "prep_block", "row4hoist", "rowmin4", "rescan4",
+            "df4hoist", "finalize") if ear else (
+        "rhsprep", "prep_block", "row3hoist", "rowmin3", "rescan3",
+        "df3hoist", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, ys_np, wl["gt_ids"],
                                    np.full(N_VOX, 2), np.ones(N_VOX, bool),
@@ -1393,8 +1489,8 @@ def phase_fit(wl, sig_ear=None):
     RECORD[label] = dict(
         cold_fit_s=cold_s, launches=launches, n_ties=n_tie, min_r2=min_r2,
         **warm_fits(label, model, args, kw, launches,
-                    split=(("prep", ("prep_block", "row4hoist") if ear
-                            else ("prep_block",)),
+                    split=(("prep", ("rhsprep", "prep_block",
+                                     "row4hoist" if ear else "row3hoist")),
                            ("re-scan", ("rescan4", "df4hoist") if ear
                             else ("rescan3", "df3hoist")),
                            ("finalize", ("finalize",)))))
@@ -1530,13 +1626,44 @@ def df3_chunk_cost(A1, A2, a3, y):
     torch.cuda.empty_cache()
 
 
+def row3_chunk_cost(A1, A2, a3, y):
+    """The flagship row pass (``f32scan.rowmin_3`` with column minima, as
+    ``df3_twopass`` calls it at N2 > R) on one chunk at 782 x 782, in turns
+    (``route_cost``): the fit's route ("kernel": kernel 13, kernel 1
+    twice, kernel 12, kernel 2 and the folds), the same with the plain
+    versions of kernels 13 and 12 ("plain hoists":
+    ``rowmin_3_operands_plain`` before kernel 2, the route before them)
+    and the plain hoists with kernel 2's plain version ("plain", over
+    slices of SLICE["rowmin3"] voxels; kernel 1 stays: its plain version
+    is timed on its own row)."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import f32scan
+    n1, n2 = A1.shape[2], A2.shape[2]
+
+    def route(rows):
+        ops, (lo_c, upf) = f32scan.rowmin_3_operands_plain(A1, A2, a3, y)
+        lo, up, lo_col = rows(ops)
+        return lo, up, upf, torch.minimum(lo_col[:, :n2], lo_c[:, :n2])
+
+    kern2 = lambda ops: f32scan.rowmin3_rows(*ops, n1=n1, n2=n2)
+    plain2 = lambda ops: plain_sliced(
+        lambda *o: f32scan.rowmin3_twin(*o, n1=n1, n2=n2), ops,
+        SLICE["rowmin3"])
+    RECORD["row3_chunk"] = route_cost("row pass %d x %d" % (n1, n2), {
+        "kernel": lambda: f32scan.rowmin_3(A1, A2, a3, y, colmin=True),
+        "plain hoists": lambda: route(kern2),
+        "plain": lambda: route(plain2)})
+    torch.cuda.empty_cache()
+
+
 def row4_chunk_cost(A1, A2, a3, a4, y):
     """The EAR row pass (``f32scan.rowmin_4`` with column minima, as
     ``df4_twopass`` calls it at N2 > R) on one chunk at 782 x 782, in turns
-    (``route_cost``): the fit's route ("kernel": kernel 1 twice, kernel
-    11, kernel 4 and the folds), the same with the hoists' plain version
-    ("plain hoists": ``rowmin_4_operands_plain`` before kernel 4, the
-    route before kernel 11) and the plain hoists with kernel 4's plain
+    (``route_cost``): the fit's route ("kernel": kernel 13, kernel 1
+    twice, kernel 11, kernel 4 and the folds), the same with the plain
+    versions of kernels 13 and 11 ("plain hoists":
+    ``rowmin_4_operands_plain`` before kernel 4, the route before them)
+    and the plain hoists with kernel 4's plain
     version ("plain", over slices of SLICE["rowmin4"] voxels; kernel 1
     stays: its plain version is timed on its own row)."""
     import torch
@@ -1647,10 +1774,10 @@ def phase_mixed(wl, sig_ear=None):
     ear = sig_ear is not None
     label = "ear_mixed" if ear else "mixed"
     model, args, kw, mix = volume(wl, label, sig_ear)
-    path = ("prep_block", "row4hoist", "rowmin4", "rescan4", "df4hoist",
-            "rescan3", "df3hoist", "finalize") if ear else (
-        "prep_block", "rowmin3", "rescan3", "df3hoist", "df2scan",
-        "df2hoist", "finalize")
+    path = ("rhsprep", "prep_block", "row4hoist", "rowmin4", "rescan4",
+            "df4hoist", "rescan3", "df3hoist", "finalize") if ear else (
+        "rhsprep", "prep_block", "row3hoist", "rowmin3", "rescan3",
+        "df3hoist", "df2scan", "df2hoist", "finalize")
     fit, launches, cold_s = cold_fit(label, model, args, kw, path)
     n_tie, min_r2 = check_recovery(label, wl, fit, mix["y"], mix["gt_ids"],
                                    mix["numfasc"], mix["csf_mask"], sig_ear)
@@ -2721,6 +2848,11 @@ KERNEL_META = {
     # the XLA prologues of the JAX functions of rows rescan3 and rowmin4
     "df3hoist": ("csrc/df3hoist.cu", "ops/pallas_dfscan.py:258"),
     "row4hoist": ("csrc/row4hoist.cu", "ops/f32scan.py:823"),
+    "row3hoist": ("csrc/row3hoist.cu", "ops/f32scan.py:367"),
+    # the XLA normalization and pack_rhs before the prep of rowmin_3 and
+    # rowmin_4: a row per rhs width, as kernel 1's
+    "rhsprep": ("csrc/rhsprep.cu", "ops/f32scan.py:355"),
+    "rhsprep_ear": ("csrc/rhsprep.cu", "ops/f32scan.py:808"),
 }
 
 
@@ -2739,18 +2871,21 @@ def main():
     sig_ear, wl["y_ear"] = mft.testing.make_ear(wl, N_EAR)
     wl["Dear"] = np.linspace(0.8e-9, 2.6e-9, N_EAR)
     log("workload synthesized in %.1f s" % (time.time() - t0))
-    # kernel rows, and the launches of each fit summed per row: kernel 1
-    # has a row per rhs width (2 columns without EAR, 12 with), kernels 3
-    # and 10 run in the flagship and mixed fits and, on the EAR grid, in
-    # the EAR-mixed one, kernels 6 and 9 in the mixed one, kernels 11, 4,
-    # 5 and 8 in the EAR and EAR-mixed ones, kernel 7 in all four
+    # kernel rows, and the launches of each fit summed per row: kernels 1
+    # and 13 have a row per rhs width (2 columns without EAR, 12 with),
+    # kernels 12 and 2 run in the flagship and mixed fits, kernels 3 and
+    # 10 there and, on the EAR grid, in the EAR-mixed one, kernels 6 and 9
+    # in the mixed one, kernels 11, 4, 5 and 8 in the EAR and EAR-mixed
+    # ones, kernel 7 in all four
     rows, launches = {}, {}
-    plain3 = {"prep_block": "prep_block", "rowmin3": "rowmin3",
+    plain3 = {"rhsprep": "rhsprep", "prep_block": "prep_block",
+              "row3hoist": "row3hoist", "rowmin3": "rowmin3",
               "rescan3": "rescan3", "finalize": "finalize",
               "df3hoist": "df3hoist"}
-    plain4 = {"prep_block_ear": "prep_block", "rowmin4": "rowmin4",
-              "rescan4": "rescan4", "finalize": "finalize",
-              "df4hoist": "df4hoist", "row4hoist": "row4hoist"}
+    plain4 = {"rhsprep_ear": "rhsprep", "prep_block_ear": "prep_block",
+              "rowmin4": "rowmin4", "rescan4": "rescan4",
+              "finalize": "finalize", "df4hoist": "df4hoist",
+              "row4hoist": "row4hoist"}
 
     def counted(label, counts, by_row):
         RECORD.setdefault("launches_by_fit", {})[label] = counts

@@ -13,9 +13,10 @@
 // row-level [lo, up] at nr, nr + 1, col_pack (B, NC, N2pb) and vox
 // (B, NV), each padded with zero entries to a multiple of 8 (_pack8); and
 // the per-column lows lo_c_sup (B, N2pb) and the floor upf (B,). The small
-// columns are quantised here (dfscan.quantize3, as ops/prep.pack_rhs
-// quantises them for kernel 1) rather than read from pack_rhs's levels: the
-// same integers, and no float32 planes to stack.
+// columns are quantised here (dfscan.quantize3, as kernel 13, csrc/
+// rhsprep.cu, quantises them for kernel 1): the same integers, and no
+// float32 planes to pass. The small Grams, the support intervals and the
+// fold of upf are csrc/hoist.cuh's, shared with kernel 12.
 //
 // What bounds it on an H100: bytes. Per atom it reads 3 + N4 Gram entries
 // and writes 9 + 10 N4 (row) or 7 + 8 N4 (column) entries; the chain is
@@ -61,8 +62,13 @@ using mf::dv;
 using mf::kInf;
 using mf::mul;
 using mf::sub;
+using mf::hoist::Consts;
+using mf::hoist::fold;
+using mf::hoist::Interval;
+using mf::hoist::interval;
 using mf::hoist::kAtoms;
-using mf::hoist::kTile;
+using mf::hoist::sub1;
+using mf::hoist::sub2;
 using mf::hoist::tmin;
 
 // the most EAR columns a call takes: kernel 1's Grams hold 15 rhs columns
@@ -71,105 +77,10 @@ constexpr int kMaxE = 13;
 constexpr int kMaxC = 2 + kMaxE, kMaxV = 3 + 3 * kMaxE;
 // rows of kernel 1's Grams (ops/prep: gram (B, 16, Np))
 constexpr int kGramRows = 16;
-// dfscan._S3 = 2^-23
-constexpr float kS3 = 1.1920928955078125e-07f;
 
 // torch.maximum on the card: a NaN operand wins, else fmaxf
 __device__ __forceinline__ float tmax(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
-// x.to(torch.bfloat16).float(): round to nearest even
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// dfscan.quantize3 of one value and the bf16 planes that f32scan._gram3_hi
-// multiplies: levels (q1, q2, q3) and (bf(a + R), bf(R), bf(a))
-__device__ __forceinline__ void quantize3(float x, int4& q, float4& v) {
-  const mf::hoist::Level l = mf::hoist::quantize2(x);
-  const int q3 = mf::hoist::round_level(l.r, kS3);
-  const float a = add(l.a, mul(__int2float_rn(q3), kS3));
-  const float r = sub(x, a);
-  q = make_int4(l.q1, l.q2, q3, 0);
-  v = make_float4(bf16r(add(a, r)), bf16r(r), bf16r(a), 0.0f);
-}
-
-// the running sums of f32scan._gram3_hi(qa, qb): level products grouped by
-// scale (exact in int32) and the two float64 correction sums
-struct Gram3 {
-  int t11, t12, t22, t23, t33;
-  double c1, c2;
-};
-
-__device__ __forceinline__ void gram3_step(Gram3& g, int4 qa, float4 va,
-                                           int4 qb, float4 vb) {
-  g.t11 += qa.x * qb.x;
-  g.t12 += qa.x * qb.y + qa.y * qb.x;
-  g.t22 += qa.y * qb.y + qa.x * qb.z + qa.z * qb.x;
-  g.t23 += qa.y * qb.z + qa.z * qb.y;
-  g.t33 += qa.z * qb.z;
-  g.c1 = __fma_rn((double)va.x, (double)vb.y, g.c1);
-  g.c2 = __fma_rn((double)va.y, (double)vb.z, g.c2);
-}
-
-// df32.df_from_sum(v_a, v_b, v_c, c1, c2, v_d, v_e)[0]: the running float32
-// sum in that order
-__device__ __forceinline__ float gram3_value(const Gram3& g) {
-  float h = mul(__int2float_rn(g.t11), 0x1p-14f);
-  h = add(h, mul(__int2float_rn(g.t12), 0x1p-22f));
-  h = add(h, mul(__int2float_rn(g.t22), 0x1p-30f));
-  h = add(h, __double2float_rn(g.c1));
-  h = add(h, __double2float_rn(g.c2));
-  h = add(h, mul(__int2float_rn(g.t23), 0x1p-38f));
-  return add(h, mul(__int2float_rn(g.t33), 0x1p-46f));
-}
-
-// the scalars the plain version passes as python floats
-struct Consts {
-  float eps, tol, kerr;
-};
-
-struct Interval {
-  float lo, up;
-};
-
-__device__ __forceinline__ void fold(Interval& acc, Interval s) {
-  acc.lo = tmin(acc.lo, s.lo);
-  acc.up = tmin(acc.up, s.up);
-}
-
-// f32scan._interval
-__device__ __forceinline__ Interval interval(bool feas, bool stab, float res,
-                                             float ws, bool excl,
-                                             const Consts& k) {
-  const float err = mul(k.kerr, add(1.0f, ws));
-  res = mf::nan_to_inf(res);
-  return {feas ? sub(res, err) : (stab ? kInf : (excl ? kInf : -k.kerr)),
-          feas ? add(res, err) : kInf};
-}
-
-// f32scan._sub1: support {a}
-__device__ __forceinline__ Interval sub1(float d, float p, float w,
-                                         const Consts& k) {
-  const float wa = dv(p, d);
-  return interval(wa >= 0.0f, true, sub(w, mul(p, wa)), fabsf(wa), false, k);
-}
-
-// f32scan._sub2 with det_tol = _TOL: support {a, b}
-__device__ Interval sub2(float dA, float dB, float g, float pA, float pB,
-                         float w, const Consts& k) {
-  const float invA = dv(1.0f, dA);
-  const float piv = sub(dB, mul(mul(g, g), invA));
-  const bool stab = piv > mul(k.eps, dB);
-  const float invP = stab ? dv(1.0f, piv) : 0.0f;
-  const float t = sub(pB, mul(mul(g, pA), invA));
-  const float wb = mul(t, invP);
-  const float wa = mul(sub(pA, mul(g, wb)), invA);
-  const bool feas =
-      stab && piv > mul(k.tol, dB) && wa >= 0.0f && wb >= 0.0f;
-  const float res = sub(sub(w, mul(mul(pA, pA), invA)), mul(t, wb));
-  return interval(feas, stab, res, add(fabsf(wa), fabsf(wb)), true, k);
 }
 
 // f32scan._sub3 with det_tol = _TOL: support {a, b, c}
@@ -242,16 +153,17 @@ struct Cols {
 
 // the small Grams (qa, qb): 0 w = (y, y), 1 d3 = (a3, a3), 2 r3 = (a3, y),
 // then for EAR column j: d4 = (a4j, a4j), r4 = (a4j, y), g34 = (a3, a4j)
-__device__ __forceinline__ int2 pair(int t) {
-  if (t < 3) return t == 0 ? make_int2(0, 0) : make_int2(1, t == 1 ? 1 : 0);
-  const int j = (t - 3) / 3, k = (t - 3) % 3;
-  return k == 0 ? make_int2(2 + j, 2 + j)
-                : (k == 1 ? make_int2(2 + j, 0) : make_int2(1, 2 + j));
-}
+struct Pair {
+  __device__ int2 operator()(int t) const {
+    if (t < 3) return t == 0 ? make_int2(0, 0) : make_int2(1, t == 1 ? 1 : 0);
+    const int j = (t - 3) / 3, k = (t - 3) % 3;
+    return k == 0 ? make_int2(2 + j, 2 + j)
+                  : (k == 1 ? make_int2(2 + j, 0) : make_int2(1, 2 + j));
+  }
+};
 
 struct Smem {
-  int4 q[kMaxC][kTile];
-  float4 v[kMaxC][kTile];
+  mf::hoist::Tile3<kMaxC> tile;
   float vg[kMaxV];
   VoxJ vj[kMaxE];
   float red[kAtoms];
@@ -283,25 +195,8 @@ row4hoist_kernel(const float* __restrict__ gramA,
   const size_t vS = (size_t)b * S;
   const Cols cols = {yh + vS, A3h + vS, A4h + vS * n4, n4};
   const int nc = 2 + n4, nv = 3 + 3 * n4;
-  const int2 pr = pair(tid < nv ? tid : 0);
-  Gram3 g = {0, 0, 0, 0, 0, 0.0, 0.0};
-  for (int s0 = 0; s0 < S; s0 += kTile) {
-    const int kn = min(kTile, S - s0);
-    __syncthreads();  // the last tile is consumed
-    for (int e = tid; e < nc * kTile; e += kAtoms) {
-      const int c = e / kTile, t = e % kTile;
-      if (t < kn) quantize3(cols(c, s0 + t), sm.q[c][t], sm.v[c][t]);
-    }
-    __syncthreads();
-    if (tid < nv) {
-      #pragma unroll 1
-      for (int t = 0; t < kn; ++t) {
-        gram3_step(g, sm.q[pr.x][t], sm.v[pr.x][t], sm.q[pr.y][t],
-                   sm.v[pr.y][t]);
-      }
-    }
-  }
-  if (tid < nv) sm.vg[tid] = gram3_value(g);
+  const float g = mf::hoist::small_grams(sm.tile, cols, nc, S, Pair{}, nv);
+  if (tid < nv) sm.vg[tid] = g;
   __syncthreads();
 
   // the voxel's factors: the CSF column's in every thread, EAR column j's
@@ -354,7 +249,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
     for (int e = 0; e < 5; ++e) rp[(size_t)(2 + e) * st] = row3[e];
     // the row-level supports {1}, {1,3}, then {1,4} and {1,3,4} a column
     Interval acc = sub1(d1, p, w, k);
-    fold(acc, sub2(d1, d3, b3, p, r3, w, k));
+    fold(acc, sub2(d1, d3, b3, p, r3, w, k.tol, k));
     #pragma unroll 1
     for (int j = 0; j < n4; ++j) {
       const VoxJ& v = sm.vj[j];
@@ -377,7 +272,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
         rp[(size_t)(2 + 5 * (n3 + j) + e) * st] = row4[e];
         rp[(size_t)(r0 + 5 * j + e) * st] = pairs[e];
       }
-      fold(acc, sub2(d1, v.d4, b4, p, v.r4, w, k));
+      fold(acc, sub2(d1, v.d4, b4, p, v.r4, w, k.tol, k));
       fold(acc, sub3(d1, d3, v.d4, b3, b4, v.g34, p, r3, v.r4, w, k));
     }
     rp[(size_t)nrow * st] = acc.lo;
@@ -400,7 +295,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
   #pragma unroll
   for (int e = 0; e < 4; ++e) cp[(size_t)(2 + e) * st] = col3[e];
   Interval acc = sub1(d2, q, w, k);
-  fold(acc, sub2(d2, d3, c3, q, r3, w, k));
+  fold(acc, sub2(d2, d3, c3, q, r3, w, k.tol, k));
   #pragma unroll 1
   for (int j = 0; j < n4; ++j) {
     const VoxJ& v = sm.vj[j];
@@ -418,7 +313,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
       cp[(size_t)(2 + 4 * (n3 + j) + e) * st] = col4[e];
       cp[(size_t)(c0 + 4 * j + e) * st] = pairs[e];
     }
-    fold(acc, sub2(d2, v.d4, c4, q, v.r4, w, k));
+    fold(acc, sub2(d2, v.d4, c4, q, v.r4, w, k.tol, k));
     fold(acc, sub3(d2, d3, v.d4, c3, c4, v.g34, q, r3, v.r4, w, k));
   }
   for (int e = ncol; e < NC; ++e) cp[(size_t)e * st] = 0.0f;
@@ -437,23 +332,11 @@ row4hoist_kernel(const float* __restrict__ gramA,
       for (int j = 0; j < n4; ++j) {
         const VoxJ& v = sm.vj[j];
         m = tmin(m, sub1(v.d4, v.r4, w, k).up);
-        m = tmin(m, sub2(d3, v.d4, v.g34, r3, v.r4, w, k).up);
+        m = tmin(m, sub2(d3, v.d4, v.g34, r3, v.r4, w, k.tol, k).up);
       }
     }
     part[(size_t)b * (gridDim.x - row_blocks) + cb] = m;
   }
-}
-
-// upf: the voxel's partials folded, a thread a voxel
-__global__ void row4hoist_floor_kernel(const float* __restrict__ part,
-                                       float* __restrict__ upf, int B,
-                                       int nparts) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* pb = part + (size_t)b * nparts;
-  float m = pb[0];
-  for (int t = 1; t < nparts; ++t) m = tmin(m, pb[t]);
-  upf[b] = m;
 }
 
 }  // namespace
@@ -485,7 +368,7 @@ extern "C" int mf_row4hoist(const float* gramA, const float* gramB,
       N1p, N2pb, n4, NR, NC, NV, Consts{eps, tol, kerr});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  row4hoist_floor_kernel<<<(B + 127) / 128, 128, 0, stream>>>(
+  mf::hoist::fold_min<float><<<(B + 127) / 128, 128, 0, stream>>>(
       part, upf, B, col_blocks);
   return (int)cudaGetLastError();
 }

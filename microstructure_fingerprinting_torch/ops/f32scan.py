@@ -28,6 +28,10 @@ the selected sub-grid. Kernel 4's operands after prep (the small Grams,
 the floor, the column lows, the row-level supports and the chain
 prefixes) come from kernel 11 (``csrc/row4hoist.cu``, ``row4_hoist``) on
 CUDA tensors, from its plain version ``row4_hoist_twin`` on CPU tensors.
+Kernel 2's come from kernel 12 (``csrc/row3hoist.cu``, ``row3_hoist``;
+plain version ``row3_hoist_twin``) in the same way. Both row passes take
+their rhs columns (the signal, the CSF and the EAR columns) normalized
+and packed for kernel 1 by kernel 13 (``ops/prep.rhs_prep``).
 """
 
 import numpy as np
@@ -37,7 +41,6 @@ import torch.nn.functional as F
 from . import df32
 from . import dfscan
 from . import kernels
-from . import nnls as mfn
 from . import prep as pp
 from . import rescan
 from ..utils.profiling import stage
@@ -54,6 +57,9 @@ _PTILE = 128       # rows per tile
 #: block tile of csrc/rowmin3.cu (rows x columns): it writes one partial
 #: row minimum per TN columns and one partial column minimum per TM rows
 TM, TN = 32, 64
+#: rows of kernel 1's Grams, the diagonal and one a rhs column
+#: (csrc/row4hoist.cu and csrc/row3hoist.cu kGramRows)
+GRAM_ROWS = 1 + pp.MAX_RHS
 
 
 def _w(c, x, y):
@@ -287,22 +293,17 @@ def rowmin3_rows(q123, a1bf, rabf, qb3, rbbf, abbf, row_pack, col_pack,
                         col_pack, vox, n1, n2)
 
 
-def rowmin_3_operands(A1, A2, a3, y):
-    """Prep (kernel 1, twice) and the hoisted chain prefixes of the row
-    pass. Returns (kernel operands tuple, (lo_c_sup, upf))."""
-    N2 = A2.shape[2]
-    NB, N2B = rescan.col_blocks(N2)
-    A3h, _ = mfn._normalize_block(a3)
-    yh, _yn, _ys = mfn._normalize_y(y)
-    rhs_q, rhs_r, rhs_a, q3s = pp.pack_rhs([yh, A3h[:, :, 0]])
-    A1p, _ = pp.pad_block(A1.float(), _PTILE)
-    A2p = F.pad(A2.float(), (0, NB * N2B - N2))
-    q123_t, a1bf_t, rabf_t, _x, gramA = pp.prep_block(
-        A1p, rhs_q, rhs_r, rhs_a, _PTILE, planes="xr", n_rhs=2)
-    qb3, _x2, rbbf, abbf, gramB = pp.prep_block(
-        A2p, rhs_q, rhs_r, rhs_a, N2B, planes="ra", n_rhs=2)
+def row3_hoist_twin(gramA, gramB, yh, A3h):
+    """Plain PyTorch version of kernel 12: the hoists of the [N1, N2, 1]
+    row pass from kernel 1's Grams gramA (B, 16, N1p) and gramB
+    (B, 16, N2pb) and the normalized rhs columns yh (B, S) and A3h
+    (B, S, 1): the small Grams, the block-1 row intervals, the
+    block-1-free floor, the per-column lows and the chain prefixes that
+    ``rowmin3_twin`` reads. Returns (row_pack (B, 16, N1p), col_pack
+    (B, 8, N2pb), vox (B, 8), lo_c_sup (B, N2pb), upf (B,))."""
     d1, p_, b_ = gramA[:, 0], gramA[:, 1], gramA[:, 2]     # (B, N1p)
     d2, q_, c_ = gramB[:, 0], gramB[:, 1], gramB[:, 2]     # (B, N2pb)
+    q3s = [dfscan.quantize3(c.float()) for c in (yh, A3h[:, :, 0])]
     d3 = _gram3_hi(q3s[1], q3s[1], "bs,bs->b")
     r_ = _gram3_hi(q3s[1], q3s[0], "bs,bs->b")
     w_ = _gram3_hi(q3s[0], q3s[0], "bs,bs->b")
@@ -344,9 +345,85 @@ def rowmin_3_operands(A1, A2, a3, y):
                      (0, 0, 0, 2)).contiguous()
     vox = F.pad(torch.stack([u3[:, 0], invd3[:, 0]], dim=1),
                 (0, 6)).contiguous()                       # (B, 8)
-    ops = (q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf, row_pack, col_pack,
-           vox)
-    return ops, (lo_c_sup, upf)
+    return row_pack, col_pack, vox, lo_c_sup, upf
+
+
+def row3_hoist_shapes(gramA, gramB, A3h):
+    """Raises ValueError unless kernel 12 takes the shapes: N3 = 1, N1p
+    and N2pb positive multiples of dfscan.HOIST_ATOMS (every shape
+    kernel 2 takes on the card)."""
+    N1p, N2pb, N3 = gramA.shape[2], gramB.shape[2], A3h.shape[2]
+    if (N3 != 1 or N1p < 1 or N2pb < 1 or N1p % dfscan.HOIST_ATOMS
+            or N2pb % dfscan.HOIST_ATOMS):
+        raise ValueError("unsupported row-pass hoist shape (N1p %d, N2pb "
+                         "%d, N3 %d)" % (N1p, N2pb, N3))
+
+
+def _row3_hoist_cuda(gramA, gramB, yh, A3h):
+    yh, A3h = yh.contiguous(), A3h.contiguous()
+    B, S = yh.shape
+    N1p, N2pb = gramA.shape[2], gramB.shape[2]
+    c = kernels.check
+    c(gramA, torch.float32, (B, GRAM_ROWS, N1p), "gramA")
+    c(gramB, torch.float32, (B, GRAM_ROWS, N2pb), "gramB")
+    c(yh, torch.float32, (B, S), "yh")
+    c(A3h, torch.float32, (B, S, A3h.shape[2]), "A3h")
+    row3_hoist_shapes(gramA, gramB, A3h)
+    new = lambda *shape: torch.empty(*shape, dtype=torch.float32,
+                                     device=gramA.device)
+    row_pack, col_pack, vox = new(B, 16, N1p), new(B, 8, N2pb), new(B, 8)
+    lo_c_sup, upf = new(B, N2pb), new(B)
+    part = new(B, N2pb // dfscan.HOIST_ATOMS)
+    kernels.launch("row3hoist", gramA, gramB, yh, A3h, row_pack, col_pack,
+                   vox, lo_c_sup, part, upf, B, S, N1p, N2pb, _EPS, KERR)
+    return row_pack, col_pack, vox, lo_c_sup, upf
+
+
+def row3_hoist(gramA, gramB, yh, A3h):
+    """Kernel 12 dispatch on the device of the Grams: CUDA tensors launch
+    ``csrc/row3hoist.cu`` (or raise), CPU tensors run
+    ``row3_hoist_twin``."""
+    fn = _row3_hoist_cuda if gramA.is_cuda else row3_hoist_twin
+    return fn(gramA, gramB, yh, A3h)
+
+
+def rowmin_3_prep(A1, A2, a3, y, rhs=pp.rhs_prep):
+    """The rhs columns' normalization and pack (kernel 13, or ``rhs``)
+    and kernel 1 (twice, with 2 rhs columns) of the [N1, N2, 1] row pass.
+    Returns (the row pass's level and plane operands (q123, a1bf, rabf,
+    qb3, rbbf, abbf), kernel 12's inputs (gramA, gramB, yh, A3h))."""
+    N2 = A2.shape[2]
+    NB, N2B = rescan.col_blocks(N2)
+    rhs_q, rhs_r, rhs_a, yh, A3h, _A4h = rhs(y, a3)
+    A1p, _ = pp.pad_block(A1.float(), _PTILE)
+    A2p = F.pad(A2.float(), (0, NB * N2B - N2))
+    q123_t, a1bf_t, rabf_t, _x, gramA = pp.prep_block(
+        A1p, rhs_q, rhs_r, rhs_a, _PTILE, planes="xr", n_rhs=2)
+    qb3, _x2, rbbf, abbf, gramB = pp.prep_block(
+        A2p, rhs_q, rhs_r, rhs_a, N2B, planes="ra", n_rhs=2)
+    return ((q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf),
+            (gramA, gramB, yh, A3h))
+
+
+def _row3_operands(rhs, hoist, A1, A2, a3, y):
+    planes, ins = rowmin_3_prep(A1, A2, a3, y, rhs)
+    row_pack, col_pack, vox, lo_c_sup, upf = hoist(*ins)
+    return planes + (row_pack, col_pack, vox), (lo_c_sup, upf)
+
+
+def rowmin_3_operands(A1, A2, a3, y):
+    """The rhs pack (kernel 13), prep (kernel 1, twice) and the hoists
+    of the row pass (kernel 12): kernels on CUDA tensors, their plain
+    versions on CPU tensors. Returns (kernel operands tuple, (lo_c_sup,
+    upf))."""
+    return _row3_operands(pp.rhs_prep, row3_hoist, A1, A2, a3, y)
+
+
+def rowmin_3_operands_plain(A1, A2, a3, y):
+    """``rowmin_3_operands`` with the rhs pack and the hoists in plain
+    torch on any device (kernels 13 and 12's plain versions; kernel 1
+    stays): the reference a card holds those kernels against."""
+    return _row3_operands(pp.rhs_prep_twin, row3_hoist_twin, A1, A2, a3, y)
 
 
 def rowmin_3(A1, A2, a3, y, colmin=False):
@@ -746,9 +823,6 @@ def row4_hoist_twin(gramA, gramB, yh, A3h, A4h):
 #: EAR columns kernel 11 takes at most (csrc/row4hoist.cu kMaxE): kernel
 #: 1's Grams hold pp.MAX_RHS rhs columns, the signal and CSF among them
 ROW4_HOIST_MAX_E = pp.MAX_RHS - 2
-#: rows of kernel 1's Grams, the diagonal and one a rhs column
-#: (csrc/row4hoist.cu kGramRows)
-GRAM_ROWS = 1 + pp.MAX_RHS
 
 
 def row4_hoist_shapes(gramA, gramB, A3h, A4h):
@@ -795,19 +869,16 @@ def row4_hoist(gramA, gramB, yh, A3h, A4h):
     return fn(gramA, gramB, yh, A3h, A4h)
 
 
-def rowmin_4_prep(A1, A2, a3, a4, y, colcap=512):
-    """The torch normalization and kernel 1 (twice, with 1 + N3 + N4 rhs
-    columns) of the 4-block row pass. Returns (the row pass's level and
-    plane operands (q123, a1bf, rabf, qb3, rbbf, abbf), kernel 11's
-    inputs (gramA, gramB, yh, A3h, A4h))."""
+def rowmin_4_prep(A1, A2, a3, a4, y, colcap=512, rhs=pp.rhs_prep):
+    """The rhs columns' normalization and pack (kernel 13, or ``rhs``)
+    and kernel 1 (twice, with 1 + N3 + N4 rhs columns) of the 4-block row
+    pass. Returns (the row pass's level and plane operands (q123, a1bf,
+    rabf, qb3, rbbf, abbf), kernel 11's inputs (gramA, gramB, yh, A3h,
+    A4h))."""
     N2 = A2.shape[2]
     NB, N2B = rescan.col_blocks(N2, colcap, 16)
-    A3h, _ = mfn._normalize_block(a3.float())
-    A4h, _ = mfn._normalize_block(a4.float())
-    yh, _yn, _ys = mfn._normalize_y(y.float())
-    rhs_cols = _rhs_cols(yh, A3h, A4h)
-    n_rhs = len(rhs_cols)
-    rhs_q, rhs_r, rhs_a, _q3s = pp.pack_rhs(rhs_cols)
+    rhs_q, rhs_r, rhs_a, yh, A3h, A4h = rhs(y, a3, a4)
+    n_rhs = 1 + A3h.shape[2] + A4h.shape[2]
     A1p, _ = pp.pad_block(A1.float(), _PTILE)
     A2p = F.pad(A2.float(), (0, NB * N2B - N2))
     q123_t, a1bf_t, rabf_t, _x, gramA = pp.prep_block(
@@ -818,26 +889,28 @@ def rowmin_4_prep(A1, A2, a3, a4, y, colcap=512):
             (gramA, gramB, yh, A3h, A4h))
 
 
-def _row4_operands(hoist, A1, A2, a3, a4, y, colcap):
-    planes, ins = rowmin_4_prep(A1, A2, a3, a4, y, colcap)
+def _row4_operands(rhs, hoist, A1, A2, a3, a4, y, colcap):
+    planes, ins = rowmin_4_prep(A1, A2, a3, a4, y, colcap, rhs)
     row_pack, col_pack, vox_pack, lo_c_sup, upf = hoist(*ins)
     nr = row4_pack_rows(a3.shape[2], a4.shape[2])[0]
     return planes + (row_pack, col_pack, vox_pack), nr, (lo_c_sup, upf)
 
 
 def rowmin_4_operands(A1, A2, a3, a4, y, colcap=512):
-    """Prep (kernel 1, twice, with 1 + N3 + N4 rhs columns) and the
-    hoists of the 4-block row pass: kernel 11 on CUDA tensors, its plain
-    version on CPU tensors. Returns (kernel operands tuple, nr,
-    (lo_c_sup, upf))."""
-    return _row4_operands(row4_hoist, A1, A2, a3, a4, y, colcap)
+    """The rhs pack (kernel 13), prep (kernel 1, twice, with 1 + N3 + N4
+    rhs columns) and the hoists of the 4-block row pass (kernel 11):
+    kernels on CUDA tensors, their plain versions on CPU tensors. Returns
+    (kernel operands tuple, nr, (lo_c_sup, upf))."""
+    return _row4_operands(pp.rhs_prep, row4_hoist, A1, A2, a3, a4, y,
+                          colcap)
 
 
 def rowmin_4_operands_plain(A1, A2, a3, a4, y, colcap=512):
-    """``rowmin_4_operands`` with the hoists in plain torch on any device
-    (kernel 11's plain version): the reference a card holds the kernel
-    against."""
-    return _row4_operands(row4_hoist_twin, A1, A2, a3, a4, y, colcap)
+    """``rowmin_4_operands`` with the rhs pack and the hoists in plain
+    torch on any device (kernels 13 and 11's plain versions; kernel 1
+    stays): the reference a card holds those kernels against."""
+    return _row4_operands(pp.rhs_prep_twin, row4_hoist_twin, A1, A2, a3,
+                          a4, y, colcap)
 
 
 def rowmin_4(A1, A2, a3, a4, y, colmin=False, colcap=512):

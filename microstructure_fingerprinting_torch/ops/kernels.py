@@ -53,7 +53,8 @@ USER_BUILD_DIR = os.path.join(os.path.expanduser("~"), ".cache",
                               "kernels")
 SOURCES = ("prep.cu", "rowmin3.cu", "rescan3.cu", "rowmin4.cu",
            "rescan4.cu", "df2scan.cu", "finalize.cu", "df4hoist.cu",
-           "df2hoist.cu", "df3hoist.cu", "row4hoist.cu")
+           "df2hoist.cu", "df3hoist.cu", "row4hoist.cu", "row3hoist.cu",
+           "rhsprep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -72,6 +73,8 @@ _SIGNATURES = {
     "df2hoist": ("mf_df2hoist", "p" * 14 + "i" * 5),
     "df3hoist": ("mf_df3hoist", "p" * 14 + "i" * 5),
     "row4hoist": ("mf_row4hoist", "p" * 11 + "i" * 9 + "fff"),
+    "row3hoist": ("mf_row3hoist", "p" * 10 + "i" * 4 + "ff"),
+    "rhsprep": ("mf_rhsprep", "p" * 9 + "i" * 7),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -23,6 +23,11 @@ the rounding of a float64 sum taken in another order
 
 ``prep_block`` dispatches on the device of ``A``: CUDA tensors launch the
 kernel (or raise), CPU tensors run ``prep_block_twin``.
+
+Kernel 13 (``csrc/rhsprep.cu``, ``rhs_prep``; plain version
+``rhs_prep_twin``) builds the rhs operands: the signal and the fixed
+columns normalized (``nnls._normalize_y`` / ``_normalize_block``) and
+packed as ``pack_rhs`` packs them.
 """
 
 import math
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from . import df32
 from . import dfscan
 from . import kernels
-from .nnls import sqrt_f32, sumsq_f32
+from .nnls import _normalize_block, _normalize_y, sqrt_f32, sumsq_f32
 
 _LANE = 128
 #: rhs columns (signal + fixed compartments): gram rows 1..15
@@ -91,6 +96,71 @@ def pack_rhs(cols):
     rhs_r = stackp([q[3] for q in q3s], torch.bfloat16)
     rhs_a = stackp([q[4] for q in q3s], torch.bfloat16)
     return rhs_q, rhs_r, rhs_a, q3s
+
+
+def rhs_prep_twin(y, a3, a4=None):
+    """Plain version of kernel 13 (``csrc/rhsprep.cu``): the row passes'
+    rhs columns normalized (``nnls._normalize_y`` / ``_normalize_block``)
+    and packed (``pack_rhs``). y (B, S), a3 (B, S, N3) and a4 (B, S, N4)
+    or None: 1 + N3 + N4 <= MAX_RHS raw columns, the signal first.
+    Returns (rhs_q, rhs_r, rhs_a, yh (B, S), A3h (B, S, N3), A4h
+    (B, S, N4) or None)."""
+    yh = _normalize_y(y.float())[0]
+    A3h = _normalize_block(a3.float())[0]
+    A4h = None if a4 is None else _normalize_block(a4.float())[0]
+    cols = [yh] + [A3h[:, :, i] for i in range(A3h.shape[2])]
+    if A4h is not None:
+        cols += [A4h[:, :, i] for i in range(A4h.shape[2])]
+    rhs_q, rhs_r, rhs_a, _q3s = pack_rhs(cols)
+    return rhs_q, rhs_r, rhs_a, yh, A3h, A4h
+
+
+def _voxel_contiguous(x):
+    """x itself if each voxel's block x[b] is contiguous (any batch
+    stride: 0 for a column every voxel shares), else a contiguous
+    copy."""
+    want = 1
+    for size, stride in reversed(list(zip(x.shape[1:], x.stride()[1:]))):
+        if size > 1 and stride != want:
+            return x.contiguous()
+        want *= size
+    return x
+
+
+def _rhs_prep_cuda(y, a3, a4):
+    B, S = y.shape
+    N3 = a3.shape[2]
+    N4 = 0 if a4 is None else a4.shape[2]
+    if 1 + N3 + N4 > MAX_RHS or N3 < 1:
+        raise ValueError("rhs_prep takes the signal and 1 .. %d fixed "
+                         "columns, got %d + %d" % (MAX_RHS - 1, N3, N4))
+    ins = [_voxel_contiguous(x) for x in (y, a3, a4) if x is not None]
+    for x, name, shape in zip(ins, ("y", "a3", "a4"),
+                              ((B, S), (B, S, N3), (B, S, N4))):
+        if not x.is_cuda or x.dtype != torch.float32:
+            raise TypeError("%s must be a float32 CUDA tensor" % name)
+        if tuple(x.shape) != shape:
+            raise ValueError("%s must have shape %s, got %s"
+                             % (name, shape, tuple(x.shape)))
+    y, a3, a4 = (ins + [None])[:3]
+    new = lambda *shape, dtype=torch.float32: torch.empty(
+        *shape, dtype=dtype, device=y.device)
+    yh, A3h = new(B, S), new(B, S, N3)
+    A4h = None if a4 is None else new(B, S, N4)
+    rhs_q = new(B, S, 3 * _LANE, dtype=torch.int8)
+    rhs_r = new(B, S, _LANE, dtype=torch.bfloat16)
+    rhs_a = new(B, S, _LANE, dtype=torch.bfloat16)
+    stride0 = lambda x: 0 if x is None else x.stride(0)
+    kernels.launch("rhsprep", y, a3, a4, yh, A3h, A4h, rhs_q, rhs_r, rhs_a,
+                   B, S, N3, N4, stride0(y), stride0(a3), stride0(a4))
+    return rhs_q, rhs_r, rhs_a, yh, A3h, A4h
+
+
+def rhs_prep(y, a3, a4=None):
+    """Kernel 13 dispatch on the device of ``y``: CUDA tensors launch
+    ``csrc/rhsprep.cu`` (or raise), CPU tensors run ``rhs_prep_twin``."""
+    fn = _rhs_prep_cuda if y.is_cuda else rhs_prep_twin
+    return fn(y, a3, a4)
 
 
 def pad_block(A, tile):

@@ -263,7 +263,8 @@ def test_cpu_tensors_run_the_twins(rng):
                                 "rescan3": 0, "rowmin4": 0, "rescan4": 0,
                                 "df2scan": 0, "finalize": 0, "df4hoist": 0,
                                 "df2hoist": 0, "df3hoist": 0,
-                                "row4hoist": 0}
+                                "row4hoist": 0, "row3hoist": 0,
+                                "rhsprep": 0}
 
 
 def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
