@@ -27,7 +27,11 @@ paths through ``MFModel.fit``: the flagship
 directions, noiseless), and two volumes that mix the fast path's buckets
 at the same widths: "mixed" (2048 voxels of 0, 1 and 2 fascicles with
 CSF and 2 without) and "ear_mixed" (1024 voxels of 0, 1 and 2 fascicles
-+ CSF + EAR, kernel 3 on the one-fascicle bucket's [782, 10, 1] grid).
++ CSF + EAR, kernel 3 on the one-fascicle bucket's [782, 10, 1] grid),
+and "ear_full", 1024 voxels of the (2, CSF, EAR) bucket with 16 EAR
+atoms, more than the EAR two-pass takes: its full [782, 782, 1, 16]
+grid (kernels 8 and 5 held against their plain versions there; kernel
+11 held at its largest width, 13 EAR columns, beforehand).
 It writes and reloads their maps, drives the overflow tiers of the
 two-fascicle + CSF buckets, and fits a few voxels of each newer bucket
 on the card and on the CPU. Then the general path (no kernel of its
@@ -192,6 +196,11 @@ GENERAL = {"shape": (16, 8, 8), "groups": ((512, 1, False, False),
 #: scan, on WIDE_VOX voxels of 2 fascicles + CSF + EAR
 N_EAR_WIDE = 20
 WIDE_VOX = 128
+#: the widest EAR block of the fast path: more EAR atoms than the EAR
+#: two-pass's rhs pack holds (13, ``f32scan.ROW4_HOIST_MAX_E``), so the
+#: (2, CSF, EAR) bucket scans its full grid (the ear_full phase)
+N_EAR_FULL = 16
+EAR_FULL_VOX = 1024
 #: flagship (2, CSF) voxels fitted with engine="xla" beside the fast path
 XLA_VOX = 512
 #: voxels of the EAR volume fitted from the shell (the cli_ear phase)
@@ -1012,13 +1021,13 @@ def ear_inputs(wl, sig_ear, B, device):
     return D, y, a3, a4[None].expand(B, -1, -1).contiguous()
 
 
-def check_row4hoist(A1, A2, a3, a4, y):
+def check_row4hoist(A1, A2, a3, a4, y, function=True):
     """Kernel 11 on the EAR row pass's inputs against its plain version:
     every output by ``check_hoist`` (the flags exactly, NaN bits, the
     column lows and the floor), kernel 4 fed both output sets (row and
-    column bounds by ``held``); timed, with the function a chunk
-    (``rowmin_4``) and the ATen ops of ``rowmin_4_operands``. Returns its
-    row (times, bound on the real atoms)."""
+    column bounds by ``held``); timed, with (``function``) the function a
+    chunk (``rowmin_4``) and the ATen ops of ``rowmin_4_operands``.
+    Returns its row (times, bound on the real atoms)."""
     from microstructure_fingerprinting_torch.ops import f32scan
     B, S = y.shape
     n1, n2, n4 = A1.shape[2], A2.shape[2], a4.shape[2]
@@ -1047,6 +1056,8 @@ def check_row4hoist(A1, A2, a3, a4, y):
     log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
         what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
     del planes, ins, k, p, fed, gA, gB
+    if not function:
+        return r
     # the function a chunk: the JAX rowmin_4 (colmin, as df4_twopass calls
     # it at N2 > R) on the port's route: kernel 1 twice, kernel 11, kernel 4
     # and the folds
@@ -1202,7 +1213,7 @@ def make_volume(wl, ys):
     return data, np.ones(shape), np.full(shape, 2.0), peaks
 
 
-def fit_dictionary(wl, sig_ear=None):
+def fit_dictionary(wl, sig_ear=None, dear=None):
     import microstructure_fingerprinting_torch as mft
     sig, dpar, _dperp = mft.testing.make_dictionary(wl["sch_mat"], N_ATOM)
     dic = {"dictionary": sig, "sch_mat": wl["sch_mat"],
@@ -1211,7 +1222,8 @@ def fit_dictionary(wl, sig_ear=None):
            "atom_id": np.arange(N_ATOM, dtype=float), "dpar": dpar,
            "T2_csf": 2.0, "DIFF_csf": 3.0e-9}
     if sig_ear is not None:
-        dic.update(T2_ear=0.8, DIFF_ear=wl["Dear"], num_ear=N_EAR)
+        dear = wl["Dear"] if dear is None else dear
+        dic.update(T2_ear=0.8, DIFF_ear=dear, num_ear=len(dear))
     return dic
 
 
@@ -1494,6 +1506,123 @@ def phase_fit(wl, sig_ear=None):
                            ("re-scan", ("rescan4", "df4hoist") if ear
                             else ("rescan3", "df3hoist")),
                            ("finalize", ("finalize",)))))
+    return launches
+
+
+def phase_ear_full(wl):
+    """The (2, CSF, EAR) bucket with N_EAR_FULL EAR atoms, more than the
+    EAR two-pass takes: through MFModel.fit it scans the full [782, 782,
+    1, 16] grid (kernels 8 and 5, then 7; no row pass may launch). First
+    kernel 11 at its largest width, 13 EAR columns, on a chunk against
+    its plain version (``check_row4hoist``); kernels 8 and 5 on the full
+    grid at E = 16 against theirs on CROSS_VOX voxels (every operand;
+    kernel 5 fed both operand sets and held against its own plain
+    version, the top-1 exact) and timed on a chunk; then the workload's
+    first EAR_FULL_VOX voxels with EAR atom EAR_ATOM of the 16 planted
+    (``testing.make_ear``) fitted cold (launch counts) and once warm,
+    held by the planted-atom gate, their maps reloaded, and CROSS_VOX of
+    them through ``run_bucket_fast`` on the card and on the CPU (ids
+    equal, objectives within 2e-9 ||y||^2). Returns the fit's launches."""
+    import torch
+    import microstructure_fingerprinting_torch as mft
+    from microstructure_fingerprinting_torch.models import fit as fit_mod
+    from microstructure_fingerprinting_torch.ops import f32scan, rescan
+    dev = torch.device("cuda")
+    rec = {}
+    n4 = f32scan.ROW4_HOIST_MAX_E
+    sig, y_ear = mft.testing.make_ear(wl, n4)
+    D, y, a3, a4 = ear_inputs(dict(wl, y_ear=y_ear), sig, CHUNK, dev)
+    rec["row4hoist_e%d" % n4] = check_row4hoist(
+        D[:, 0].contiguous(), D[:, 1].contiguous(), a3, a4, y,
+        function=False)
+    del D, y, a3, a4
+
+    E, n, B = N_EAR_FULL, N_ATOM, CROSS_VOX
+    sig_ear, y_ear = mft.testing.make_ear(wl, E)
+    dear = np.linspace(0.8e-9, 2.6e-9, E)
+    D, y, a3, a4 = ear_inputs(dict(wl, y_ear=y_ear), sig_ear, CHUNK, dev)
+    A1, A2 = D[:, 0].contiguous(), D[:, 1].contiguous()
+    del D
+    segw = rescan.col_blocks(n, 256, 16)[1]
+    kw5 = dict(n2=n, n3=1, n4=E, segw=segw)
+    seg = rescan.n_segments_df4(n)
+    top1 = lambda o: rescan.candidates_from_rows_df4(
+        o[0].reshape(B, -1), o[1].reshape(B, -1), E, E, n,
+        segments_total=seg)[0]
+    *blk, n2pb, _yn = rescan.df4_normalized(A1[:B], A2[:B], a3[:B],
+                                            a4[:B], y[:B])
+    ops, ops_p = rescan.df4_hoist(*blk, n2pb), rescan.df4_hoist_twin(
+        *blk, n2pb)
+    what = "df4hoist %d x %d, E = %d, %d voxels" % (n, n, E, B)
+    rec["df4hoist_max_abs_err"] = check_hoist(what, ops, ops_p,
+                                              df4_flags(E))
+    fed = [rescan.rescan4_rows(*o, **kw5) for o in (ops, ops_p)]
+    held(what + ": kernel 5 fed both, row minima", fed[0][0], fed[1][0])
+    held(what + ": kernel 5 fed both, first flat index", fed[0][1],
+         fed[1][1], exact=True)
+    if not torch.equal(top1(fed[0]), top1(fed[1])):
+        raise AssertionError(what + ": kernel 5 fed both: top-1 differ")
+    rec["rescan4_max_abs_err"], _k = check_rescan(
+        "rescan4 E = %d" % E, lambda: rescan.rescan4_rows(*ops, **kw5),
+        lambda: plain_sliced(lambda *o: rescan.rescan4_twin(*o, **kw5),
+                             ops, SLICE["rescan4"]), top1, B, n)
+    del ops, ops_p, fed, blk, _k
+    *blk, n2pb, _yn = rescan.df4_normalized(A1, A2, a3, a4, y)
+    ops = rescan.df4_hoist(*blk, n2pb)
+    rec["df4hoist_chunk_ms"] = timed(lambda: rescan.df4_hoist(*blk, n2pb))
+    rec["rescan4_chunk_ms"] = timed(
+        lambda: rescan.rescan4_rows(*ops, **kw5), reps=1)
+    log("E = %d, full grid, a chunk: kernel 8 %.3f ms, kernel 5 %.3f ms"
+        % (E, rec["df4hoist_chunk_ms"], rec["rescan4_chunk_ms"]))
+    del ops, blk, A1, A2, a3, a4, y
+    torch.cuda.empty_cache()
+
+    label = "ear_full"
+    nv, S = EAR_FULL_VOX, wl["sch_mat"].shape[0]
+    shape = (16, 8, 8)
+    model = mft.MFModel(fit_dictionary(wl, sig_ear, dear))
+    args = (y_ear[:nv].reshape(shape + (S,)), np.ones(shape),
+            np.full(shape, 2.0))
+    kw = dict(peaks=wl["peaks"][:nv].reshape(shape + (6,)),
+              pgse_scheme=wl["sch_mat"], csf_mask=1, ear_mask=1, verbose=0)
+    fit, launches, cold_s = cold_fit(label, model, args, kw,
+                                     ("df4hoist", "rescan4", "finalize"))
+    two_pass = {k: mft.LAUNCHES[k] for k in ("rhsprep", "prep_block",
+                                             "row4hoist", "rowmin4")}
+    if any(two_pass.values()):
+        raise AssertionError("%s: the two-pass ran: %s" % (label, two_pass))
+    n_tie, min_r2 = check_recovery(label, wl, fit, y_ear[:nv],
+                                   wl["gt_ids"][:nv], np.full(nv, 2),
+                                   np.ones(nv, bool), sig_ear, dear=dear)
+    check_maps(label, fit, True)
+    del fit
+    t0 = time.time()
+    model.fit(*args, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    log("%s: one warm fit of %d voxels (graph replays) %.3f s, %.1f "
+        "voxels/s [%s]" % (label, nv, warm_s, nv / warm_s, card_line()))
+    vox = np.arange(CROSS_VOX)
+    ms = wl["msinterp"]
+    out = {}
+    for where in ("cuda", "cpu"):
+        _x, ys, _c = ms.device_tables(where, torch.float32)
+        out[where] = fit_mod.run_bucket_fast(
+            ms, wl["plan"], ys, wl["peaks"][vox], y_ear[vox],
+            wl["sig_csf"], 2, True, batch=CROSS_VOX, sig_ear=sig_ear,
+            ear_on=True)
+    g, c = out["cuda"], out["cpu"]
+    err = float(np.max(np.abs(g[2] - c[2]) / np.sum(y_ear[vox] ** 2,
+                                                    axis=1)))
+    log("%s: %d voxels on the card and the CPU: ids %s; objective "
+        "max|card - plain|/||y||^2 %.3e" % (label, vox.size, g[1].tolist(),
+                                             err))
+    if not np.array_equal(g[1], c[1]) or err > 2e-9:
+        raise AssertionError("%s: card and CPU disagree" % label)
+    RECORD[label] = dict(rec, cold_fit_s=cold_s, launches=launches,
+                         n_ties=n_tie, min_r2=min_r2, warm_fit_s=warm_s,
+                         voxels_per_s=nv / warm_s, card_vs_cpu=err,
+                         card=card_line())
     return launches
 
 
@@ -2876,7 +3005,8 @@ def main():
     # kernels 12 and 2 run in the flagship and mixed fits, kernels 3 and
     # 10 there and, on the EAR grid, in the EAR-mixed one, kernels 6 and 9
     # in the mixed one, kernels 11, 4, 5 and 8 in the EAR and EAR-mixed
-    # ones, kernel 7 in all four
+    # ones (and 8 and 5 in the ear_full one, on its full grid), kernel 7 in
+    # all five
     rows, launches = {}, {}
     plain3 = {"rhsprep": "rhsprep", "prep_block": "prep_block",
               "row3hoist": "row3hoist", "rowmin3": "rowmin3",
@@ -2913,6 +3043,10 @@ def main():
                                         plain4)),
             ("ear_overflow", lambda: phase_overflow(ear=True)),
             ("ear_mixed", ear_mixed),
+            ("ear_full", lambda: counted("ear_full", phase_ear_full(wl),
+                                         {"df4hoist": "df4hoist",
+                                          "rescan4": "rescan4",
+                                          "finalize": "finalize"})),
             ("general", lambda: phase_general(wl, sig_ear)),
             ("general_wide", lambda: phase_general_wide(wl)),
             ("xla", lambda: phase_xla(wl)),

@@ -56,10 +56,12 @@ class SolverConfig:
     """Exhaustive-NNLS solver knobs.
 
     The EAR bucket always takes its two-pass scan (at ``twopass_rows_ear``)
-    when the dictionary has more than ``2 * twopass_rows`` atoms, on every
-    device: that is the JAX package's TPU production choice. Its
-    ``twopass_ear_mode`` knob, which chooses between that and a one-pass
-    scan per backend, is not carried."""
+    when the dictionary has more than ``2 * twopass_rows`` atoms and the
+    EAR block at most 13 atoms, on every device: that is the JAX package's
+    TPU production choice. With 14-16 EAR atoms it takes the full-grid
+    re-scan, as the JAX package's TPU falls back to its one-pass scan
+    when the two-pass's rhs pack overflows. Its ``twopass_ear_mode``
+    knob, which chooses between the two per backend, is not carried."""
     # two-pass scan row budgets: the f32 interval row pass bounds hold the
     # winner's row inside the top-R in-band rows; R covers the measured
     # band tails with <1% overflow for the 2-fascicle+CSF grid and a few %

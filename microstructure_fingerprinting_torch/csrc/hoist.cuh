@@ -1,5 +1,6 @@
-// The shared skeleton of kernels 8 (df4hoist.cu) and 9 (df2hoist.cu): the
-// operand preparation of the double-float scans, one pass over the samples.
+// The shared skeleton of kernel 9 (df2hoist.cu), and the Gram sums, put_ps
+// and tmin of kernel 8 (df4hoist.cu, a design of its own): the operand
+// preparation of the double-float scans, one pass over the samples.
 //
 // Both prologues (ops/rescan.df4_hoist_twin, ops/dfscan.df2_hoist_twin)
 // quantise every normalised atom of the two blocks into int8 levels and
@@ -26,7 +27,8 @@
 // Kernel 10 (df3hoist.cu) takes the same skeleton; the plain float32 hoists
 // of the interval row passes, kernels 11 (row4hoist.cu) and 12
 // (row3hoist.cu), and the rhs columns' pack, kernel 13 (rhsprep.cu), share
-// the second half of this file.
+// the second half of this file (kernel 11 its quantize3 and Gram sums, in
+// a voxel launch of its own).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -23,23 +23,28 @@
 // ~14 float32 operations an extra column and ~120 a pair with its two
 // sub-supports (chip_smoke.ROW4_CHAIN_OPS). The plain
 // version runs each operation as one torch kernel on (B, N, 1, N4)
-// temporaries: ~8,000 kernels a call at N4 = 10. The design, for this card
-// (the row and column blocks of kernels 8 and 10, csrc/hoist.cuh):
-//   * one launch a call: blocks 0 .. N1p/128 - 1 own 128 rows of one voxel,
-//     the next ones 128 columns; a thread one atom;
-//   * every block quantises the voxel's 2 + N4 small columns a tile of
-//     kTile samples at a time into shared memory and sums the 3 + 3 N4
-//     small Grams (w, d3, r3, then d4, r4, g34 of each EAR column), one a
-//     thread in sample order (int32 level sums, float64 sums of the bf16
-//     corrections), so all blocks of a voxel hold the same bits; then the
-//     voxel's factors (L43, D4h, stab34, invD4h, t4, rho34, u3, u4o, u4),
-//     one EAR column a thread, into shared memory; the first block writes
-//     vox;
-//   * a thread then runs its atom's chain one EAR column at a time, each
-//     pack entry written straight to device memory (coalesced: the atom
-//     axis is the pack's contiguous one), nothing of a sweep kept;
+// temporaries: ~8,000 kernels a call at N4 = 10. Its first design
+// had every block of a voxel, 15 a voxel, sum the voxel's small Grams over
+// the samples one Gram a thread: 92% of its cycles (examples/
+// kernel_phases.py). The design, for this card:
+//   * a first launch, a block a voxel (row4vox_kernel), quantises the
+//     voxel's 2 + N4 small columns once, kVoxTile samples at a time into
+//     shared memory, and sums the 3 + 3 N4 small Grams (w, d3, r3, then d4,
+//     r4, g34 of each EAR column) with the samples split into kParts parts,
+//     a thread a Gram and part: part p takes the samples s = p mod kParts
+//     in order, the int32 level sums are exact in any order and the float64
+//     corrections of the parts are added in part order and rounded once.
+//     Then the voxel's factors (L43, D4h, stab34, invD4h, t4, rho34, u3,
+//     u4o, u4), one EAR column a thread: vox, and the scratch (B, kScr)
+//     that the atom launch reads;
+//   * the atom launch (row4hoist_kernel): blocks 0 .. N1p/128 - 1 own 128
+//     rows of one voxel, the next ones 128 columns; a thread one atom.
+//     A block copies its voxel's scratch to shared memory, then a thread
+//     runs its atom's chain one EAR column at a time, each pack entry
+//     written straight to device memory (coalesced: the atom axis is the
+//     pack's contiguous one), nothing of a sweep kept;
 //   * upf is a minimum over every column of a voxel, across column blocks.
-//     It takes a second launch of the same call: each column block writes
+//     It takes a third launch of the same call: each column block writes
 //     the minimum of its columns' upper bounds (the first one also the
 //     voxel's own supports) to a scratch row of partials, and a thread a
 //     voxel folds them. A minimum is exact in any order, and torch.minimum's
@@ -48,12 +53,14 @@
 // (--fmad=false; 1 / x the IEEE quotient, as torch's reciprocal), the
 // branches of _sanit, _interval, _sub1, _sub2 and _sub3 as they are, and
 // torch.minimum / amin NaN-first (hoist::tmin): bit for bit, but for the
-// order of the float64 sums of the small Grams (testing.kernel_agreement).
+// order of the float64 sums of the small Grams (testing.fdot_parts_order):
+// equal except at such near-ties (testing.kernel_agreement).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hoist.cuh"
+#include "phases.cuh"
 
 namespace {
 
@@ -77,6 +84,14 @@ constexpr int kMaxE = 13;
 constexpr int kMaxC = 2 + kMaxE, kMaxV = 3 + 3 * kMaxE;
 // rows of kernel 1's Grams (ops/prep: gram (B, 16, Np))
 constexpr int kGramRows = 16;
+// the voxel launch: threads a block, samples quantised at a time, and the
+// parts the samples of a small Gram are split into (thread t sums Gram
+// t % kGramSlots over the samples s = t / kGramSlots mod kParts)
+constexpr int kVoxThreads = 256, kVoxTile = 64, kParts = 4;
+constexpr int kGramSlots = kVoxThreads / kParts;
+static_assert(kMaxV <= kGramSlots && kVoxTile % kParts == 0, "slots");
+// samples of the small columns a thread quantises a tile
+constexpr int kVoxPer = (kMaxC * kVoxTile + kVoxThreads - 1) / kVoxThreads;
 
 // torch.maximum on the card: a NaN operand wins, else fmaxf
 __device__ __forceinline__ float tmax(float a, float b) {
@@ -112,12 +127,22 @@ __device__ Interval sub3(float dA, float dB, float dC, float gAB, float gAC,
                   add(add(fabsf(wa), fabsf(wb)), fabsf(wc)), true, k);
 }
 
-// the voxel's values for EAR column j (rowmin_4_operands: eliminate 3
-// then 4)
+// the voxel's values for EAR column j that the atoms read
+// (rowmin_4_operands: eliminate 3 then 4)
 struct VoxJ {
-  float d4, r4, g34, invd4v, L43, invD4h, t4, rho34, u4o, u4;
-  bool stab34;
+  float d4, r4, g34, invd4v, L43, invD4h, t4, rho34;
 };
+
+// the voxel scratch (B, kScr) the voxel launch writes and the atom launch
+// reads: the CSF column's values, then each EAR column's
+constexpr int kScrJ = 8, kScr = 4 + kScrJ * kMaxE;
+struct VoxScr {
+  float w, d3, r3, invd3v;
+  VoxJ vj[kMaxE];
+};
+static_assert(sizeof(VoxJ) == kScrJ * sizeof(float) &&
+                  sizeof(VoxScr) == kScr * sizeof(float),
+              "the scratch layout");
 
 // x_chain: the {1, 2, X} pieces of a row with extra column X
 struct XRow {
@@ -162,78 +187,156 @@ struct Pair {
   }
 };
 
-struct Smem {
-  mf::hoist::Tile3<kMaxC> tile;
-  float vg[kMaxV];
-  VoxJ vj[kMaxE];
-  float red[kAtoms];
+// the voxel launch's tile: kVoxTile samples of the small columns,
+// quantize3'd for _gram3_hi; sample-major, so that the threads of a warp,
+// which read one sample of several columns, fall on distinct banks
+struct VoxTile {
+  int4 q[kVoxTile][kMaxC];
+  float4 v[kVoxTile][kMaxC];
 };
 
+// The voxel's prologue, a block a voxel: the small Grams, the factors, vox
+// and the scratch.
+__global__ void __launch_bounds__(kVoxThreads)
+row4vox_kernel(const float* __restrict__ yh, const float* __restrict__ A3h,
+               const float* __restrict__ A4h, float* __restrict__ vox,
+               float* __restrict__ scr, int S, int n4, int NV, Consts k) {
+  __shared__ VoxTile tile;
+  __shared__ mf::hoist::Gram3 part[kParts][kMaxV];
+  __shared__ float vg[kMaxV];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int n3 = 1, nx = n3 + n4, ns = n3 * n4;
+  // voxel entries (ops/f32scan.row4_hoist_twin; csrc/rowmin4.cu)
+  const int v0 = 1 + nx, nvox = 1 + nx + 3 * ns;
+  MF_PHASE_BEGIN;
+
+  const size_t vS = (size_t)b * S;
+  const Cols cols = {yh + vS, A3h + vS, A4h + vS * n4, n4};
+  const int nc = 2 + n4, nv = 3 + 3 * n4;
+  const int gi = tid % kGramSlots, p = tid / kGramSlots;
+  const int2 pr = Pair{}(gi < nv ? gi : 0);
+  mf::hoist::Gram3 g = {0, 0, 0, 0, 0, 0.0, 0.0};
+  // the thread's samples of a tile (entry e = tid + u kVoxThreads: column
+  // e / kVoxTile, sample e % kVoxTile), loaded a tile ahead so that the
+  // loads are in flight while the last tile is summed
+  float xv[kVoxPer];
+  auto load_tile = [&](int s0) {
+    #pragma unroll
+    for (int u = 0; u < kVoxPer; ++u) {
+      const int e = tid + u * kVoxThreads;
+      const int c = e / kVoxTile, t = e % kVoxTile;
+      xv[u] = c < nc && s0 + t < S ? cols(c, s0 + t) : 0.0f;
+    }
+  };
+  load_tile(0);
+  for (int s0 = 0; s0 < S; s0 += kVoxTile) {
+    const int kn = min(kVoxTile, S - s0);
+    __syncthreads();  // the last tile is consumed
+    #pragma unroll
+    for (int u = 0; u < kVoxPer; ++u) {
+      const int e = tid + u * kVoxThreads;
+      const int c = e / kVoxTile, t = e % kVoxTile;
+      if (c < nc && t < kn) {
+        mf::hoist::quantize3_planes(xv[u], tile.q[t][c], tile.v[t][c]);
+      }
+    }
+    __syncthreads();
+    if (s0 + kVoxTile < S) load_tile(s0 + kVoxTile);
+    if (gi < nv) {
+      #pragma unroll 1
+      for (int t = p; t < kn; t += kParts) {
+        mf::hoist::gram3_step(g, tile.q[t][pr.x], tile.v[t][pr.x],
+                              tile.q[t][pr.y], tile.v[t][pr.y]);
+      }
+    }
+  }
+  if (gi < nv) part[p][gi] = g;
+  __syncthreads();
+  if (tid < nv) {
+    // the parts in part order: int32 sums exact, float64 sums rounded once
+    mf::hoist::Gram3 t = part[0][tid];
+    #pragma unroll
+    for (int q = 1; q < kParts; ++q) {
+      const mf::hoist::Gram3& u = part[q][tid];
+      t.t11 += u.t11;
+      t.t12 += u.t12;
+      t.t22 += u.t22;
+      t.t23 += u.t23;
+      t.t33 += u.t33;
+      t.c1 = t.c1 + u.c1;
+      t.c2 = t.c2 + u.c2;
+    }
+    vg[tid] = mf::hoist::gram3_value(t);
+  }
+  __syncthreads();
+  MF_PHASE(0);
+
+  // the voxel's factors: the CSF column's in thread n4, EAR column j's in
+  // thread j
+  const float w = vg[0], d3 = vg[1], r3 = vg[2];
+  const float invd3v = dv(1.0f, tmax(d3, k.eps));
+  float* vx = vox + (size_t)b * NV;
+  VoxScr* sc = reinterpret_cast<VoxScr*>(scr + (size_t)b * kScr);
+  if (tid < n4) {
+    VoxJ v;
+    v.d4 = vg[3 + 3 * tid];
+    v.r4 = vg[4 + 3 * tid];
+    v.g34 = vg[5 + 3 * tid];
+    v.invd4v = dv(1.0f, tmax(v.d4, k.eps));
+    v.L43 = mul(v.g34, invd3v);
+    const float D4h = sub(v.d4, mul(v.g34, v.L43));
+    const bool stab34 = D4h > mul(k.tol, v.d4);
+    v.invD4h = stab34 ? dv(1.0f, D4h) : 0.0f;
+    v.t4 = sub(v.r4, mul(v.L43, r3));
+    v.rho34 = sub(sub(w, mul(mul(r3, r3), invd3v)),
+                  mul(mul(v.t4, v.t4), v.invD4h));
+    sc->vj[tid] = v;
+    vx[1 + n3 + tid] = mul(v.r4, v.invd4v);   // u4o
+    vx[v0 + 3 * tid] = mul(v.t4, v.invD4h);   // u4
+    vx[v0 + 3 * tid + 1] = v.L43;
+    vx[v0 + 3 * tid + 2] = stab34 ? 1.0f : 0.0f;
+  } else if (tid == n4) {
+    sc->w = w;
+    sc->d3 = d3;
+    sc->r3 = r3;
+    sc->invd3v = invd3v;
+    vx[0] = w;
+    vx[1] = mul(r3, invd3v);
+    for (int e = nvox; e < NV; ++e) vx[e] = 0.0f;
+  }
+  MF_PHASE(2);
+}
+
+// The atoms' chains: row and column blocks of 128 atoms of one voxel.
 __global__ void __launch_bounds__(kAtoms)
 row4hoist_kernel(const float* __restrict__ gramA,
                  const float* __restrict__ gramB,
-                 const float* __restrict__ yh, const float* __restrict__ A3h,
-                 const float* __restrict__ A4h, float* __restrict__ row_pack,
-                 float* __restrict__ col_pack, float* __restrict__ vox,
-                 float* __restrict__ lo_c_sup, float* __restrict__ part,
-                 int S, int N1p, int N2pb, int n4, int NR, int NC, int NV,
-                 Consts k) {
-  __shared__ Smem sm;
+                 const float* __restrict__ scr, float* __restrict__ row_pack,
+                 float* __restrict__ col_pack, float* __restrict__ lo_c_sup,
+                 float* __restrict__ part, int N1p, int N2pb, int n4, int NR,
+                 int NC, Consts k) {
+  __shared__ VoxScr sv;
+  __shared__ float red[kAtoms];
   const int tid = threadIdx.x, b = blockIdx.y;
   const int n3 = 1, nx = n3 + n4, ns = n3 * n4;
   // pack layout offsets (ops/f32scan.row4_hoist_twin; csrc/rowmin4.cu)
-  const int r0 = 2 + 5 * nx, c0 = 2 + 4 * nx, v0 = 1 + nx;
+  const int r0 = 2 + 5 * nx, c0 = 2 + 4 * nx;
   const int nrow = 2 + 5 * nx + 5 * ns, ncol = 2 + 4 * nx + 4 * ns;
-  const int nvox = 1 + nx + 3 * ns;
+  MF_PHASE_BEGIN;
 
   const int row_blocks = N1p / kAtoms;
   const bool is_row = blockIdx.x < row_blocks;
   const int cb = blockIdx.x - row_blocks;  // column block
   const int i = (is_row ? blockIdx.x : cb) * kAtoms + tid;
 
-  // the small Grams, one a thread in sample order
-  const size_t vS = (size_t)b * S;
-  const Cols cols = {yh + vS, A3h + vS, A4h + vS * n4, n4};
-  const int nc = 2 + n4, nv = 3 + 3 * n4;
-  const float g = mf::hoist::small_grams(sm.tile, cols, nc, S, Pair{}, nv);
-  if (tid < nv) sm.vg[tid] = g;
-  __syncthreads();
-
-  // the voxel's factors: the CSF column's in every thread, EAR column j's
-  // in thread j
-  const float w = sm.vg[0], d3 = sm.vg[1], r3 = sm.vg[2];
-  const float invd3v = dv(1.0f, tmax(d3, k.eps));
-  if (tid < n4) {
-    VoxJ v;
-    v.d4 = sm.vg[3 + 3 * tid];
-    v.r4 = sm.vg[4 + 3 * tid];
-    v.g34 = sm.vg[5 + 3 * tid];
-    v.invd4v = dv(1.0f, tmax(v.d4, k.eps));
-    v.L43 = mul(v.g34, invd3v);
-    const float D4h = sub(v.d4, mul(v.g34, v.L43));
-    v.stab34 = D4h > mul(k.tol, v.d4);
-    v.invD4h = v.stab34 ? dv(1.0f, D4h) : 0.0f;
-    v.t4 = sub(v.r4, mul(v.L43, r3));
-    v.rho34 = sub(sub(w, mul(mul(r3, r3), invd3v)),
-                  mul(mul(v.t4, v.t4), v.invD4h));
-    v.u4o = mul(v.r4, v.invd4v);
-    v.u4 = mul(v.t4, v.invD4h);
-    sm.vj[tid] = v;
+  // the voxel's scratch
+  const float* sb = scr + (size_t)b * kScr;
+  for (int e = tid; e < 4 + kScrJ * n4; e += kAtoms) {
+    reinterpret_cast<float*>(&sv)[e] = sb[e];
   }
   __syncthreads();
-  if (blockIdx.x == 0 && tid == 0) {
-    float* vx = vox + (size_t)b * NV;
-    vx[0] = w;
-    vx[1] = mul(r3, invd3v);
-    for (int j = 0; j < n4; ++j) {
-      const VoxJ& v = sm.vj[j];
-      vx[1 + n3 + j] = v.u4o;
-      vx[v0 + 3 * j] = v.u4;
-      vx[v0 + 3 * j + 1] = v.L43;
-      vx[v0 + 3 * j + 2] = v.stab34 ? 1.0f : 0.0f;
-    }
-    for (int e = nvox; e < NV; ++e) vx[e] = 0.0f;
-  }
+  const float w = sv.w, d3 = sv.d3, r3 = sv.r3, invd3v = sv.invd3v;
+  MF_PHASE(1);
 
   if (is_row) {
     const float* gA = gramA + (size_t)b * kGramRows * N1p + i;
@@ -252,7 +355,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
     fold(acc, sub2(d1, d3, b3, p, r3, w, k.tol, k));
     #pragma unroll 1
     for (int j = 0; j < n4; ++j) {
-      const VoxJ& v = sm.vj[j];
+      const VoxJ& v = sv.vj[j];
       const float b4 = gA[(size_t)(3 + j) * st];
       const XRow x4 = x_chain(d1, p, w, b4, v.r4, v.invd4v, k);
       const float row4[5] = {x4.L1x, x4.invd1px, x4.kap_ppx, x4.rho1x,
@@ -278,6 +381,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
     rp[(size_t)nrow * st] = acc.lo;
     rp[(size_t)(nrow + 1) * st] = acc.up;
     for (int e = nrow + 2; e < NR; ++e) rp[(size_t)e * st] = 0.0f;
+    MF_PHASE(3);
     return;
   }
 
@@ -298,7 +402,7 @@ row4hoist_kernel(const float* __restrict__ gramA,
   fold(acc, sub2(d2, d3, c3, q, r3, w, k.tol, k));
   #pragma unroll 1
   for (int j = 0; j < n4; ++j) {
-    const VoxJ& v = sm.vj[j];
+    const VoxJ& v = sv.vj[j];
     const float c4 = gB[(size_t)(3 + j) * st];
     const float kap_c4 = mul(c4, v.invd4v);
     const float col4[4] = {kap_c4, sub(d2, mul(c4, kap_c4)),
@@ -318,19 +422,20 @@ row4hoist_kernel(const float* __restrict__ gramA,
   }
   for (int e = ncol; e < NC; ++e) cp[(size_t)e * st] = 0.0f;
   lo_c_sup[(size_t)b * N2pb + i] = acc.lo;
+  MF_PHASE(3);
 
   // the block's part of the floor upf; the first column block adds the
   // voxel's block-1-free supports {}, {3}, {4}, {3,4}
-  sm.red[tid] = acc.up;
+  red[tid] = acc.up;
   __syncthreads();
   if (tid == 0) {
-    float m = sm.red[0];
-    for (int t = 1; t < kAtoms; ++t) m = tmin(m, sm.red[t]);
+    float m = red[0];
+    for (int t = 1; t < kAtoms; ++t) m = tmin(m, red[t]);
     if (cb == 0) {
       m = tmin(m, add(w, k.kerr));
       m = tmin(m, sub1(d3, r3, w, k).up);
       for (int j = 0; j < n4; ++j) {
-        const VoxJ& v = sm.vj[j];
+        const VoxJ& v = sv.vj[j];
         m = tmin(m, sub1(v.d4, v.r4, w, k).up);
         m = tmin(m, sub2(d3, v.d4, v.g34, r3, v.r4, w, k.tol, k).up);
       }
@@ -341,13 +446,15 @@ row4hoist_kernel(const float* __restrict__ gramA,
 
 }  // namespace
 
+MF_PHASE_API(mf_row4hoist_phases)
+
 extern "C" int mf_row4hoist(const float* gramA, const float* gramB,
                             const float* yh, const float* A3h,
                             const float* A4h, float* row_pack,
                             float* col_pack, float* vox, float* lo_c_sup,
-                            float* part, float* upf, int B, int S, int N1p,
-                            int N2pb, int n4, int NR, int NC, int NV, int nr,
-                            float eps, float tol, float kerr,
+                            float* scr, float* part, float* upf, int B, int S,
+                            int N1p, int N2pb, int n4, int NR, int NC, int NV,
+                            int nr, float eps, float tol, float kerr,
                             cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
   // the pack sizes (f32scan.row4_pack_rows at n3 = 1), padded to 8
@@ -360,13 +467,19 @@ extern "C" int mf_row4hoist(const float* gramA, const float* gramB,
       NV != pad8(nvox)) {
     return (int)cudaErrorInvalidValue;
   }
-  // part (B, N2pb / kAtoms): a partial minimum a column block
+  const Consts k{eps, tol, kerr};
+  // scr (B, kScr): the voxel's factors; part (B, N2pb / kAtoms): a partial
+  // minimum a column block
+  row4vox_kernel<<<B, kVoxThreads, 0, stream>>>(yh, A3h, A4h, vox, scr, S,
+                                                n4, NV, k);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int row_blocks = N1p / kAtoms, col_blocks = N2pb / kAtoms;
   dim3 grid(row_blocks + col_blocks, B);
-  row4hoist_kernel<<<grid, kAtoms, 0, stream>>>(
-      gramA, gramB, yh, A3h, A4h, row_pack, col_pack, vox, lo_c_sup, part, S,
-      N1p, N2pb, n4, NR, NC, NV, Consts{eps, tol, kerr});
-  cudaError_t err = cudaGetLastError();
+  row4hoist_kernel<<<grid, kAtoms, 0, stream>>>(gramA, gramB, scr, row_pack,
+                                                col_pack, lo_c_sup, part, N1p,
+                                                N2pb, n4, NR, NC, k);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mf::hoist::fold_min<float><<<(B + 127) / 128, 128, 0, stream>>>(
       part, upf, B, col_blocks);

@@ -10,8 +10,10 @@ microstructure_fingerprinting_torch.examples.<name> [n] [--device cpu]``:
   * ``profile_stages``: device time of each stage of the flagship and
     EAR chunks (``utils/profiling.StageTimer``);
   * ``ear_rsweep``: the EAR two-pass scan + finalize at several row
-    budgets R, time and overflow.
+    budgets R, time and overflow;
+  * ``kernel_phases``: where the time of kernels 8 and 11 goes, phase by
+    phase (a second build with ``-DMF_PHASES``) and launch by launch.
 
-Each runs on the card unless ``--device cpu`` is given; its numbers are
-the device's own.
+Each runs on the card unless ``--device cpu`` is given (``kernel_phases``
+only on a card); its numbers are the device's own.
 """

@@ -1,0 +1,170 @@
+"""Where the time of the EAR prologue kernels goes, phase by phase.
+
+Builds the kernels a second time with ``-DMF_PHASES`` (``csrc/phases.cuh``:
+at each mark a block barrier, then thread 0 adds the clock cycles since
+the previous mark to that phase's counter), apart from the fit's library
+(``build/mf_torch_kernels_phases/``), and runs kernel 8
+(``rescan.df4_hoist``, the EAR re-scan's operands at R x R) and kernel 11
+(``f32scan.row4_hoist``, the EAR row pass's hoists at N x N) on one chunk
+of the EAR workload (552 sequences, 782 atoms, CSF and ``--ear`` EAR
+atoms, seed 0). For each kernel it prints every phase's cycles, summed
+over blocks, and their share, beside the kernel call's time on the fit's
+library (CUDA events, mean of ``--reps``), and the card's name and power
+limit, and each launch's device time (``torch.profiler``). The barriers
+of the marks serialise what the warps of a block would overlap, and the
+cycles are summed over the blocks of every launch of the call: the
+shares split a launch, the times are the fit's.
+
+    python -m microstructure_fingerprinting_torch.examples.kernel_phases \
+        [chunk] [--rows 256] [--ear 10] [--reps 5]
+"""
+
+import argparse
+import ctypes
+import subprocess
+
+import numpy as np
+import torch
+
+from .. import testing as mft
+from ..ops import f32scan, kernels, rescan
+from ..ops import interp as mfi
+
+#: what each phase counter holds (csrc/phases.cuh marks)
+PHASES = ("the voxel's small Grams", "the atom stream / Gram reads",
+          "the voxel's factors", "the chain and the pack stores",
+          "the atom Grams on the tensor cores")
+
+
+def _ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def _launches(fn, reps):
+    """Device ms a call of each kernel that fn launches (torch.profiler,
+    CUPTI), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if t:
+            out[ev.key] = t / 1e3 / reps
+    return out
+
+
+def _phase_library():
+    """The kernels built with -DMF_PHASES, loaded apart."""
+    flags, where, lib = kernels.NVCC_FLAGS, kernels.BUILD_DIR, kernels._lib
+    kernels.NVCC_FLAGS = flags + ("-DMF_PHASES",)
+    kernels.BUILD_DIR = where + "_phases"
+    kernels._lib = None
+    try:
+        return kernels.library()
+    finally:
+        kernels.NVCC_FLAGS, kernels.BUILD_DIR, kernels._lib = (flags, where,
+                                                               lib)
+
+
+def _cycles(phases_lib, name, fn):
+    """Run fn once on the phase library; its counters."""
+    out = (ctypes.c_ulonglong * 8)()
+    reader = getattr(phases_lib, name)
+    reader.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn()
+    torch.cuda.synchronize()
+    if reader(ctypes.addressof(out), 1):
+        raise RuntimeError("%s failed" % name)
+    fn()
+    torch.cuda.synchronize()
+    if reader(ctypes.addressof(out), 1):
+        raise RuntimeError("%s failed" % name)
+    return [int(c) for c in out]
+
+
+def _report(label, ms, cycles, launches):
+    total = float(sum(cycles)) or 1.0
+    print("%s: %.3f ms a call (fit's library)" % (label, ms))
+    for name, t in sorted(launches.items(), key=lambda kv: -kv[1]):
+        print("  launch %-60s %.4f ms" % (name[:60], t))
+    for k, c in enumerate(cycles):
+        if c:
+            print("  phase %d %-36s %14d cycles  %5.1f%%"
+                  % (k, PHASES[k], c, 100.0 * c / total))
+    return {"ms": ms, "cycles": cycles}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("chunk", nargs="?", type=int, default=512)
+    ap.add_argument("--rows", type=int, default=256,
+                    help="kernel 8's R x R grid (default 256)")
+    ap.add_argument("--ear", type=int, default=10,
+                    help="EAR atoms (kernel 11 takes at most 13)")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_phases needs a CUDA device")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print("card: %s" % (card[0] if card else "not read"))
+    wl = mft.make_fit_workload(num_atom=782, n_vox=args.chunk, device="cuda")
+    sig_ear, y_ear = mft.make_ear(wl, args.ear)
+    rotate, perm = mfi.make_grouped_rotation_paired(wl["msinterp"],
+                                                    wl["plan"])
+    _x, ys_t, _c = wl["msinterp"].device_tables(dev, torch.float32)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    D = rotate(ys_t, f32(wl["peaks"]))
+    A1, A2 = D[:, 0].contiguous(), D[:, 1].contiguous()
+    y = f32(y_ear[:, perm])
+    B = y.shape[0]
+    a3 = f32(wl["sig_csf"][perm])[None, :, None].expand(B, -1, 1)
+    a3 = a3.contiguous()
+    a4 = f32(sig_ear[perm])[None].expand(B, -1, -1).contiguous()
+
+    n = args.rows
+    *blk, n2pb, _yn = rescan.df4_normalized(A1[:, :, :n], A2[:, :, :n], a3,
+                                            a4, y)
+    k8 = lambda: rescan.df4_hoist(*blk, n2pb)
+    _planes, ins = f32scan.rowmin_4_prep(A1, A2, a3, a4, y)
+    k11 = lambda: f32scan.row4_hoist(*ins)
+    ms8, ms11 = _ms(k8, args.reps), _ms(k11, args.reps)
+    l8, l11 = _launches(k8, args.reps), _launches(k11, args.reps)
+
+    lib = _phase_library()
+    saved = kernels._lib
+    kernels._lib = lib
+    try:
+        c8 = _cycles(lib, "mf_df4hoist_phases", k8)
+        c11 = _cycles(lib, "mf_row4hoist_phases", k11)
+    finally:
+        kernels._lib = saved
+    out = {"df4hoist": _report("kernel 8 df4hoist %d x %d, E = %d, %d "
+                               "voxels" % (n, n, args.ear, B), ms8, c8, l8),
+           "row4hoist": _report("kernel 11 row4hoist 782 x 782, E = %d, "
+                                "%d voxels" % (args.ear, B), ms11, c11,
+                                l11)}
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,9 @@ a double-float finalize of the winner on the device:
   * 2 fascicles + CSF: two-pass scan (kernels 1-3) or, for N <= 2R, the
     full-grid re-scan (kernel 3);
   * 2 fascicles + CSF + EAR: the 4-block two-pass scan (kernels 1, 4, 5)
-    or its full-grid re-scan (kernel 5);
+    for at most 13 EAR atoms, or the full-grid re-scan (kernels 8, 5):
+    for N <= 2R, and for 14-16 EAR atoms, whose 1 + 1 + E rhs columns
+    kernel 1's Grams do not hold;
   * 1 fascicle + CSF: ``dfscan.df2_candidates`` (kernel 6) with the CSF
     column as the second axis;
   * 1 fascicle + CSF + EAR: kernel 3 on the full [N, E, 1] grid, the EAR
@@ -215,6 +217,27 @@ def _chunk_step(rotate, tables_ys, csf_d, ear_d, pk, y, *, K, csf_on,
     return _twopass_step3(D, csf_d, y, R)
 
 
+def _pinned(device):
+    """Whether pushes to ``device`` go through pinned host memory (a
+    card's)."""
+    return torch.device(device).type == "cuda"
+
+
+def _push(a, device, dtype=None, held=None):
+    """The host array ``a`` on ``device`` as ``dtype``. To a card it is
+    cast into pinned host memory and copied with ``non_blocking=True``
+    on the device's current stream, so the push does not wait for the
+    kernels queued there before it; the pinned buffer is appended to
+    ``held``, which the caller keeps until it has pulled results that
+    follow the copy on that stream. Elsewhere ``torch.as_tensor``. Both
+    round float64 to float32 alike."""
+    if not _pinned(device):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    host = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).pin_memory()
+    held.append(host)
+    return host.to(device, non_blocking=True)
+
+
 def _deal(n_pad, batch, n_rows):
     """Chunk c of ``batch`` voxels runs on data row c % n_rows. Returns
     each row's share (the voxel indices of its chunks, in order) and, for
@@ -253,7 +276,8 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     y (n, S); sig_csf (S,) with ``csf_on``; sig_ear (S, E) with
     ``ear_on``. K is 1 or 2; one fascicle needs the CSF block and EAR
     needs it too, as in the JAX package (see the module docstring for
-    each bucket's scan). The two-pass scans (K = 2 + CSF) run at R =
+    each bucket's scan). The two-pass scans (K = 2 + CSF, with EAR at
+    most ``f32scan.ROW4_HOIST_MAX_E`` EAR atoms) run at R =
     ``twopass_rows`` (``twopass_rows_ear`` with EAR); voxels whose row
     band overflows R are re-solved at 2R (batch ``min(batch, 64)``), then
     at R = N, so exact selection is unconditional. The other buckets
@@ -269,7 +293,10 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     split over the row (``_sharded_step3``), as in the JAX package.
 
     Every chunk is enqueued (``graphs.run``: a CUDA graph replay on a
-    card) before any result is pulled. Returns NumPy (w (n, C), ind (n,
+    card) before any result is pulled; on a card the bucket's host arrays
+    are pushed from pinned memory without waiting for the stream
+    (``_push``), so a bucket's pushes do not wait for the kernels of the
+    buckets enqueued before it. Returns NumPy (w (n, C), ind (n,
     C), min_obj, mse, r2), C = K + csf_on + ear_on, in the canonical
     index layout [fascicles..., csf=0 (with CSF), ie (with EAR)]; with
     ``defer`` a closure that pulls the results, runs the overflow tiers
@@ -288,7 +315,12 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     n_at_ax = 1 if mesh is None else mesh.shape["atoms"]
     sharded = (K == 2 and csf_on and not ear_on and n_at_ax > 1
                and n_atom % n_at_ax == 0)
-    twopass = K == 2 and csf_on and n_atom > 2 * cfg.twopass_rows
+    # the EAR two-pass packs 1 + 1 + E rhs columns into kernel 1's Grams
+    # (ops/prep.MAX_RHS): wider EAR blocks take the full-grid re-scan, as
+    # the JAX package's one-pass df4 scan takes them
+    twopass = (K == 2 and csf_on and n_atom > 2 * cfg.twopass_rows
+               and not (ear_on and np.shape(sig_ear)[1]
+                        > f32.ROW4_HOIST_MAX_E))
     if rotator is None:
         rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
     rotate, perm = rotator
@@ -296,15 +328,14 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     rows = [[dev]] if mesh is None else mesh.devices
     slots = [row[0] for row in rows]
     n, S = y.shape
+    held = []   # pinned host buffers of the pushes, held until the pull
     # the rotation emits sequences in group order: permute the signal and
     # the fixed columns alike (every result is permutation-invariant)
     csf_d = ear_d = E = None
     if csf_on:
-        csf_d = torch.as_tensor(np.asarray(sig_csf)[perm], dtype=dt,
-                                device=dev)
+        csf_d = _push(np.asarray(sig_csf)[perm], dev, dt, held)
     if ear_on:
-        ear_d = torch.as_tensor(np.asarray(sig_ear)[perm], dtype=dt,
-                                device=dev)
+        ear_d = _push(np.asarray(sig_ear)[perm], dev, dt, held)
         E = ear_d.shape[1]
     # the read-only blocks on every data row's device
     put = lambda t, d: None if t is None else t.to(d)
@@ -322,8 +353,8 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
 
     def pushed(idx, j):
         """Directions and signals of the voxels ``idx`` on row j."""
-        return (torch.as_tensor(pk[idx], dtype=dt, device=slots[j]),
-                torch.as_tensor(y_all[idx], dtype=dt, device=slots[j]))
+        return (_push(pk[idx], slots[j], dt, held),
+                _push(y_all[idx], slots[j], dt, held))
 
     def solved(j, pk_c, yy, R, graph=True):
         """Chunk (pk_c, yy) on row j, through ``graphs.run`` or, for an
@@ -371,9 +402,9 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                 for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
                     m = sel.size
                     good = ok_f[:m].cpu().numpy() | (R == n_atom)
-                    done = torch.as_tensor(sel[good], device=dev)
-                    keep = torch.as_tensor(np.flatnonzero(good),
-                                           device=c_f.device)
+                    done = _push(sel[good], dev, held=held)
+                    keep = _push(np.flatnonzero(good), c_f.device,
+                                 held=held)
                     cand[done] = c_f[keep].to(dev)
                     w[done] = w_f[keep].to(dev)
                     obj[done] = o_f[keep].to(dev)
@@ -388,6 +419,7 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
         w_b = w.double().cpu().numpy()
         ind = cand.cpu().numpy().astype(np.int32)
+        held.clear()   # every copy is done: its results are on the host
         # clip the fascicle (and CSF) columns to the atom range and the
         # EAR column to its own
         n_fix = ind.shape[1] - int(ear_on)
@@ -575,10 +607,10 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
         dtype = tables[0].dtype
     n, S = y.shape
     slots = [dev] if mesh is None else mesh.data_devices
-    sig_csf_d = torch.as_tensor(sig_csf if csf_on else np.zeros(S),
-                                dtype=dtype, device=dev)
-    sig_ear_d = torch.as_tensor(sig_ear if ear_on else np.zeros((S, 1)),
-                                dtype=dtype, device=dev)
+    held = []   # pinned host buffers of the pushes, held until the pull
+    sig_csf_d = _push(sig_csf if csf_on else np.zeros(S), dev, dtype, held)
+    sig_ear_d = _push(sig_ear if ear_on else np.zeros((S, 1)), dev, dtype,
+                      held)
     # the read-only tables, plan and fixed columns on each row's device
     consts = {d: tuple(t.to(d) for t in tuple(tables) + tuple(plan)
                        + (sig_csf_d, sig_ear_d)) for d in slots}
@@ -595,8 +627,8 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
         y_all[n:] = y_all[0]
     # each row's chunks pushed at once
     shares, where = _deal(n_pad, batch, len(slots))
-    pushes = [(torch.as_tensor(pk64[idx, :K], dtype=dtype, device=slots[j]),
-               torch.as_tensor(y_all[idx], dtype=dtype, device=slots[j]))
+    pushes = [(_push(pk64[idx, :K], slots[j], dtype, held),
+               _push(y_all[idx], slots[j], dtype, held))
               for j, idx in enumerate(shares)]
 
     step = fit_step_candidates if refine else fit_step

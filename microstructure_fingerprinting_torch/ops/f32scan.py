@@ -823,6 +823,9 @@ def row4_hoist_twin(gramA, gramB, yh, A3h, A4h):
 #: EAR columns kernel 11 takes at most (csrc/row4hoist.cu kMaxE): kernel
 #: 1's Grams hold pp.MAX_RHS rhs columns, the signal and CSF among them
 ROW4_HOIST_MAX_E = pp.MAX_RHS - 2
+#: floats of kernel 11's voxel scratch (csrc/row4hoist.cu kScr): w, d3,
+#: r3, 1/d3, then 8 factors an EAR column
+ROW4_VOX_SCRATCH = 4 + 8 * ROW4_HOIST_MAX_E
 
 
 def row4_hoist_shapes(gramA, gramB, A3h, A4h):
@@ -854,10 +857,10 @@ def _row4_hoist_cuda(gramA, gramB, yh, A3h, A4h):
                                      device=gramA.device)
     row_pack, col_pack, vox = new(B, NR, N1p), new(B, NC, N2pb), new(B, NV)
     lo_c_sup, upf = new(B, N2pb), new(B)
-    part = new(B, N2pb // dfscan.HOIST_ATOMS)
+    scr, part = new(B, ROW4_VOX_SCRATCH), new(B, N2pb // dfscan.HOIST_ATOMS)
     kernels.launch("row4hoist", gramA, gramB, yh, A3h, A4h, row_pack,
-                   col_pack, vox, lo_c_sup, part, upf, B, S, N1p, N2pb, N4,
-                   NR, NC, NV, nr, _EPS, _TOL, KERR)
+                   col_pack, vox, lo_c_sup, scr, part, upf, B, S, N1p, N2pb,
+                   N4, NR, NC, NV, nr, _EPS, _TOL, KERR)
     return row_pack, col_pack, vox, lo_c_sup, upf
 
 

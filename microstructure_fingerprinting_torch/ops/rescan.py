@@ -936,6 +936,14 @@ def rescan4_rows(*ops, n2, n3, n4, segw):
 
 #: EAR columns kernel 8 takes at most (csrc/df4hoist.cu kMaxE)
 DF4_HOIST_MAX_E = 16
+#: floats of kernel 8's voxel scratch (csrc/df4hoist.cu kScr): (w, d3, r3,
+#: 1/d3) in double-float, then 15 double-float factors an EAR column
+DF4_VOX_SCRATCH = 8 + 30 * DF4_HOIST_MAX_E
+#: kernel 8's chunks of the voxel's small columns (csrc/df4hoist.cu kSK,
+#: ColChunk): samples a chunk, and floats a chunk (levels of 32 columns,
+#: R and a of 40, a row a sample)
+DF4_CHUNK = 32
+DF4_COL_CHUNK = DF4_CHUNK * (2 * 32 + 2 * 40 * 4) // 4
 
 
 def df4_pack_rows(n3, n4):
@@ -997,9 +1005,11 @@ def _df4_hoist_cuda(A1h, A2h, A3h, A4h, yh, n2pb):
     q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
     rb, ab = new(B, S, n2pb), new(B, S, n2pb)
     row_pack, col_pack, vox = new(B, NR, N1p), new(B, NC, n2pb), new(B, NV)
+    scr = new(B, DF4_VOX_SCRATCH)
+    cols = new(B, -(-S // DF4_CHUNK) * DF4_COL_CHUNK)
     kernels.launch("df4hoist", A1h, A2h, A3h, A4h, yh, q1a, q2a, ra, q1b,
-                   q2b, rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb,
-                   N4, NR, NC, NV, dfscan._TOL)
+                   q2b, rb, ab, row_pack, col_pack, vox, scr, cols, B, S, N1p,
+                   N2, n2pb, N4, NR, NC, NV, dfscan._TOL)
     return (q1a, q2a, A1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
 
 

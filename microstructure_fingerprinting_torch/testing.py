@@ -1,6 +1,6 @@
 """Synthetic workload generators (smoke runs and tests), the rule that
 holds a CUDA kernel against its plain version, and the plain versions'
-float64 sums in the order of kernels 8 and 9.
+float64 sums in the orders of the hoist kernels (8-12).
 
 Same generators as ``microstructure_fingerprinting_tpu/testing.py``: an
 HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
@@ -66,8 +66,8 @@ def kernel_agreement(k, p, exact=False):
 
 def fdot_sample_order(contract, x, y):
     """``ops/dfscan.fdot`` (a float64 sum of exact float32 products,
-    rounded once) summed as kernels 8 and 9 sum: from +0, one sample
-    after the other (the sample axis is axis 1 of both operands). Patch
+    rounded once) summed as kernels 9, 10 and 12 sum, and kernel 8 its
+    atoms' Grams with themselves: from +0, one sample after the other (the sample axis is axis 1 of both operands). Patch
     it over ``dfscan.fdot`` to run a plain version in the kernels'
     order."""
     x, y = x.double(), y.double()
@@ -76,6 +76,60 @@ def fdot_sample_order(contract, x, y):
         t = torch.einsum(contract, x[:, s:s + 1], y[:, s:s + 1])
         acc = (torch.zeros_like(t) if acc is None else acc) + t
     return acc.float()
+
+
+def fdot_parts_order(parts):
+    """``ops/dfscan.fdot`` summed as the voxel launches of kernels 8 and
+    11 sum the voxel's small Grams: the samples split into ``parts``
+    parts, part p the samples s = p mod ``parts``, each part summed from
+    +0 one sample after the other, then the parts' sums added in part
+    order and rounded once. Patch it over ``dfscan.fdot`` to run a plain
+    version in that order."""
+    def fdot(contract, x, y):
+        x, y = x.double(), y.double()
+        total = None
+        for p in range(parts):
+            acc = torch.einsum(contract, x[:, :0], y[:, :0])   # zeros
+            for s in range(p, x.shape[1], parts):
+                acc = acc + torch.einsum(contract, x[:, s:s + 1],
+                                         y[:, s:s + 1])
+            total = acc if total is None else total + acc
+        return total.float()
+    return fdot
+
+
+def fdot_mma_order(contract, x, y, chunk=32, step=8):
+    """``ops/dfscan.fdot`` as the tensor cores sum kernel 8's Grams of an
+    atom with the small columns: the samples padded with zeros to whole
+    chunks of ``chunk``, ``step`` at a time (an mma's depth) onto one
+    float64 accumulator, chunk after chunk, rounded once."""
+    x, y = x.double(), y.double()
+    pad = -x.shape[1] % chunk
+    x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    y = torch.nn.functional.pad(y, (0, 0) * (y.dim() - 2) + (0, pad))
+    acc = torch.einsum(contract, x[:, :0], y[:, :0])
+    for s in range(0, x.shape[1], step):
+        acc = acc + torch.einsum(contract, x[:, s:s + step],
+                                 y[:, s:s + step])
+    return acc.float()
+
+
+def fdot_kernel8_order(atom_widths, parts):
+    """``ops/dfscan.fdot`` in kernel 8's orders: an atom block's (its width
+    in ``atom_widths``) Gram with itself sample after sample
+    (``fdot_sample_order``), with the small columns on the tensor cores
+    (``fdot_mma_order``); the Grams among the small columns in the voxel
+    launch's ``parts`` parts (``fdot_parts_order``). Patch it over
+    ``dfscan.fdot`` to run ``rescan.df4_hoist_twin`` in that order."""
+    small = fdot_parts_order(parts)
+
+    def fdot(contract, x, y):
+        if x.dim() < 3 or x.shape[2] not in atom_widths:
+            return small(contract, x, y)
+        if contract == "bsn,bsn->bn":
+            return fdot_sample_order(contract, x, y)
+        return fdot_mma_order(contract, x, y)
+    return fdot
 
 
 def fibonacci_sphere(n):

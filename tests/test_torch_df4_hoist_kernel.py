@@ -6,14 +6,17 @@ launches kernel 8 (``df4_hoist``) for the quantize, the Grams, the LDL'
 hoists and the packs that kernel 5 reads; on the CPU it runs the plain
 version ``df4_hoist_twin`` (``_df4_hoists``), bit for bit
 ``row_scan_df4_operands_plain``. The kernel sums its float64 cross
-products in sample order, where the plain version's einsum takes another
-order: summed in the kernel's order (``testing.fdot_sample_order``) the
-plain version's operands agree by ``testing.kernel_agreement`` (levels
-and 0/1 flags exactly) and kernel 5's plain version picks the same
-top-1. Its padded columns are zeros, not the chain's value of a zero
+products in other orders than the plain version's einsums: each atom's
+Gram with itself in sample order, its Grams with the small columns on
+the tensor cores (8 samples an ``mma``, chunk after chunk), the voxel's
+small Grams once a voxel in kParts strided parts added in part order.
+Summed in the kernel's orders the plain version's operands agree by
+``testing.kernel_agreement`` (levels and 0/1 flags exactly) and kernel
+5's plain version picks the same top-1. Its padded columns are zeros, not the chain's value of a zero
 column. The pack layout read from the source is ``rescan4.cu``'s and
-``rescan.df4_pack_sizes``'; the wrapper's sizes are the source's. The
-``cuda`` test holds the kernel against its plain version on a card;
+``rescan.df4_pack_sizes``'; the wrapper's sizes, the voxel scratch's
+among them, are the source's. The ``cuda`` test holds the kernel
+against its plain version on a card at 10 and 16 EAR columns;
 ``tests/test_torch_ear_kernels.py`` holds the re-scan on operands in the
 kernel's order against the JAX package.
 """
@@ -116,17 +119,30 @@ def test_padding_is_zero(rng, N2):
     assert bool(torch.isinf(zero_rows[:, r_row0:s["row"][0]]).all())
 
 
-@pytest.mark.parametrize("N2,N4", [(140, 6), (256, 10)])
+def _src(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _parts():
+    """kParts of kernel 8's voxel launch, read from the source."""
+    return int(re.search(r"kParts = (\d+);", _src("df4hoist.cu")).group(1))
+
+
+@pytest.mark.parametrize("N2,N4", [(140, 6), (256, 10), (140, 16)])
 def test_kernel_summation_order(rng, monkeypatch, N2, N4):
     """c1 and c2 of every Gram are float64 sums of exact products whose
-    last bits depend on the order. Summed in the kernel's order (sample
-    after sample) the plain version's operands agree with the einsum
-    order's by ``testing.kernel_agreement``, levels and flags exactly,
-    and kernel 5's plain version picks the same row minima, first flat
-    indices and top-1 from both."""
+    last bits depend on the order. Summed in the kernel's orders (each
+    atom with itself sample after sample, with the small columns 8
+    samples an mma, the voxel's small Grams in strided parts) the plain
+    version's operands agree with the einsum order's by
+    ``testing.kernel_agreement``, levels and flags exactly, and kernel
+    5's plain version picks the same row minima, first flat indices and
+    top-1 from both."""
     args = _problem(rng, S=64, N2=N2, N4=N4)
     ops0, segw, _yn = trescan.row_scan_df4_operands(*args)
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    monkeypatch.setattr(tdfscan, "fdot",
+                        ttesting.fdot_kernel8_order({128, N2}, _parts()))
     ops1, _segw, _yn = trescan.row_scan_df4_operands(*args)
     monkeypatch.undo()
     rows, vox = _flags(N4)
@@ -156,14 +172,14 @@ def _c_ints(text, env):
     return env
 
 
-def _offsets(path, n4):
-    """The pack layout offsets of a source (its "// pack layout offsets"
-    block) at n3 = 1."""
-    with open(os.path.join(CSRC, path)) as f:
-        text = f.read()
-    block = text[text.index("// pack layout offsets"):]
-    block = block[:block.index("\n\n")]
-    env = _c_ints(block, {"n3": 1, "n4": n4, "nx": 1 + n4, "ns": n4})
+def _offsets(path, n4, heads=("// pack layout offsets",)):
+    """The pack layout offsets of a source (its blocks that begin with
+    ``heads``) at n3 = 1."""
+    text = _src(path)
+    env = {"n3": 1, "n4": n4, "nx": 1 + n4, "ns": n4}
+    for head in heads:
+        block = text[text.index(head):]
+        env = _c_ints(block[:block.index("\n\n")], env)
     return {k: v for k, v in env.items() if k not in ("n3", "n4", "nx",
                                                        "ns")}
 
@@ -174,9 +190,10 @@ def test_layout_is_the_sources(n4):
     entry; its sizes are ``df4_pack_sizes``'; the launcher's checks (NR,
     NC, NV: the sizes padded to 8) are ``df4_pack_rows``; its block width
     and largest EAR count are the wrapper's."""
-    with open(os.path.join(CSRC, "df4hoist.cu")) as f:
-        text = f.read()
-    writer, reader = _offsets("df4hoist.cu", n4), _offsets("rescan4.cu", n4)
+    text = _src("df4hoist.cu")
+    writer = _offsets("df4hoist.cu", n4, ("// voxel entries",
+                                          "// pack layout offsets"))
+    reader = _offsets("rescan4.cu", n4)
     assert {k: writer[k] for k in reader} == reader
     s = trescan.df4_pack_sizes(1, n4)
     assert (writer["nrow"], writer["ncol"], writer["nvox"]) == (
@@ -197,6 +214,33 @@ def test_layout_is_the_sources(n4):
     with open(os.path.join(CSRC, "hoist.cuh")) as f:
         assert int(re.search(r"kAtoms = (\d+);", f.read()).group(1)) == \
             tdfscan.HOIST_ATOMS
+    # the voxel scratch: (w, d3, r3, 1/d3) and a VoxJ of 15 double-float
+    # values an EAR column, the wrapper's size
+    decl = re.search(r"constexpr (int kScrJ = [^;]+;)", text).group(1)
+    consts = _c_ints("const " + decl, {"kMaxE": trescan.DF4_HOIST_MAX_E})
+    assert consts["kScr"] == trescan.DF4_VOX_SCRATCH
+    assert "P2 w, d3, r3, invd3;\n  VoxJ vj[kMaxE];" in text
+    voxj = text[text.index("struct VoxJ {"):]
+    voxj = voxj[:voxj.index("};")]
+    assert sum(line.count(",") + 1 for line in voxj.splitlines()
+               if line.strip().startswith("P2 ")) * 2 == consts["kScrJ"]
+    # the voxel launch's parts, and the atoms' quantize by products with
+    # the inverse level scales
+    assert "t += kParts" in text and "t.c1 = t.c1 + u.c1;" in text
+    assert "mf::mul(x, 128.0f)" in text and "32768.0f" in text
+    assert 2.0 ** -7 * 128.0 == 1.0 and 2.0 ** -15 * 32768.0 == 1.0
+    # the small columns' chunks the voxel launch writes and every atom
+    # block copies: kSK samples, levels of kQC columns, planes of kFC
+    k = {n: int(re.search(r"%s = (\d+)" % n, text).group(1))
+         for n in ("kSK", "kQC", "kFC")}
+    assert trescan.DF4_CHUNK == k["kSK"]
+    assert trescan.DF4_COL_CHUNK * 4 == k["kSK"] * (2 * k["kQC"]
+                                                    + 2 * 4 * k["kFC"])
+    assert "int8_t q1[kSK][kQC], q2[kSK][kQC];" in text
+    assert "float r[kSK][kFC], a[kSK][kFC];" in text
+    # a tile of 8 columns a warp covers 2 + N4 columns, at most 3 tiles
+    assert "2 + n4 <= 8    ? &launch<1>" in text
+    assert "2 + n4 <= 16 ? &launch<2>" in text
 
 
 def test_wrapper_rejects_unsupported_shapes():
@@ -215,21 +259,22 @@ def test_wrapper_rejects_unsupported_shapes():
 
 
 @pytest.mark.cuda
-def test_cuda_df4_hoist_matches_plain_version(rng):
-    """On the card, at the EAR width N4 = 10 with padded rows and
-    columns: every operand by ``testing.kernel_agreement`` (levels and
-    flags exactly, NaN bits included), kernel 5 fed either operand set
-    agrees and picks the same top-1, and row_scan_df4_operands launches
-    kernel 8 once."""
+@pytest.mark.parametrize("N4", [10, 16])
+def test_cuda_df4_hoist_matches_plain_version(rng, N4):
+    """On the card, at the EAR width N4 = 10 and at the largest, 16, with
+    padded rows and columns: every operand by
+    ``testing.kernel_agreement`` (levels and flags exactly, NaN bits
+    included), kernel 5 fed either operand set agrees and picks the same
+    top-1, and row_scan_df4_operands launches kernel 8 once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = tuple(x.cuda() for x in _problem(rng, B=4, S=64, N1=200,
-                                            N2=300, N4=10))
+                                            N2=300, N4=N4))
     kernels.reset_counts()
     ops_k, segw, _yn = trescan.row_scan_df4_operands(*args)
     assert kernels.LAUNCHES["df4hoist"] == 1
     ops_p, _segw, _yn = trescan.row_scan_df4_operands_plain(*args)
-    rows, vox = _flags(10)
+    rows, vox = _flags(N4)
     for a, b in zip(ops_k, ops_p):
         assert ttesting.kernel_agreement(a, b, a.dtype == torch.int8)[0]
     assert torch.equal(ops_k[8][:, rows], ops_p[8][:, rows])
@@ -237,7 +282,7 @@ def test_cuda_df4_hoist_matches_plain_version(rng):
     nan = torch.isnan(ops_p[8])
     assert torch.equal(ops_k[8][nan].view(torch.int32),
                        ops_p[8][nan].view(torch.int32))
-    kw = dict(n2=300, n3=1, n4=10, segw=segw)
+    kw = dict(n2=300, n3=1, n4=N4, segw=segw)
     rk, ik = trescan.rescan4_rows(*ops_k, **kw)
     rp, ip = trescan.rescan4_rows(*ops_p, **kw)
     assert ttesting.kernel_agreement(rk, rp)[0] and torch.equal(ik, ip)

@@ -10,6 +10,9 @@ mode, at the shapes the JAX suite already compiles
 versions on the card (the ``cuda``-marked test below, and
 ``chip_smoke.py``)."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import scipy.optimize
@@ -22,6 +25,7 @@ from microstructure_fingerprinting_tpu.ops import f32scan as jf32scan
 from microstructure_fingerprinting_tpu.ops import pallas_dfscan as jpdf
 from microstructure_fingerprinting_tpu.ops import pallas_prep as jprep
 
+import microstructure_fingerprinting_torch as mft
 from microstructure_fingerprinting_torch import testing as ttesting
 from microstructure_fingerprinting_torch.ops import dfscan as tdfscan
 from microstructure_fingerprinting_torch.ops import f32scan as tf32scan
@@ -218,8 +222,10 @@ def test_rescan4_matches_jax(rng, case, shape):
 
 def test_rescan4_on_kernel8_order_operands_matches_jax(rng, monkeypatch):
     """``rescan.row_scan_df4`` on operands summed as kernel 8 sums them
-    (float64 cross products sample after sample,
-    ``testing.fdot_sample_order``) against JAX row_scan_df4
+    (``testing.fdot_kernel8_order``: each atom with itself sample after
+    sample, with the small columns 8 samples a tensor-core step, the
+    voxel's small Grams in the voxel launch's strided parts) against JAX
+    row_scan_df4
     (interpret=True) on the production case's shape (its program is
     compiled once in this module): top-1 (i1, i2, i3, i4) equal, values
     to rtol 1e-6 atol 1e-9, as ``test_rescan4_matches_jax``."""
@@ -231,7 +237,11 @@ def test_rescan4_on_kernel8_order_operands_matches_jax(rng, monkeypatch):
     cj, vj = jpdf.candidates_from_rows_df4(rr, ri, 1, N3 * N4, N4, N2,
                                            segments_total=segs)
     ops, segw, _yn = trescan.row_scan_df4_operands(*[_t(x) for x in args])
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    with open(os.path.join(os.path.dirname(mft.__file__), "csrc",
+                           "df4hoist.cu")) as f:
+        parts = int(re.search(r"kParts = (\d+);", f.read()).group(1))
+    monkeypatch.setattr(tdfscan, "fdot",
+                        ttesting.fdot_kernel8_order({128, N2}, parts))
     ops_k, segw_k, _yn = trescan.row_scan_df4_operands(
         *[_t(x) for x in args])
     monkeypatch.undo()

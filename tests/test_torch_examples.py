@@ -9,9 +9,11 @@ import sys
 import pytest
 import torch
 
+import re
+
 from microstructure_fingerprinting_torch.examples import (
-    demo_synthetic, ear_rsweep, exactness_check, profile_stages,
-    whole_brain)
+    demo_synthetic, ear_rsweep, exactness_check, kernel_phases,
+    profile_stages, whole_brain)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
@@ -93,4 +95,36 @@ def test_example_runs_as_module(name):
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert "--device" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_kernel_phases_names_every_mark(monkeypatch):
+    """``kernel_phases`` (a card's measurement) names every phase mark of
+    the kernels it reads (``MF_PHASE(k)`` in ``csrc/df4hoist.cu`` and
+    ``csrc/row4hoist.cu``, whose counter readers it calls), stops with a
+    message where there is no card, and its ``--help`` imports no JAX."""
+    csrc = os.path.join(REPO, "microstructure_fingerprinting_torch", "csrc")
+    for src, reader in (("df4hoist.cu", "mf_df4hoist_phases"),
+                        ("row4hoist.cu", "mf_row4hoist_phases")):
+        with open(os.path.join(csrc, src)) as f:
+            text = f.read()
+        marks = {int(k) for k in re.findall(r"MF_PHASE\((\d)\)", text)}
+        assert marks and max(marks) < len(kernel_phases.PHASES)
+        assert "MF_PHASE_API(%s)" % reader in text
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        kernel_phases.main([])
+    code = ("import runpy, sys\n"
+            "sys.argv = ['kernel_phases', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('microstructure_fingerprinting_torch."
+            "examples.kernel_phases', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'microstructure_fingerprinting_tpu'))))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--rows" in run.stdout
     assert run.stdout.strip().splitlines()[-1] == "[]"

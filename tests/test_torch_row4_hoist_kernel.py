@@ -7,14 +7,17 @@ the column lows, the row-level supports and the chain prefixes that
 kernel 4 reads; on the CPU it runs the plain version ``row4_hoist_twin``
 (the code ``rowmin_4_operands`` ran itself before the kernel, which
 re-quantizes the rhs columns as ``prep.pack_rhs`` does), bit for bit
-``rowmin_4_operands_plain``. The kernel sums the small Grams' float64
-corrections in sample order, where the plain version's einsum takes
-another order: summed in the kernel's order (``testing.fdot_sample_order``)
-the plain version's outputs agree by ``testing.kernel_agreement`` (flags
+``rowmin_4_operands_plain``. The kernel sums the voxel's small Grams
+once a voxel (its voxel launch), the samples split into kParts parts
+(part p the samples s = p mod kParts) whose float64 corrections are
+added in part order, where the plain version's einsum takes another
+order: summed in the kernel's order (``testing.fdot_parts_order``) the
+plain version's outputs agree by ``testing.kernel_agreement`` (flags
 exactly), kernel 4's plain version gives the same bounds, the row pass
 is the JAX package's and ``df4_twopass`` selects the same. The pack
-layout read from the source is ``rowmin4.cu``'s and ``row4_pack_rows``'.
-The ``cuda`` test holds the kernel against its plain version on a card.
+layout read from the source is ``rowmin4.cu``'s and ``row4_pack_rows``',
+the voxel scratch's size the wrapper's. The ``cuda`` test holds the
+kernel against its plain version on a card at 10 and 13 EAR columns.
 """
 
 import os
@@ -187,8 +190,10 @@ def test_layout_is_the_sources(n4):
     largest EAR count and Gram rows are the wrapper's."""
     base = {"n3": 1, "n4": n4, "nx": 1 + n4, "ns": n4}
     text = _src("row4hoist.cu")
-    block = text[text.index("// pack layout offsets"):]
-    writer = _c_ints(block[:block.index("\n\n")], dict(base))
+    writer = dict(base)
+    for head in ("// voxel entries", "// pack layout offsets"):
+        block = text[text.index(head):]
+        writer = _c_ints(block[:block.index("\n\n")], writer)
     reader = _c_ints(_src("rowmin4.cu"), dict(base))
     for k in ("r0", "c0", "v0", "nrow", "ncol", "nvox"):
         assert writer[k] == reader[k], k
@@ -208,6 +213,16 @@ def test_layout_is_the_sources(n4):
         tf32scan.ROW4_HOIST_MAX_E
     assert int(re.search(r"kGramRows = (\d+);", text).group(1)) == \
         tf32scan.GRAM_ROWS
+    # the voxel scratch: 4 floats and kScrJ an EAR column, the wrapper's
+    # size, and the struct the two launches share is laid out so
+    decl = re.search(r"constexpr (int kScrJ = [^;]+;)", text).group(1)
+    consts = _c_ints("const " + decl, {"kMaxE": tf32scan.ROW4_HOIST_MAX_E})
+    assert consts["kScr"] == tf32scan.ROW4_VOX_SCRATCH
+    assert "float d4, r4, g34, invd4v, L43, invD4h, t4, rho34;" in text
+    assert "float w, d3, r3, invd3v;\n  VoxJ vj[kMaxE];" in text
+    parts = _parts()
+    assert parts >= 1 and "t += kParts" in text
+    assert "t.c1 = t.c1 + u.c1;" in text and "t.c2 = t.c2 + u.c2;" in text
     # the entries inside each group, in the order kernel 4 reads them
     reads = _src("rowmin4.cu")
     for group in ("L1x = Rx[0], invd1px = Rx[TM], kap_ppx = Rx[2 * TM]",
@@ -226,21 +241,28 @@ def test_layout_is_the_sources(n4):
                   "kap1)),",
                   "col4[4] = {kap_c4, sub(d2, mul(c4, kap_c4)),",
                   "pairs[4] = {\n        e4cc, L24,",
-                  "vx[v0 + 3 * j] = v.u4;",
-                  "vx[v0 + 3 * j + 1] = v.L43;",
-                  "vx[v0 + 3 * j + 2] = v.stab34 ? 1.0f : 0.0f;"):
+                  "vx[v0 + 3 * tid] = mul(v.t4, v.invD4h);   // u4",
+                  "vx[v0 + 3 * tid + 1] = v.L43;",
+                  "vx[v0 + 3 * tid + 2] = stab34 ? 1.0f : 0.0f;"):
         assert group in text, group
     with open(os.path.join(CSRC, "hoist.cuh")) as f:
         assert int(re.search(r"kAtoms = (\d+);", f.read()).group(1)) == \
             tdfscan.HOIST_ATOMS
 
 
+def _parts():
+    """kParts of kernel 11's voxel launch, read from the source."""
+    return int(re.search(r"kParts = (\d+);", _src("row4hoist.cu")).group(1))
+
+
 def _kernel_order_hoist(monkeypatch):
     """``row4_hoist_twin`` with the small Grams' float64 sums in kernel
-    11's order (sample after sample)."""
+    11's order (``testing.fdot_parts_order`` at the source's kParts)."""
+    fdot = ttesting.fdot_parts_order(_parts())
+
     def hoist(*a):
         with monkeypatch.context() as m:
-            m.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+            m.setattr(tdfscan, "fdot", fdot)
             return tf32scan.row4_hoist_twin(*a)
     return hoist
 
@@ -249,7 +271,8 @@ def _kernel_order_hoist(monkeypatch):
 def test_kernel_summation_order(rng, monkeypatch, N2, n4, colcap):
     """The small Grams' corrections are float64 sums of exact bf16
     products whose last bits depend on the order. Summed in the kernel's
-    order the plain version's outputs agree with the einsum order's by
+    order (the samples in kParts strided parts, added in part order) the
+    plain version's outputs agree with the einsum order's by
     ``testing.kernel_agreement``, flags exactly, and kernel 4's plain
     version gives the same row and column bounds from both."""
     args = _row_problem(rng, N2=N2, n4=n4)
@@ -310,15 +333,17 @@ def test_twopass_selection_unchanged(rng, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_row4_hoist_matches_plain_version(rng):
-    """On the card, at the EAR width N4 = 10 with padded rows and two
-    column blocks: every output by ``testing.kernel_agreement`` (flags
-    exactly, NaN bits included), kernel 4 fed either operand set gives
-    the same bounds, and rowmin_4_operands launches kernel 11 once."""
+@pytest.mark.parametrize("n4", [10, 13])
+def test_cuda_row4_hoist_matches_plain_version(rng, n4):
+    """On the card, at the EAR width N4 = 10 and at the largest, 13, with
+    padded rows and two column blocks: every output by
+    ``testing.kernel_agreement`` (flags exactly, NaN bits included),
+    kernel 4 fed either operand set gives the same bounds, and
+    rowmin_4_operands launches kernel 11 once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = tuple(x.cuda() for x in _row_problem(rng, B=4, S=64, N1=200,
-                                                N2=300, n4=10))
+                                                N2=300, n4=n4))
     kernels.reset_counts()
     ops_k, nr, (lo_k, upf_k) = tf32scan.rowmin_4_operands(*args,
                                                            colcap=256)
@@ -332,10 +357,10 @@ def test_cuda_row4_hoist_matches_plain_version(rng):
         nan = torch.isnan(b)
         assert torch.equal(a[nan].view(torch.int32),
                            b[nan].view(torch.int32))
-    rows, vox = _flags(10)
+    rows, vox = _flags(n4)
     assert torch.equal(outs_k[0][:, rows], outs_p[0][:, rows])
     assert torch.equal(outs_k[2][:, vox], outs_p[2][:, vox])
-    kw = dict(n1=200, n2=300, n3=1, n4=10, nr=nr)
+    kw = dict(n1=200, n2=300, n3=1, n4=n4, nr=nr)
     bk = tf32scan.rowmin4_rows(*ops_k, **kw)
     bp = tf32scan.rowmin4_rows(*ops_p, **kw)
     for a, b in zip(bk, bp):
