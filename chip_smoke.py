@@ -6,9 +6,11 @@ Builds the thirteen CUDA kernels of ``microstructure_fingerprinting_torch``
 from ``csrc/``, holds each against its plain PyTorch version on the card
 at the main paths' shapes (see ``held`` for the tolerance) and times
 both (kernel 13, the row passes' rhs columns normalized and packed, on
-a chunk at 2 and 12 columns; kernel 12, the flagship row pass's hoists,
+a chunk at 2 and 12 columns, and untimed at sample counts that do not
+fill its tile; kernel 12, the flagship row pass's hoists,
 on a chunk at 782 x 782; kernels 9 and 6, the df2 scan's operands and the scan, on a chunk
-at [782, 782] and [782, 1]; kernel 10, the re-scan's operands, on a chunk
+at [782, 782] and [782, 1], and kernel 6 again with exact ties planted
+across its lanes, warps and tiles; kernel 10, the re-scan's operands, on a chunk
 at 128 x 128 and 256 x 256, on the 782 x 782 grid for 8 voxels and on
 the EAR-mixed volume's 782 x 10 grid; kernel 8, the EAR re-scan's
 operands, on an EAR chunk at 256 x 256 and on the 782 x 782 grid for 8
@@ -648,6 +650,36 @@ def check_rhsprep(y, a3, a4=None):
     return r
 
 
+def rhsprep_tile():
+    """Kernel 13's sample tile (``kST`` of csrc/rhsprep.cu)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "microstructure_fingerprinting_torch", "csrc",
+                           "rhsprep.cu")) as f:
+        return int(re.search(r"\bkST = (\d+)\b", f.read()).group(1))
+
+
+def check_rhsprep_edges(y, a3, a4=None):
+    """Kernel 13 against its plain version where the samples do not fill
+    its tile (S = 1, tile - 1, tile + 1: the first samples of the chunk's
+    columns), with the fixed columns per voxel and shared by every voxel
+    (batch stride 0, as the fit passes them): every output by
+    ``check_hoist``, the int8 levels exactly."""
+    from microstructure_fingerprinting_torch.ops import prep
+    st = rhsprep_tile()
+    n = 1 + a3.shape[2] + (0 if a4 is None else a4.shape[2])
+    for S in (1, st - 1, st + 1):
+        for shared in (False, True):
+            cut = lambda x: None if x is None else (
+                x[:1, :S].expand(x.shape[0], -1, -1) if shared
+                else x[:, :S].contiguous())
+            ins = (y[:, :S].contiguous(), cut(a3), cut(a4))
+            k, p = prep.rhs_prep(*ins), prep.rhs_prep_twin(*ins)
+            live = [i for i, t in enumerate(k) if t is not None]
+            check_hoist("rhsprep %d columns, S = %d%s" % (
+                n, S, ", shared" if shared else ""), [k[i] for i in live],
+                [p[i] for i in live], names=[RHS_NAMES[i] for i in live])
+
+
 def check_row3hoist(A1, A2, a3, y):
     """Kernel 12 on the flagship row pass's inputs against its plain
     version: every output by ``check_hoist`` (the flag stab1 exactly, NaN
@@ -814,6 +846,54 @@ def check_df2(rows, A1, A2, a3, y):
     rows["df2hoist"]["max_abs_err"] = err9
 
 
+def check_df2_ties(A1, A2, y):
+    """Kernel 6 on the chunk with exact ties planted where its lanes,
+    warps and tiles split a row: the 24 columns that most rows of the
+    chunk pick are copied to j + 1 (the same lane), j + 4 (the next lane
+    of the quad), j + 16 (another warp) and j + 64 (another tile), and
+    rows 2-5 of the first block repeat rows 0-1. Against its plain
+    version: first i2 exact, row minima by ``held``, the top-1 exact; the
+    rows whose minimum ties across lanes, warps or tiles are counted."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import dfscan
+    n1, n2 = A1.shape[2], A2.shape[2]
+    ops, _yn = dfscan.df2_scan_operands(A1, A2, y)
+    _rv, ri = dfscan.df2_rows(*ops, n1=n1, n2=n2)
+    wins = torch.bincount(ri[:, :n1].flatten().long(), minlength=n2)
+    src = torch.arange(n2, device=A2.device)
+    for j in torch.argsort(wins, descending=True)[:24].tolist():
+        for d in (1, 4, 16, 64):
+            if j + d < n2:
+                src[j + d] = src[j]
+    A2t = A2[:, :, src].contiguous()
+    A1t = A1.clone()
+    A1t[:, :, 2:6] = A1[:, :, 0:2].repeat(1, 1, 2)
+    del ops
+    ops, _yn = dfscan.df2_scan_operands(A1t, A2t, y)
+    k = dfscan.df2_rows(*ops, n1=n1, n2=n2)
+    p = plain_sliced(lambda *o: dfscan.df2_rows_twin(*o, n1=n1, n2=n2), ops,
+                     SLICE["df2scan"])
+    what = "df2scan planted ties, %d voxels" % y.shape[0]
+    held(what + " row minima", k[0], p[0])
+    held(what + " first i2", k[1], p[1], exact=True)
+    top = [dfscan.df2_top1_from_rows(*o, n2)[0] for o in (k, p)]
+    if not torch.equal(*top):
+        raise AssertionError(what + ": top-1 candidates differ")
+    i2 = k[1][:, :n1].long()
+    # each column group's first position
+    first = torch.full((n2,), n2, device=src.device).scatter_reduce(
+        0, src, torch.arange(n2, device=src.device), "amin")
+    tied = int((torch.bincount(src, minlength=n2)[src[i2]] > 1).sum())
+    if tied == 0:
+        raise AssertionError(what + ": no row's minimum is a planted tie")
+    log("%s: %d of %d rows end on a tied column group, each on its first "
+        "column" % (what, tied, i2.numel()))
+    if not torch.equal(first[src[i2]], i2):
+        raise AssertionError(what + ": a first i2 is not its group's first")
+    RECORD["df2scan_ties_rows"] = tied
+    del ops, k, p, A1t, A2t
+
+
 def gathered(D, ids, extra=()):
     """The columns a fit's finalize gathers: D[:, k][:, :, ids[:, k]] for
     each fascicle k of ``ids`` (B, K), then the ``extra`` (B, S, 1)
@@ -885,6 +965,7 @@ def phase_kernels(wl):
     # kernel 13 at 2 rhs columns (signal, CSF), then kernel 1 on its
     # packs: both prep shapes of the row pass
     rows["rhsprep"] = check_rhsprep(y, a3)
+    check_rhsprep_edges(y, a3)
     rhs = prep.rhs_prep(y, a3)[:3]
     check_prep(rows, "prep_block", ((A1, 128, "xr"), (A2, 512, "ra")), rhs,
                2)
@@ -977,11 +1058,12 @@ def phase_kernels(wl):
     df3_chunk_cost(A1[:, :, :128].contiguous(), A2[:, :, :128].contiguous(),
                    a3, y)
 
-    # kernel 6 at [782, 782] and [782, 1]; kernel 7 on the chunk's planted
-    # columns (C = 3: two fascicles + CSF, the flagship's finalize), on one
-    # of them alone (C = 1, constructed), and bit for bit at the scales'
-    # edges for C = 1-4
+    # kernel 6 at [782, 782] and [782, 1], and with planted ties; kernel 7
+    # on the chunk's planted columns (C = 3: two fascicles + CSF, the
+    # flagship's finalize), on one of them alone (C = 1, constructed), and
+    # bit for bit at the scales' edges for C = 1-4
     check_df2(rows, A1, A2, a3, y)
+    check_df2_ties(A1, A2, y)
     D = torch.stack([A1, A2], dim=1)
     gt = wl["gt_ids"][:CHUNK]
     cols = gathered(D, gt, (a3,))
@@ -1096,6 +1178,7 @@ def phase_ear_kernels(wl, sig_ear):
     # kernel 13 at 12 rhs columns (signal, CSF, 10 EAR atoms), then kernel
     # 1 on its packs
     rows["rhsprep_ear"] = check_rhsprep(y, a3, a4)
+    check_rhsprep_edges(y, a3, a4)
     rhs = prep.rhs_prep(y, a3, a4)[:3]
     NB, N2B = rescan.col_blocks(N_ATOM, 512, 16)
     check_prep(rows, "prep_block_ear", ((A1, 128, "xr"), (A2, N2B, "ra")),

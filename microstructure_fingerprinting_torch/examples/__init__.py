@@ -11,9 +11,12 @@ microstructure_fingerprinting_torch.examples.<name> [n] [--device cpu]``:
     EAR chunks (``utils/profiling.StageTimer``);
   * ``ear_rsweep``: the EAR two-pass scan + finalize at several row
     budgets R, time and overflow;
-  * ``kernel_phases``: where the time of kernels 8 and 11 goes, phase by
-    phase (a second build with ``-DMF_PHASES``) and launch by launch.
+  * ``kernel_phases``: where the time of kernels 6, 8, 11 and 13 goes,
+    phase by phase (a second build with ``-DMF_PHASES``) and launch by
+    launch;
+  * ``df2_probe``: kernel 6 timed with parts of its source cut out, and
+    a micro-benchmark of the tensor cores' float64 and int8 ``mma``.
 
 Each runs on the card unless ``--device cpu`` is given (``kernel_phases``
-only on a card); its numbers are the device's own.
+and ``df2_probe`` only on a card); its numbers are the device's own.
 """

@@ -1,19 +1,23 @@
-"""Where the time of the EAR prologue kernels goes, phase by phase.
+"""Where the time of kernels 6, 8, 11 and 13 goes, phase by phase.
 
 Builds the kernels a second time with ``-DMF_PHASES`` (``csrc/phases.cuh``:
 at each mark a block barrier, then thread 0 adds the clock cycles since
 the previous mark to that phase's counter), apart from the fit's library
-(``build/mf_torch_kernels_phases/``), and runs kernel 8
+(``build/mf_torch_kernels_phases/``), and runs on one chunk of the
+flagship workload (552 sequences, 782 atoms, seed 0): kernel 8
 (``rescan.df4_hoist``, the EAR re-scan's operands at R x R) and kernel 11
-(``f32scan.row4_hoist``, the EAR row pass's hoists at N x N) on one chunk
-of the EAR workload (552 sequences, 782 atoms, CSF and ``--ear`` EAR
-atoms, seed 0). For each kernel it prints every phase's cycles, summed
-over blocks, and their share, beside the kernel call's time on the fit's
-library (CUDA events, mean of ``--reps``), and the card's name and power
-limit, and each launch's device time (``torch.profiler``). The barriers
-of the marks serialise what the warps of a block would overlap, and the
-cycles are summed over the blocks of every launch of the call: the
-shares split a launch, the times are the fit's.
+(``f32scan.row4_hoist``, the EAR row pass's hoists at N x N) with the CSF
+and ``--ear`` EAR atoms; kernel 6 (``dfscan.df2_rows``, the df2 scan of
+two fascicles without CSF) on the chunk's two rotated blocks at 782 x
+782; kernel 13 (``prep.rhs_prep``) at 2 columns (the signal and the CSF
+column) and at 2 + ``--ear`` columns. For each kernel it prints every
+phase's cycles, summed over blocks, and their share, beside the kernel
+call's time on the fit's library (CUDA events, mean of ``--reps``), and
+the card's name and power limit, and each launch's device time
+(``torch.profiler``). The barriers of the marks serialise what the warps
+of a block would overlap, and the cycles are summed over the blocks of
+every launch of the call: the shares split a launch, the times are the
+fit's.
 
     python -m microstructure_fingerprinting_torch.examples.kernel_phases \
         [chunk] [--rows 256] [--ear 10] [--reps 5]
@@ -27,13 +31,28 @@ import numpy as np
 import torch
 
 from .. import testing as mft
-from ..ops import f32scan, kernels, rescan
+from ..ops import dfscan, f32scan, kernels, prep, rescan
 from ..ops import interp as mfi
 
-#: what each phase counter holds (csrc/phases.cuh marks)
-PHASES = ("the voxel's small Grams", "the atom stream / Gram reads",
-          "the voxel's factors", "the chain and the pack stores",
-          "the atom Grams on the tensor cores")
+#: what each phase counter holds (csrc/phases.cuh marks), by the counter
+#: reader of the kernel's source
+PHASES = {
+    "mf_df4hoist_phases": ("the voxel's small Grams",
+                           "the atom stream / Gram reads",
+                           "the voxel's factors",
+                           "the chain and the pack stores",
+                           "the atom Grams on the tensor cores"),
+    "mf_row4hoist_phases": ("the voxel's small Grams",
+                            "the atom stream / Gram reads",
+                            "the voxel's factors",
+                            "the chain and the pack stores"),
+    "mf_df2scan_phases": ("the Gram tile (copies and mma)",
+                          "the move to the chain's owners",
+                          "the chain and the running minima"),
+    "mf_rhsprep_phases": ("the norms (a launch of their own)",
+                          "the live columns normalised and quantised",
+                          "the pack stores"),
+}
 
 
 def _ms(fn, reps):
@@ -98,7 +117,7 @@ def _cycles(phases_lib, name, fn):
     return [int(c) for c in out]
 
 
-def _report(label, ms, cycles, launches):
+def _report(label, reader, ms, cycles, launches):
     total = float(sum(cycles)) or 1.0
     print("%s: %.3f ms a call (fit's library)" % (label, ms))
     for name, t in sorted(launches.items(), key=lambda kv: -kv[1]):
@@ -106,7 +125,7 @@ def _report(label, ms, cycles, launches):
     for k, c in enumerate(cycles):
         if c:
             print("  phase %d %-36s %14d cycles  %5.1f%%"
-                  % (k, PHASES[k], c, 100.0 * c / total))
+                  % (k, PHASES[reader][k], c, 100.0 * c / total))
     return {"ms": ms, "cycles": cycles}
 
 
@@ -144,26 +163,37 @@ def main(argv=None):
     n = args.rows
     *blk, n2pb, _yn = rescan.df4_normalized(A1[:, :, :n], A2[:, :, :n], a3,
                                             a4, y)
-    k8 = lambda: rescan.df4_hoist(*blk, n2pb)
     _planes, ins = f32scan.rowmin_4_prep(A1, A2, a3, a4, y)
-    k11 = lambda: f32scan.row4_hoist(*ins)
-    ms8, ms11 = _ms(k8, args.reps), _ms(k11, args.reps)
-    l8, l11 = _launches(k8, args.reps), _launches(k11, args.reps)
+    y2 = f32(wl["y"][:, perm])
+    ops6, _yn = dfscan.df2_scan_operands(A1, A2, y2)
+    del D
+    runs = (
+        ("df4hoist", "mf_df4hoist_phases", "kernel 8 df4hoist %d x %d, "
+         "E = %d, %d voxels" % (n, n, args.ear, B),
+         lambda: rescan.df4_hoist(*blk, n2pb)),
+        ("row4hoist", "mf_row4hoist_phases", "kernel 11 row4hoist 782 x "
+         "782, E = %d, %d voxels" % (args.ear, B),
+         lambda: f32scan.row4_hoist(*ins)),
+        ("df2scan", "mf_df2scan_phases", "kernel 6 df2scan 782 x 782, %d "
+         "voxels" % B, lambda: dfscan.df2_rows(*ops6, n1=782, n2=782)),
+        ("rhsprep", "mf_rhsprep_phases", "kernel 13 rhsprep 2 columns, %d "
+         "voxels" % B, lambda: prep.rhs_prep(y2, a3)),
+        ("rhsprep_ear", "mf_rhsprep_phases", "kernel 13 rhsprep %d "
+         "columns, %d voxels" % (2 + args.ear, B),
+         lambda: prep.rhs_prep(y, a3, a4)))
+    ms = {key: _ms(fn, args.reps) for key, _r, _l, fn in runs}
+    launches = {key: _launches(fn, args.reps) for key, _r, _l, fn in runs}
 
     lib = _phase_library()
     saved = kernels._lib
     kernels._lib = lib
     try:
-        c8 = _cycles(lib, "mf_df4hoist_phases", k8)
-        c11 = _cycles(lib, "mf_row4hoist_phases", k11)
+        cycles = {key: _cycles(lib, reader, fn)
+                  for key, reader, _l, fn in runs}
     finally:
         kernels._lib = saved
-    out = {"df4hoist": _report("kernel 8 df4hoist %d x %d, E = %d, %d "
-                               "voxels" % (n, n, args.ear, B), ms8, c8, l8),
-           "row4hoist": _report("kernel 11 row4hoist 782 x 782, E = %d, "
-                                "%d voxels" % (args.ear, B), ms11, c11,
-                                l11)}
-    return out
+    return {key: _report(label, reader, ms[key], cycles[key], launches[key])
+            for key, reader, label, _fn in runs}
 
 
 if __name__ == "__main__":

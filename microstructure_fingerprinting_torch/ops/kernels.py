@@ -74,7 +74,7 @@ _SIGNATURES = {
     "df3hoist": ("mf_df3hoist", "p" * 14 + "i" * 5),
     "row4hoist": ("mf_row4hoist", "p" * 12 + "i" * 9 + "fff"),
     "row3hoist": ("mf_row3hoist", "p" * 10 + "i" * 4 + "ff"),
-    "rhsprep": ("mf_rhsprep", "p" * 9 + "i" * 7),
+    "rhsprep": ("mf_rhsprep", "p" * 10 + "i" * 7),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -43,6 +43,10 @@ from .nnls import _normalize_block, _normalize_y, sqrt_f32, sumsq_f32
 _LANE = 128
 #: rhs columns (signal + fixed compartments): gram rows 1..15
 MAX_RHS = 15
+#: entries a voxel of kernel 13's scratch of column divisors
+#: (csrc/rhsprep.cu kNormPad): its norms launch writes them, its packs
+#: launch reads them
+RHS_NORM_PAD = 16
 #: csrc/prep.cu: a block stages a strip of W columns of one voxel, the
 #: widest of these that divides the tile and fits the shared-memory limit
 STRIP_WIDTHS = (32, 16, 8)
@@ -150,9 +154,10 @@ def _rhs_prep_cuda(y, a3, a4):
     rhs_q = new(B, S, 3 * _LANE, dtype=torch.int8)
     rhs_r = new(B, S, _LANE, dtype=torch.bfloat16)
     rhs_a = new(B, S, _LANE, dtype=torch.bfloat16)
+    safe = new(B, RHS_NORM_PAD)
     stride0 = lambda x: 0 if x is None else x.stride(0)
-    kernels.launch("rhsprep", y, a3, a4, yh, A3h, A4h, rhs_q, rhs_r, rhs_a,
-                   B, S, N3, N4, stride0(y), stride0(a3), stride0(a4))
+    kernels.launch("rhsprep", y, a3, a4, safe, yh, A3h, A4h, rhs_q, rhs_r,
+                   rhs_a, B, S, N3, N4, stride0(y), stride0(a3), stride0(a4))
     return rhs_q, rhs_r, rhs_a, yh, A3h, A4h
 
 

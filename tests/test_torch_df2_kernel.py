@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from microstructure_fingerprinting_tpu.ops import dfscan as jdfscan
@@ -171,6 +172,50 @@ def test_route_matches_jax(wl_blocks, N2, duplicated):
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-6)
 
 
+def _planted_columns(N2, period=16):
+    """Column sources of the planted-ties grid: column j copies source
+    j % period, and sources 1 and 4 are source 0 again, so every column
+    ties exactly with the columns j + 16, j + 32, .. (another warp of
+    kernel 6's block, another 64-column tile at j + 64), and source 0's
+    with j + 1 (the same lane) and j + 4 (the next lane of the quad)."""
+    src = np.arange(N2) % period
+    src[np.isin(src, (1, 4))] = 0
+    return src
+
+
+def test_planted_ties_first_i2_matches_jax(wl_blocks):
+    """Exact ties planted where kernel 6's lanes, warps and tiles split a
+    row (``_planted_columns`` over 100 columns of the rotated block): on
+    every row the route's first i2 is the lowest column of its tied group
+    and equals the JAX ``df2_candidates(M=1)`` of that row alone (one
+    atom in A1: its top-1 is the row's minimum, first column first); the
+    top-1 over all rows equals the JAX top-1. Residuals within 1e-6 (the
+    tolerance of ``test_route_matches_jax``)."""
+    D, y, _csf = wl_blocks
+    src = _planted_columns(100)
+    A1 = np.ascontiguousarray(D[:, 0], np.float32)
+    A2 = np.ascontiguousarray(D[:, 1][:, :, src], np.float32)
+    ct, vt, _qt, rv, ri = _route(_t(A1), _t(A2), _t(y), 256)
+    N1 = A1.shape[2]
+    ri = ri[:, :N1].numpy()
+    # the first column of each tied group: no earlier column has its source
+    first = np.array([np.flatnonzero(src == src[j])[0] for j in range(100)])
+    assert np.array_equal(ri, first[ri])
+    row_j = jax.jit(lambda a1, a2, yy: jdfscan.df2_candidates(
+        a1, a2, yy, M=1, tile=8)[:2])
+    for i in range(N1):
+        cj, vj = row_j(jnp.asarray(A1[:, :, i:i + 1]), jnp.asarray(A2),
+                       jnp.asarray(y))
+        assert np.array_equal(np.asarray(cj)[:, 0, 1], ri[:, i]), i
+        np.testing.assert_allclose(rv[:, i].numpy(), np.asarray(vj)[:, 0],
+                                   rtol=0, atol=1e-6)
+    cj, vj, _qj = jdfscan.df2_candidates(jnp.asarray(A1), jnp.asarray(A2),
+                                         jnp.asarray(y), M=1)
+    assert np.array_equal(np.asarray(cj), ct.numpy())
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0,
+                               atol=1e-6)
+
+
 def _sums_in_order(step):
     """``dfscan.fdot`` for "bsi,bsj->bij" in the kernel's order: ``step``
     samples at a time onto one float64 accumulator (8, the float64 mma's
@@ -219,8 +264,9 @@ def test_wrapper_tiling_is_the_kernels(rng):
     """The wrapper's constants and operand shapes are the source's: TN
     columns a tile, kNarrow rows a block of the [N, 1] path, kPack
     entries a row or column pack, kVox of the voxel vector; the [N, N]
-    block's shared memory (the Gram tile's buffers at TN = 64, the packs
-    and the residual tile) leaves two blocks an SM."""
+    block's shared memory (kStages chunks of the Gram tile's operands at
+    TN = 64, the tile's Grams, the rows' packs and two tiles' column
+    packs) leaves two blocks an SM."""
     assert _const("TN") == tdfscan.DF2_TN == 64
     assert _const("kNarrow") == tdfscan.DF2_NARROW
     A1, A2, y = (_t(x) for x in _problem(rng, "plain", 28, B=2, N1=40))
@@ -232,11 +278,34 @@ def test_wrapper_tiling_is_the_kernels(rng):
         assert ops[10].shape == (2, _const("kVox"))
         assert 256 % tdfscan.DF2_NARROW == 0
     TM, TN = 32, 64
-    gram = 2 * 32 * ((2 * (TM + 16) + 2 * (TN + 16))
-                     + 4 * (2 * (TM + 8) + 2 * (TN + 8)))
-    own = 4 * (8 * TM + 8 * TN + TM * (TN + 1))
-    assert 4 * TM * (TN + 1) <= gram
-    assert 2 * (gram + own + 1024) <= SM_BYTES
+    chunk = 32 * ((2 * (TM + 16) + 2 * (TN + 16))
+                  + 4 * (2 * (TM + 8) + 2 * (TN + 8)))
+    own = 4 * (2 * TM * (TN + 1) + 8 * TM + 2 * 8 * TN)
+    assert _const("kStages") >= 2
+    assert 2 * (_const("kStages") * chunk + own + 1024) <= SM_BYTES
+
+
+@pytest.mark.cuda
+def test_cuda_df2_kernel_planted_ties(rng):
+    """On the card, the planted-ties grid (``_planted_columns`` over 300
+    columns, 200 rows, a quarter of the rows duplicated too): kernel 6's
+    first i2 equals its plain version's exactly, its row minima within
+    ``testing.kernel_agreement`` (the float64 sums' order), and every
+    first i2 is the lowest column of its tied group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = _planted_columns(300)
+    A1, A2, y = _problem(rng, "plain", 300, B=4, S=64, N1=200)
+    A1[:, :, 150:] = A1[:, :, 100:150]
+    A1, A2, y = (_t(x).cuda() for x in (A1, A2[:, :, src], y))
+    ops, _yn = tdfscan.df2_scan_operands(A1, A2, y)
+    rk, ik = tdfscan.df2_rows(*ops, n1=200, n2=300)
+    rp, ip = tdfscan.df2_rows_twin(*ops, n1=200, n2=300)
+    assert torch.equal(ik, ip)
+    assert ttesting.kernel_agreement(rk, rp)[0]
+    first = np.array([np.flatnonzero(src == src[j])[0] for j in range(300)])
+    got = ik[:, :200].cpu().numpy()
+    assert np.array_equal(got, first[got])
 
 
 @pytest.mark.cuda

@@ -12,7 +12,7 @@ import torch
 import re
 
 from microstructure_fingerprinting_torch.examples import (
-    demo_synthetic, ear_rsweep, exactness_check, kernel_phases,
+    demo_synthetic, df2_probe, ear_rsweep, exactness_check, kernel_phases,
     profile_stages, whole_brain)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,16 +100,20 @@ def test_example_runs_as_module(name):
 
 def test_kernel_phases_names_every_mark(monkeypatch):
     """``kernel_phases`` (a card's measurement) names every phase mark of
-    the kernels it reads (``MF_PHASE(k)`` in ``csrc/df4hoist.cu`` and
-    ``csrc/row4hoist.cu``, whose counter readers it calls), stops with a
-    message where there is no card, and its ``--help`` imports no JAX."""
+    the kernels it reads (``MF_PHASE(k)`` in ``csrc/df4hoist.cu``,
+    ``csrc/row4hoist.cu``, ``csrc/df2scan.cu`` and ``csrc/rhsprep.cu``,
+    whose counter readers it calls: each reader's names cover its
+    source's marks), stops with a message where there is no card, and
+    its ``--help`` imports no JAX."""
     csrc = os.path.join(REPO, "microstructure_fingerprinting_torch", "csrc")
     for src, reader in (("df4hoist.cu", "mf_df4hoist_phases"),
-                        ("row4hoist.cu", "mf_row4hoist_phases")):
+                        ("row4hoist.cu", "mf_row4hoist_phases"),
+                        ("df2scan.cu", "mf_df2scan_phases"),
+                        ("rhsprep.cu", "mf_rhsprep_phases")):
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         marks = {int(k) for k in re.findall(r"MF_PHASE\((\d)\)", text)}
-        assert marks and max(marks) < len(kernel_phases.PHASES)
+        assert marks and max(marks) < len(kernel_phases.PHASES[reader])
         assert "MF_PHASE_API(%s)" % reader in text
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
@@ -127,4 +131,40 @@ def test_kernel_phases_names_every_mark(monkeypatch):
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     assert "--rows" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_df2_probe_cuts_apply_to_the_source(monkeypatch):
+    """``df2_probe`` (a card's measurement) cuts kernel 6's shipped
+    source: each cut finds the text it replaces (so an edit of
+    ``csrc/df2scan.cu`` that moves it fails here, not on the card), every
+    cut build still launches the kernel through ``mf_df2scan``, and the
+    shipped build is the source itself; it stops with a message where
+    there is no card, and its ``--help`` imports no JAX."""
+    with open(os.path.join(REPO, "microstructure_fingerprinting_torch",
+                           "csrc", "df2scan.cu")) as f:
+        text = f.read()
+    for name, cuts in df2_probe.CUTS.items():
+        src = text
+        for marks, cut in cuts:
+            assert all(m in src for m in marks), name
+            src = cut(src)
+        assert (src == text) == (name == "shipped"), name
+        assert 'extern "C" int mf_df2scan(' in src
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        df2_probe.main([])
+    code = ("import runpy, sys\n"
+            "sys.argv = ['df2_probe', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('microstructure_fingerprinting_torch."
+            "examples.df2_probe', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'microstructure_fingerprinting_tpu'))))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--reps" in run.stdout
     assert run.stdout.strip().splitlines()[-1] == "[]"

@@ -75,8 +75,17 @@ def test_twin_matches_jax(rng, n4):
     quotient), the zero column zero in both; the levels and planes,
     which quantize those values, equal wherever the values are, and the
     lanes past the columns zero in both."""
-    B, S = 3, 40
-    y, a3, a4 = _columns(rng, B, S, n4)
+    _twin_matches_jax(*_columns(rng, 3, 40, n4))
+
+
+def _twin_matches_jax(y, a3, a4, norm_ulps=1):
+    """``rhs_prep_twin`` against the JAX package on the same float32
+    columns (B, S), (B, S, 1), (B, S, n4) or None: see
+    ``test_twin_matches_jax`` for the tolerances, the norms within
+    ``norm_ulps`` float32 ulp and the normalized columns within
+    ``norm_ulps + 2``."""
+    B, S = y.shape
+    n4 = 0 if a4 is None else a4.shape[2]
     raw = np.concatenate([y[:, :, None], a3] + ([a4] if n4 else []), 2)
     yj = jnnls._normalize_y(jnp.asarray(y))[0]
     a3j = jnnls._normalize_block(jnp.asarray(a3))[0]
@@ -94,9 +103,13 @@ def test_twin_matches_jax(rng, n4):
     nj = np.asarray(jnp.sqrt(jnp.sum(jnp.asarray(raw) ** 2, axis=1)))
     nt = tnnls.sqrt_f32(tnnls.sumsq_f32(_t(raw), 1)).numpy()
     assert nj.dtype == nt.dtype == np.float32
-    assert np.all(np.abs(nt - nj) <= np.spacing(nj))
-    np.testing.assert_allclose(xt, xj, rtol=0, atol=3 * EPS32)
-    assert not xt[1, :, 1].any() and not xj[1, :, 1].any()
+    assert np.all(np.abs(nt - nj) <= norm_ulps * np.spacing(nj))
+    np.testing.assert_allclose(xt, xj, rtol=0,
+                               atol=(norm_ulps + 2) * EPS32)
+    zero = ~raw.any(axis=1)
+    assert zero[1, 1] == (not a3[1].any())
+    assert not xt[np.broadcast_to(zero[:, None, :], xt.shape)].any()
+    assert not xj[np.broadcast_to(zero[:, None, :], xj.shape)].any()
     same = np.broadcast_to((nj == nt)[:, None, :], xj.shape)
     assert same.any()
     assert np.array_equal(xj[same], xt[same])
@@ -110,6 +123,43 @@ def test_twin_matches_jax(rng, n4):
         assert np.array_equal(pj[..., :n][same], pt[..., :n][same])
         assert not pj[..., n:].any() and not pt[..., n:].any()
     assert not qj[..., n:].any() and not qt[..., n:].any()
+
+
+def _tile():
+    """Kernel 13's sample tile (csrc/rhsprep.cu kST)."""
+    with open(os.path.join(CSRC, "rhsprep.cu")) as f:
+        return int(re.search(r"\bkST = (\d+)\b", f.read()).group(1))
+
+
+def _edge_columns(rng, S, n_cols, shared):
+    """Raw columns at S samples, 2 or 15 columns, the CSF column of voxel
+    1 zero; with ``shared`` the fixed columns are one voxel's, broadcast
+    (batch stride 0, as the fit passes them)."""
+    y, a3, a4 = _columns(rng, 3, S, n_cols - 2, zero=not shared)
+    if shared:
+        a3 = np.broadcast_to(a3[:1], a3.shape)
+        a4 = None if a4 is None else np.broadcast_to(a4[:1], a4.shape)
+    return y, a3, a4
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("n_cols", [2, 15])
+@pytest.mark.parametrize("where", ["1", "tile-1", "tile+1", "552"])
+def test_twin_matches_jax_at_tile_edges(rng, where, n_cols, shared):
+    """The plain version against the JAX package (``_twin_matches_jax``)
+    at sample counts that do not fill kernel 13's sample tile (1, tile -
+    1, tile + 1, and the protocol's 552), 2 and 15 columns, the fixed
+    columns per voxel or shared by every voxel. The JAX package sums the
+    S squares in float32 by a tree of ceil(log2 S) levels, so its norm
+    may sit up to about ceil(log2 S) / 2 ulp from the correctly rounded
+    one (the square root halves the sum's relative error), one more for
+    the roundings: the norms within ceil(ceil(log2 S) / 2) + 1 ulp; bit
+    for bit where equal, as in ``test_twin_matches_jax``."""
+    S = {"1": 1, "tile-1": _tile() - 1, "tile+1": _tile() + 1,
+         "552": 552}[where]
+    ulps = max(1, -(-int(np.ceil(np.log2(S))) // 2) + 1)
+    _twin_matches_jax(*_edge_columns(rng, S, n_cols, shared),
+                      norm_ulps=ulps)
 
 
 @pytest.mark.parametrize("n4", [0, 10])
@@ -166,6 +216,53 @@ def test_wrapper_rejects_and_takes_shared_columns(rng):
     assert int(re.search(r"kMaxCols = (\d+);", text).group(1)) == \
         tprep.MAX_RHS
     assert int(re.search(r"kLane = (\d+);", text).group(1)) == tprep._LANE
+
+
+def test_pack_vectors_are_the_sources():
+    """Kernel 13 writes the packs in 16-byte vectors: a sample's row of
+    levels (3 x 128 int8) and of each plane (128 bf16) holds whole
+    vectors, the live lanes 0 .. MAX_RHS - 1 fill the first vector of a
+    level and the first two of a plane (its kQVec, kPVec), it takes every
+    column a call takes (kMaxCols), and its norms launch writes
+    RHS_NORM_PAD divisors a voxel (kNormPad), room for all of them."""
+    with open(os.path.join(CSRC, "rhsprep.cu")) as f:
+        text = f.read()
+    assert "kQVec = 3 * kLane / 16, kPVec = kLane * 2 / 16;" in text
+    pad = int(re.search(r"kNormPad = (\d+);", text).group(1))
+    assert pad == tprep.RHS_NORM_PAD >= tprep.MAX_RHS
+    assert tprep.MAX_RHS <= 16 <= tprep._LANE
+    assert (3 * tprep._LANE) % 16 == 0 and (2 * tprep._LANE) % 16 == 0
+    assert int(re.search(r"kMaxCols = (\d+);", text).group(1)) == \
+        tprep.MAX_RHS
+    assert 1 <= _tile() <= 552
+
+
+@pytest.mark.cuda
+def test_cuda_rhs_prep_at_tile_edges(rng):
+    """On the card, at S = 1, tile - 1, tile + 1 and 552, 2 and 15
+    columns, the fixed columns per voxel or shared: every output of
+    kernel 13 equals its plain version (``testing.kernel_agreement``, the
+    int8 levels exactly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for S in (1, _tile() - 1, _tile() + 1, 552):
+        for n_cols in (2, 15):
+            for shared in (False, True):
+                y, a3, a4 = (None if x is None else torch.as_tensor(
+                    np.ascontiguousarray(x[:1]) if shared and x.ndim == 3
+                    else x).cuda() for x in _edge_columns(rng, S, n_cols,
+                                                          shared))
+                if shared:
+                    a3 = a3.expand(3, -1, -1)
+                    a4 = None if a4 is None else a4.expand(3, -1, -1)
+                k = tprep.rhs_prep(y, a3, a4)
+                p = tprep.rhs_prep_twin(y, a3, a4)
+                for name, a, b in zip(OUTS, k, p):
+                    if b is None:
+                        assert a is None, name
+                        continue
+                    assert ttesting.kernel_agreement(
+                        a, b, exact=a.dtype == torch.int8)[0], (S, name)
 
 
 @pytest.mark.cuda
