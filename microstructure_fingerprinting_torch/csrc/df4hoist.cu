@@ -109,23 +109,6 @@ constexpr int kQA = kBA + 16, kFA = kBA + 8, kQC = 32, kFC = 40;
 static_assert(kAtoms % kBA == 0, "row blocks tile N1p");
 static_assert(8 * ((kMaxC + 7) / 8) <= kQC && kQC <= kFC, "column rows");
 
-// dfscan.quantize2 with its quotients by the level scales 2^-7 and 2^-15
-// taken as products by 2^7 and 2^15: a power of two scales every float
-// exactly (and a NaN alike), so the levels and planes are hoist::quantize2's
-// bit for bit, without a quotient's instruction sequence
-__device__ __forceinline__ mf::hoist::Level quantize2(float x) {
-  using mf::hoist::kS1;
-  using mf::hoist::kS2;
-  const int q1 = __float2int_rz(
-      fminf(fmaxf(rintf(mf::mul(x, 128.0f)), -127.0f), 127.0f));
-  const float a1 = mf::mul(__int2float_rn(q1), kS1);
-  const int q2 = __float2int_rz(
-      fminf(fmaxf(rintf(mf::mul(mf::sub(x, a1), 32768.0f)), -127.0f),
-            127.0f));
-  const float a = mf::add(a1, mf::mul(__int2float_rn(q2), kS2));
-  return {q1, q2, mf::sub(x, a), a};
-}
-
 // dfscan._sub1_df: support {a}
 __device__ float sub1(P2 d, P2 p, P2 w) {
   const float num = val(df_add(df_mul(d, w), neg(df_mul(p, p))));
@@ -320,7 +303,7 @@ df4vox_kernel(const float* __restrict__ yh, const float* __restrict__ A3h,
       const int e = tid + u * kVoxThreads;
       const int c = e / kVoxTile, t = e % kVoxTile;
       if (c < nc && t < kn) {
-        const mf::hoist::Level l = quantize2(xv[u]);
+        const mf::hoist::Level l = mf::hoist::quantize2(xv[u]);
         tile.q[t][c] = make_int2(l.q1, l.q2);
         tile.ra[t][c] = make_double2((double)l.r, (double)l.a);
       }
@@ -564,7 +547,7 @@ df4hoist_kernel(const float* __restrict__ A1h, const float* __restrict__ A2h,
       int q1 = 0, q2 = 0;
       float rr = 0.0f, aa = 0.0f, apr = 0.0f;
       if (k < kn && real) {
-        const mf::hoist::Level l = quantize2(xs[k][a]);
+        const mf::hoist::Level l = mf::hoist::quantize2(xs[k][a]);
         q1 = l.q1;
         q2 = l.q2;
         rr = l.r;

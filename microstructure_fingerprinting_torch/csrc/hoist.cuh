@@ -1,47 +1,52 @@
-// The shared skeleton of kernel 9 (df2hoist.cu), and the Gram sums, put_ps
-// and tmin of kernel 8 (df4hoist.cu, a design of its own): the operand
-// preparation of the double-float scans, one pass over the samples.
+// Pieces shared by the hoist kernels, the operand preparations of the scans:
+//   * every kernel of them: quantize2 (dfscan.quantize2), the running sums
+//     of a double-float Gram (dfscan.df_gram: exact int32 level sums and
+//     float64 sums of exact float32 cross products, rounded once), put_ps
+//     (a df32.presplit into a pack) and tmin (torch.minimum);
+//   * kernel 8 (df4hoist.cu), a design of its own on the tensor cores;
+//   * the plain float32 hoists of the interval row passes, kernels 11
+//     (row4hoist.cu) and 12 (row3hoist.cu), and the rhs columns' pack,
+//     kernel 13 (rhsprep.cu): quantize3, the small f32scan._gram3_hi Grams
+//     and the support intervals (the second section);
+//   * the double-float prologues of the [N1, N2] scan, kernel 9
+//     (df2hoist.cu), and of the [N1, N2, 1] re-scan, kernel 10
+//     (df3hoist.cu): a voxel launch and an atom launch on one stream of the
+//     atoms' samples (the third section).
 //
-// Both prologues (ops/rescan.df4_hoist_twin, ops/dfscan.df2_hoist_twin)
-// quantise every normalised atom of the two blocks into int8 levels and
-// float32 planes (dfscan.quantize2), sum each atom's double-float Grams with
-// itself and with the voxel's few small columns (the signal y and, for
-// kernel 8, the CSF and EAR columns: dfscan.df_gram), and run a short
-// double-float chain per atom. A block owns kAtoms atoms of one voxel, a
-// thread one atom. Each tile of kTile samples of the small columns is
-// quantised once into shared memory; then every thread streams its atom's
-// samples from device memory (coalesced across the warp: the atom axis is
-// the contiguous one), quantises each in registers, writes its levels and
-// planes once and adds its products to the Grams. The int8 level products go
-// into exact int32 sums (t11, t12, t22); the two float32 cross products are
-// float64 sums of exact products (a fused multiply-add adds an exact product
-// with one rounding, as an add of the product would), rounded once to
-// float32 at the end: the plain version's values, summed in sample order
-// where its einsum takes another order (testing.kernel_agreement). The
-// voxel's own Grams (among the small columns) are summed the same way, one
-// Gram a thread, so that every block of a voxel holds the same bits.
-//
-// Everything after the sums mirrors the plain version operation for
-// operation in Dekker's forms (df_dekker.cuh), NaN and zero signs included.
-//
-// Kernel 10 (df3hoist.cu) takes the same skeleton; the plain float32 hoists
-// of the interval row passes, kernels 11 (row4hoist.cu) and 12
-// (row3hoist.cu), and the rhs columns' pack, kernel 13 (rhsprep.cu), share
-// the second half of this file (kernel 11 its quantize3 and Gram sums, in
-// a voxel launch of its own).
+// Kernels 9 and 10 quantise every normalised atom of the two blocks into
+// int8 levels and float32 planes, sum each atom's Grams with itself and with
+// the voxel's one or two small columns (the signal y and, for kernel 10, the
+// CSF column), and run a short double-float chain an atom. The voxel launch,
+// a block a voxel, quantises the small columns once into a scratch of
+// chunks laid out as the atom launch copies them, and sums the voxel's own
+// Grams among them. The atom launch, a block of kBA atoms of one voxel,
+// copies the atoms' samples into a ring of shared-memory chunks by cp.async
+// (kStages - 1 chunks in flight, with the small columns' chunk of the same
+// samples); kParts threads an atom quantise its samples from there into a
+// staged tile and sum its Grams; the tile's levels and planes leave as whole
+// 16-byte vectors, rows of the atom axis (the contiguous one of every
+// output). Every Gram of both launches is summed in kParts strided parts:
+// part p the samples s = p mod kParts in sample order, the parts added in
+// part order and rounded once (testing.fdot_hoist_order), where the plain
+// version's einsum takes another order (testing.kernel_agreement).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "async_copy.cuh"
 #include "df_dekker.cuh"
+#include "phases.cuh"
 
 namespace mf {
 namespace hoist {
 
-// atoms (threads) a block; the row blocks need N1p to be a multiple of it
+// atoms (threads) a block of kernels 11 and 12; the row blocks of every
+// hoist kernel need N1p to be a multiple of it
 constexpr int kAtoms = 128;
-// samples of the small columns staged at a time
+// samples of the small columns staged at a time (kernels 11 and 12)
 constexpr int kTile = 32;
 // dfscan._S1, _S2: the level scales 2^-7 and 2^-15
 constexpr float kS1 = 0.0078125f, kS2 = 3.0517578125e-05f;
@@ -52,17 +57,19 @@ struct Level {
   float r, a;
 };
 
-// dfscan._round_levels: torch.clamp(torch.round(x / scale), -127, 127)
-// (rintf rounds half to even, as torch.round)
-__device__ __forceinline__ int round_level(float x, float scale) {
-  return __float2int_rz(fminf(fmaxf(rintf(dv(x, scale)), -127.0f), 127.0f));
+// dfscan._round_levels of x / scale, given x / scale: torch.clamp(
+// torch.round(x / scale), -127, 127) (rintf rounds half to even, as
+// torch.round). The scales are powers of two, so x / scale is the exact
+// product of x by 1 / scale (a NaN alike): the callers pass that product.
+__device__ __forceinline__ int round_level(float x_over_scale) {
+  return __float2int_rz(fminf(fmaxf(rintf(x_over_scale), -127.0f), 127.0f));
 }
 
 // dfscan.quantize2, operation for operation
 __device__ __forceinline__ Level quantize2(float x) {
-  const int q1 = round_level(x, kS1);
+  const int q1 = round_level(mul(x, 128.0f));
   const float a1 = mul(__int2float_rn(q1), kS1);
-  const int q2 = round_level(sub(x, a1), kS2);
+  const int q2 = round_level(mul(sub(x, a1), 32768.0f));
   const float a = add(a1, mul(__int2float_rn(q2), kS2));
   return {q1, q2, sub(x, a), a};
 }
@@ -139,7 +146,7 @@ struct Level3 {
 
 __device__ __forceinline__ Level3 quantize3(float x) {
   const Level l = quantize2(x);
-  const int q3 = round_level(l.r, kS3);
+  const int q3 = round_level(mul(l.r, 8388608.0f));
   const float a = add(l.a, mul(__int2float_rn(q3), kS3));
   return {l.q1, l.q2, q3, sub(x, a), a};
 }
@@ -287,102 +294,289 @@ __global__ void fold_min(const T* __restrict__ part, T* __restrict__ out,
   out[b] = m;
 }
 
-// a tile of the voxel's small columns, quantised: levels (q1, q2) and (R, a)
-// as float64 (exact)
+// ---------------------------------------------------------------------------
+// The double-float prologues, kernels 9 (df2hoist.cu) and 10 (df3hoist.cu):
+// a voxel launch, then an atom launch.
+// ---------------------------------------------------------------------------
+
+// the strided parts of every Gram sum (testing.fdot_hoist_order)
+constexpr int kParts = 4;
+// the atom launch: kBA atoms a block, kParts threads an atom, kSK samples a
+// chunk, a ring of kStages chunks
+constexpr int kBA = 64, kStreamThreads = kParts * kBA, kSK = 32, kStages = 4;
+// the voxel launch's threads a block; the most small Grams it sums
+constexpr int kVoxThreads = 128, kMaxVoxGrams = 3;
+static_assert(kSK % kParts == 0, "a chunk keeps every part's samples");
+static_assert(kBA % 16 == 0, "a tile row is whole 16-byte vectors");
+
+// a + b of two parts' sums, in that order: the int32 sums exact, the
+// float64 sums rounded
+__device__ __forceinline__ Gram gram_add(Gram t, const Gram& u) {
+  t.t11 += u.t11;
+  t.t12 += u.t12;
+  t.t22 += u.t22;
+  t.c1 = t.c1 + u.c1;
+  t.c2 = t.c2 + u.c2;
+  return t;
+}
+
+// kSK samples of the voxel's C small columns as the atom launch reads them:
+// levels (q1, q2) and (R, a) as float64 (exact), zeros past S. The voxel
+// launch writes a voxel's chunks once, (B, n_chunk, ColChunk<C>), and every
+// atom block of the voxel copies them.
 template <int C>
-struct Tile {
-  int2 q[C][kTile];
-  double2 ra[C][kTile];
+struct alignas(16) ColChunk {
+  int2 q[C][kSK];
+  double2 ra[C][kSK];
 };
 
-// where an atom's quantize2 goes: pointers at (voxel, sample 0, atom), the
-// samples ``stride`` floats apart; r always, the others where not null:
-// the levels, a, and a + R (what kernel 6 reads as its row block)
+// The voxel launch's small columns in dynamic shared memory: nc columns of
+// S samples, (R, a) then the levels.
+struct VoxStage {
+  double2* ra;
+  int2* q;
+  int S;
+  __device__ VoxStage(unsigned char* smem, int nc, int S_)
+      : ra(reinterpret_cast<double2*>(smem)),
+        q(reinterpret_cast<int2*>(smem + (size_t)nc * S_ * sizeof(double2))),
+        S(S_) {}
+};
+
+// bytes of that dynamic shared memory
+inline size_t voxel_smem(int nc, int S) {
+  return (size_t)nc * S * (sizeof(double2) + sizeof(int2));
+}
+
+// The voxel launch's pass, a block of kVoxThreads threads a voxel:
+// ``cols(c, s)`` is sample s of the voxel's small column c < nc. Every
+// sample quantised once into ``st``; the first Cs columns copied out as the
+// voxel's chunks; the Grams ``pair(t)``, t < nv, summed in kParts strided
+// parts (thread kParts t + p sums part p) and added in part order, their
+// values into ``vg`` (shared memory). Every thread takes part; the values
+// are there for every thread on return.
+template <int Cs, class Cols, class Pair>
+__device__ __forceinline__ void voxel_pass(const VoxStage& st,
+                                           const Cols& cols, int nc,
+                                           const Pair& pair, int nv,
+                                           ColChunk<Cs>* __restrict__ chunks,
+                                           P2* vg) {
+  __shared__ Gram part[kParts][kMaxVoxGrams];
+  const int tid = threadIdx.x, S = st.S;
+  #pragma unroll 4
+  for (int e = tid; e < nc * S; e += kVoxThreads) {
+    const Level l = quantize2(cols(e / S, e % S));
+    st.q[e] = make_int2(l.q1, l.q2);
+    st.ra[e] = make_double2((double)l.r, (double)l.a);
+  }
+  __syncthreads();
+  const int n_chunk = (S + kSK - 1) / kSK;
+  for (int e = tid; e < n_chunk * Cs * kSK; e += kVoxThreads) {
+    const int ch = e / (Cs * kSK), c = e / kSK % Cs, k = e % kSK;
+    const int s = ch * kSK + k;
+    const bool in = s < S;
+    chunks[ch].q[c][k] = in ? st.q[c * S + s] : make_int2(0, 0);
+    chunks[ch].ra[c][k] = in ? st.ra[c * S + s] : make_double2(0.0, 0.0);
+  }
+  const int gi = tid / kParts, p = tid % kParts;
+  if (gi < nv) {
+    const int2 pr = pair(gi);
+    const double2* va = st.ra + pr.x * S;
+    const double2* vb = st.ra + pr.y * S;
+    const int2* qa = st.q + pr.x * S;
+    const int2* qb = st.q + pr.y * S;
+    Gram g = gram_zero();
+    #pragma unroll 1
+    for (int s = p; s < S; s += kParts) {
+      // a + R in float32, as the plain version adds the planes
+      const float apr = add((float)va[s].y, (float)va[s].x);
+      gram_step(g, qa[s].x, qa[s].y, (double)apr, va[s].x, qb[s], vb[s].x,
+                vb[s].y);
+    }
+    part[p][gi] = g;
+  }
+  __syncthreads();
+  if (tid < nv) {
+    Gram t = part[0][tid];
+    #pragma unroll
+    for (int q = 1; q < kParts; ++q) t = gram_add(t, part[q][tid]);
+    vg[tid] = gram_value(t);
+  }
+  __syncthreads();
+}
+
+// a chunk of a block's atoms, quantised, as the stores write it out: the
+// levels, R and the second plane (a, or a + R)
+struct alignas(16) AtomTile {
+  int8_t q[2][kSK][kBA];
+  float r[kSK][kBA];
+  float v[kSK][kBA];
+};
+
+// the atom launch's shared memory: the ring of the atoms' samples and the
+// small columns' chunks (after the pass, the parts' Grams), and two tiles
+template <int C>
+struct alignas(16) StreamSmem {
+  union {
+    struct {
+      float x[kStages][kSK][kBA];
+      ColChunk<C> col[kStages];
+    } ring;
+    Gram part[kParts][1 + C][kBA];
+  };
+  AtomTile tile[2];
+};
+
+// where the atom launch writes a block's levels and planes: pointers at
+// (voxel, sample 0, the block's first atom), the samples ``stride`` atoms
+// apart (a multiple of 16); the second plane ``v``, where not null, a or
+// (with ``v_apr``) a + R
 struct AtomOut {
   int8_t* q1;
   int8_t* q2;
   float* r;
-  float* a;
-  float* apr;
+  float* v;
+  bool v_apr;
   size_t stride;
 };
 
-// The block's pass over the samples. ``cols(c, s)`` is sample s of the
-// voxel's column c < nc (C at most); ``pair(t)`` the (qa, qb) columns of the
-// voxel Gram that thread t < nv sums into ``vg``. A thread with ``live`` owns
-// an atom: ``atom[s * astride]`` is its sample s where ``real``; where not
-// (a padded column) it writes zeros and sums nothing. Its Grams: ``self``
-// with itself, g[c] with column c.
-template <int C, class Cols, class Pair>
-__device__ __forceinline__ void stream(Tile<C>& tile, const Cols& cols,
-                                       int nc, int S, const Pair& pair,
-                                       int nv, Gram& vg, const float* atom,
-                                       size_t astride, bool live, bool real,
-                                       const AtomOut& out, Gram& self,
-                                       Gram (&g)[C]) {
-  const int tid = threadIdx.x;
-  for (int s0 = 0; s0 < S; s0 += kTile) {
-    const int kn = min(kTile, S - s0);
-    __syncthreads();  // the last tile is consumed
-    for (int e = tid; e < nc * kTile; e += kAtoms) {
-      const int c = e / kTile, k = e % kTile;
+// The atom launch's pass over the samples, a block of kStreamThreads
+// threads: thread t owns atom a = t % kBA of the block (its atom i0 + a)
+// and part p = t / kBA of its samples. ``in`` points at the voxel's block
+// (sample 0, atom 0; the samples ``width`` atoms apart; atoms past
+// ``width`` read as zeros); ``chunks`` at the voxel's small-column chunks.
+// The levels and planes of the block's atoms go to ``out``; the threads of
+// part 0 return their atom's Grams in ``g``: [0] with itself, [1 + c] with
+// small column c. Every thread takes part.
+template <int C>
+__device__ __forceinline__ void atom_stream(
+    StreamSmem<C>& sm, const float* __restrict__ in, int width, int i0,
+    int S, const ColChunk<C>* __restrict__ chunks, const AtomOut& out,
+    P2 (&g)[1 + C]) {
+  const int tid = threadIdx.x, a = tid % kBA, p = tid / kBA;
+  const int n_chunk = (S + kSK - 1) / kSK;
+  // copies of 16 bytes where the rows allow it (width a multiple of 4 and
+  // the block 16-byte aligned), else 8, else 4
+  const uintptr_t base = (uintptr_t)in;
+  const int vec = width % 4 == 0 && base % 16 == 0 ? 4
+                  : width % 2 == 0 && base % 8 == 0 ? 2 : 1;
+  // the chunk's atoms' samples, V floats a copy
+  auto copy_x = [&](float (&xs)[kSK][kBA], int s0, auto v) {
+    constexpr int V = decltype(v)::value, per = kBA / V;
+    for (int e = tid; e < kSK * per; e += kStreamThreads) {
+      const int k = e / per, at = V * (e % per);
+      const bool ok = s0 + k < S && i0 + at < width;
+      const float* src = ok ? in + (size_t)(s0 + k) * width + i0 + at : in;
+      cp_async<4 * V>(&xs[k][at], src, ok);
+    }
+  };
+  // chunk ch of the atoms' samples and of the small columns into the
+  // ring, zeros past S and past width; one commit group a chunk (an empty
+  // one past the last), complete after the cp_async_wait that covers it
+  // and a barrier
+  auto copy = [&](int ch) {
+    if (ch < n_chunk) {
+      float (&xs)[kSK][kBA] = sm.ring.x[ch % kStages];
+      if (vec == 4) {
+        copy_x(xs, ch * kSK, std::integral_constant<int, 4>{});
+      } else if (vec == 2) {
+        copy_x(xs, ch * kSK, std::integral_constant<int, 2>{});
+      } else {
+        copy_x(xs, ch * kSK, std::integral_constant<int, 1>{});
+      }
+      const uint4* csrc = reinterpret_cast<const uint4*>(chunks + ch);
+      uint4* cdst = reinterpret_cast<uint4*>(&sm.ring.col[ch % kStages]);
+      for (int e = tid; e < (int)(sizeof(ColChunk<C>) / 16);
+           e += kStreamThreads) {
+        cp_async<16>(cdst + e, csrc + e, true);
+      }
+    }
+    cp_async_commit();
+  };
+  // the tile of chunk ch out to device memory: rows of 16-byte vectors
+  auto store = [&](int ch) {
+    const AtomTile& t = sm.tile[ch & 1];
+    const int s0 = ch * kSK, kn = min(kSK, S - s0);
+    constexpr int kQV = kBA / 16, kFV = kBA / 4;  // vectors a row
+    for (int e = tid; e < 2 * kSK * kQV; e += kStreamThreads) {
+      const int l = e / (kSK * kQV), k = e / kQV % kSK, j = e % kQV;
       if (k < kn) {
-        const Level l = quantize2(cols(c, s0 + k));
-        tile.q[c][k] = make_int2(l.q1, l.q2);
-        tile.ra[c][k] = make_double2((double)l.r, (double)l.a);
+        int8_t* dst = (l ? out.q2 : out.q1) + (size_t)(s0 + k) * out.stride;
+        reinterpret_cast<uint4*>(dst)[j] =
+            reinterpret_cast<const uint4*>(t.q[l][k])[j];
       }
     }
+    const int np = out.v ? 2 : 1;
+    for (int e = tid; e < np * kSK * kFV; e += kStreamThreads) {
+      const int l = e / (kSK * kFV), k = e / kFV % kSK, j = e % kFV;
+      if (k < kn) {
+        float* dst = (l ? out.v : out.r) + (size_t)(s0 + k) * out.stride;
+        reinterpret_cast<float4*>(dst)[j] =
+            reinterpret_cast<const float4*>(l ? t.v[k] : t.r[k])[j];
+      }
+    }
+  };
+
+  Gram acc[1 + C];
+  #pragma unroll
+  for (int j = 0; j <= C; ++j) acc[j] = gram_zero();
+  for (int ch = 0; ch < kStages - 1; ++ch) copy(ch);
+  for (int ch = 0; ch < n_chunk; ++ch) {
+    // chunk ch landed; the last chunk's tile is written and its ring
+    // buffers consumed
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    if (tid < nv) {
-      const int2 p = pair(tid);
-      #pragma unroll 1
-      for (int k = 0; k < kn; ++k) {
-        const double2 va = tile.ra[p.x][k], vb = tile.ra[p.y][k];
-        const int2 qa = tile.q[p.x][k];
-        // a + R in float32, as the plain version adds the planes
-        const float apr = add((float)va.y, (float)va.x);
-        gram_step(vg, qa.x, qa.y, (double)apr, va.x, tile.q[p.y][k], vb.x,
-                  vb.y);
-      }
-    }
-    if (!live) continue;
-    if (!real) {
-      #pragma unroll 1
-      for (int k = 0; k < kn; ++k) {
-        const size_t o = (size_t)(s0 + k) * out.stride;
-        out.q1[o] = 0;
-        out.q2[o] = 0;
-        out.r[o] = 0.0f;
-        if (out.a) out.a[o] = 0.0f;
-        if (out.apr) out.apr[o] = 0.0f;
-      }
-      continue;
-    }
-    float xn = atom[(size_t)s0 * astride];
-    #pragma unroll 1
-    for (int k = 0; k < kn; ++k) {
-      const float x = xn;
-      if (k + 1 < kn) xn = atom[(size_t)(s0 + k + 1) * astride];
-      const Level l = quantize2(x);
+    copy(ch + kStages - 1);
+    if (ch > 0) store(ch - 1);
+    MF_PHASE(1);
+    const int kn = min(kSK, S - ch * kSK);
+    const float (&xs)[kSK][kBA] = sm.ring.x[ch % kStages];
+    AtomTile& t = sm.tile[ch & 1];
+    // the thread's samples of the chunk, in one pass: quantised into the
+    // tile, and the atom's Grams summed (a chunk of kSK samples fully
+    // unrolled)
+    const ColChunk<C>& cc = sm.ring.col[ch % kStages];
+    auto step = [&](int k) {
+      const Level l = quantize2(xs[k][a]);
+      t.q[0][k][a] = (int8_t)l.q1;
+      t.q[1][k][a] = (int8_t)l.q2;
+      t.r[k][a] = l.r;
       const float apr = add(l.a, l.r);
-      const size_t o = (size_t)(s0 + k) * out.stride;
-      out.q1[o] = (int8_t)l.q1;
-      out.q2[o] = (int8_t)l.q2;
-      out.r[o] = l.r;
-      if (out.a) out.a[o] = l.a;
-      if (out.apr) out.apr[o] = apr;
+      if (out.v) t.v[k][a] = out.v_apr ? apr : l.a;
       const double dapr = (double)apr, dr = (double)l.r;
-      gram_step(self, l.q1, l.q2, dapr, dr, make_int2(l.q1, l.q2), dr,
+      gram_step(acc[0], l.q1, l.q2, dapr, dr, make_int2(l.q1, l.q2), dr,
                 (double)l.a);
       #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if (c < nc) {
-          const double2 vb = tile.ra[c][k];
-          gram_step(g[c], l.q1, l.q2, dapr, dr, tile.q[c][k], vb.x, vb.y);
-        }
+        gram_step(acc[1 + c], l.q1, l.q2, dapr, dr, cc.q[c][k],
+                  cc.ra[c][k].x, cc.ra[c][k].y);
       }
+    };
+    if (kn == kSK) {
+      #pragma unroll
+      for (int u = 0; u < kSK / kParts; ++u) step(p + kParts * u);
+    } else {
+      #pragma unroll 1
+      for (int k = p; k < kn; k += kParts) step(k);
+    }
+    MF_PHASE(2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free, the last tile written
+  store(n_chunk - 1);
+  #pragma unroll
+  for (int j = 0; j <= C; ++j) sm.part[p][j][a] = acc[j];
+  MF_PHASE(1);
+  __syncthreads();
+  if (p == 0) {
+    #pragma unroll
+    for (int j = 0; j <= C; ++j) {
+      Gram t = sm.part[0][j][a];
+      #pragma unroll
+      for (int q = 1; q < kParts; ++q) t = gram_add(t, sm.part[q][j][a]);
+      g[j] = gram_value(t);
     }
   }
+  MF_PHASE(2);
 }
 
 }  // namespace hoist

@@ -1,4 +1,4 @@
-"""Where the time of kernels 6, 8, 11 and 13 goes, phase by phase.
+"""Where the time of kernels 6, 8, 9, 10, 11 and 13 goes, phase by phase.
 
 Builds the kernels a second time with ``-DMF_PHASES`` (``csrc/phases.cuh``:
 at each mark a block barrier, then thread 0 adds the clock cycles since
@@ -10,7 +10,10 @@ flagship workload (552 sequences, 782 atoms, seed 0): kernel 8
 and ``--ear`` EAR atoms; kernel 6 (``dfscan.df2_rows``, the df2 scan of
 two fascicles without CSF) on the chunk's two rotated blocks at 782 x
 782; kernel 13 (``prep.rhs_prep``) at 2 columns (the signal and the CSF
-column) and at 2 + ``--ear`` columns. For each kernel it prints every
+column) and at 2 + ``--ear`` columns; kernel 10 (``rescan.df3_hoist``,
+the re-scan's operands) at the two-pass shape 128 x 128; kernel 9
+(``dfscan.df2_hoist``, the df2 scan's operands) at 782 x 782 and 782 x 1
+(the CSF column). For each kernel it prints every
 phase's cycles, summed over blocks, and their share, beside the kernel
 call's time on the fit's library (CUDA events, mean of ``--reps``), and
 the card's name and power limit, and each launch's device time
@@ -34,6 +37,10 @@ from .. import testing as mft
 from ..ops import dfscan, f32scan, kernels, prep, rescan
 from ..ops import interp as mfi
 
+_DF_HOIST_PHASES = ("the voxel launch (its small Grams, vox)",
+                    "the atom stream (copy waits, tile stores)",
+                    "the atoms' quantise and Grams (one pass)",
+                    "the chain and the pack stores")
 #: what each phase counter holds (csrc/phases.cuh marks), by the counter
 #: reader of the kernel's source
 PHASES = {
@@ -52,6 +59,8 @@ PHASES = {
     "mf_rhsprep_phases": ("the norms (a launch of their own)",
                           "the live columns normalised and quantised",
                           "the pack stores"),
+    "mf_df3hoist_phases": _DF_HOIST_PHASES,
+    "mf_df2hoist_phases": _DF_HOIST_PHASES,
 }
 
 
@@ -166,6 +175,10 @@ def main(argv=None):
     _planes, ins = f32scan.rowmin_4_prep(A1, A2, a3, a4, y)
     y2 = f32(wl["y"][:, perm])
     ops6, _yn = dfscan.df2_scan_operands(A1, A2, y2)
+    *blk10, n2pb10, _yn = rescan.df3_normalized(A1[:, :, :128],
+                                                A2[:, :, :128], a3, y2)
+    ins9 = {name: dfscan.df2_normalized(A1, blk, y2)[:3]
+            for name, blk in (("782 x 782", A2), ("782 x 1", a3))}
     del D
     runs = (
         ("df4hoist", "mf_df4hoist_phases", "kernel 8 df4hoist %d x %d, "
@@ -180,7 +193,13 @@ def main(argv=None):
          "voxels" % B, lambda: prep.rhs_prep(y2, a3)),
         ("rhsprep_ear", "mf_rhsprep_phases", "kernel 13 rhsprep %d "
          "columns, %d voxels" % (2 + args.ear, B),
-         lambda: prep.rhs_prep(y, a3, a4)))
+         lambda: prep.rhs_prep(y, a3, a4)),
+        ("df3hoist", "mf_df3hoist_phases", "kernel 10 df3hoist 128 x 128, "
+         "%d voxels" % B, lambda: rescan.df3_hoist(*blk10, n2pb10))) + tuple(
+        ("df2hoist %s" % name, "mf_df2hoist_phases", "kernel 9 df2hoist "
+         "%s, %d voxels" % (name, B),
+         lambda x=x: dfscan.df2_hoist(*x, dfscan.df2_cols(x[1].shape[2])))
+        for name, x in ins9.items())
     ms = {key: _ms(fn, args.reps) for key, _r, _l, fn in runs}
     launches = {key: _launches(fn, args.reps) for key, _r, _l, fn in runs}
 

@@ -270,16 +270,38 @@ def df2_hoist_twin(A1h, A2h, yh, n2pb):
             pack(rows).contiguous(), padc(pack(cols)), vox.contiguous())
 
 
-#: atoms a block of kernel 9 (csrc/hoist.cuh kAtoms): the row block's
-#: width N1p is a multiple of it
+#: kernels 8-12 take the row blocks' width N1p a multiple of it
+#: (csrc/hoist.cuh kAtoms)
 HOIST_ATOMS = 128
+#: atoms a block of the atom launch of kernels 9 and 10 (csrc/hoist.cuh
+#: kBA): their column blocks' width N2pb is a multiple of it (kernel 9's
+#: [N, 1] grid, N2pb = 1, has none)
+HOIST_BLOCK = 64
+#: the strided parts every float64 Gram sum of kernels 9 and 10 runs in
+#: (csrc/hoist.cuh kParts; testing.fdot_hoist_order)
+HOIST_PARTS = 4
+#: samples a chunk of the voxel's small columns that the voxel launch of
+#: kernels 9 and 10 writes and their atom launch copies (csrc/hoist.cuh kSK,
+#: ColChunk), and floats a chunk of one column: int32 levels (q1, q2),
+#: float64 (R, a)
+HOIST_CHUNK = 32
+HOIST_CHUNK_COL = HOIST_CHUNK * (2 * 4 + 2 * 8) // 4
+
+
+def hoist_chunks(B, S, n_cols, device):
+    """The scratch of the voxel launch of kernels 9 and 10: (B, its chunks
+    of ``n_cols`` small columns)."""
+    return torch.empty(B, -(-S // HOIST_CHUNK) * n_cols * HOIST_CHUNK_COL,
+                       dtype=torch.float32, device=device)
 
 
 def df2_hoist_shapes(A1h, A2h, n2pb):
     """Raises ValueError unless kernel 9 takes the shapes: N1p a multiple
-    of HOIST_ATOMS, 1 <= N2 <= n2pb."""
+    of HOIST_ATOMS, 1 <= N2 <= n2pb, n2pb = 1 or a multiple of
+    HOIST_BLOCK (every shape ``df2_cols`` gives)."""
     N1p, N2 = A1h.shape[2], A2h.shape[2]
-    if N1p % HOIST_ATOMS or not 1 <= N2 <= n2pb:
+    if (N1p % HOIST_ATOMS or not 1 <= N2 <= n2pb
+            or (n2pb > 1 and n2pb % HOIST_BLOCK)):
         raise ValueError("unsupported df2 hoist shape (N1p %d, N2 %d, "
                          "N2pb %d)" % (N1p, N2, n2pb))
 
@@ -300,8 +322,10 @@ def _df2_hoist_cuda(A1h, A2h, yh, n2pb):
     q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
     rb, ab = new(B, S, n2pb), new(B, S, n2pb)
     row_pack, col_pack, vox = new(B, 8, N1p), new(B, 8, n2pb), new(B, 4)
+    chunks = hoist_chunks(B, S, 1, A1h.device)
     kernels.launch("df2hoist", A1h, A2h, yh, q1a, q2a, a1h, ra, q1b, q2b,
-                   rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb)
+                   rb, ab, row_pack, col_pack, vox, chunks, B, S, N1p, N2,
+                   n2pb)
     return (q1a, q2a, a1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
 
 

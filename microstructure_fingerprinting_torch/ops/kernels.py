@@ -70,8 +70,8 @@ _SIGNATURES = {
     "df2scan": ("mf_df2scan", "ppppppppppppp" + "iiiiii"),
     "finalize": ("mf_finalize", "pppp" + "iii" + "f"),
     "df4hoist": ("mf_df4hoist", "p" * 17 + "i" * 9 + "f"),
-    "df2hoist": ("mf_df2hoist", "p" * 14 + "i" * 5),
-    "df3hoist": ("mf_df3hoist", "p" * 14 + "i" * 5),
+    "df2hoist": ("mf_df2hoist", "p" * 15 + "i" * 5),
+    "df3hoist": ("mf_df3hoist", "p" * 15 + "i" * 5),
     "row4hoist": ("mf_row4hoist", "p" * 12 + "i" * 9 + "fff"),
     "row3hoist": ("mf_row3hoist", "p" * 10 + "i" * 4 + "ff"),
     "rhsprep": ("mf_rhsprep", "p" * 10 + "i" * 7),

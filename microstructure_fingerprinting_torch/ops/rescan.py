@@ -356,10 +356,13 @@ def df3_hoist_twin(A1h, A2h, A3h, yh, n2pb):
 
 def df3_hoist_shapes(A1h, A2h, A3h, n2pb):
     """Raises ValueError unless kernel 10 takes the shapes: N3 = 1, N1p a
-    multiple of dfscan.HOIST_ATOMS, 1 <= N2 <= n2pb (every shape kernel 3
-    takes on the card: 128 x 128 to 782 x 782, and 782 x E)."""
+    multiple of dfscan.HOIST_ATOMS, 1 <= N2 <= n2pb, n2pb a multiple of
+    dfscan.HOIST_BLOCK (every shape kernel 3 takes on the card: 128 x 128
+    to 782 x 782, and 782 x E, whose columns ``col_blocks`` pads to a
+    multiple of 128)."""
     N1p, N2, N3 = A1h.shape[2], A2h.shape[2], A3h.shape[2]
-    if N3 != 1 or N1p % dfscan.HOIST_ATOMS or not 1 <= N2 <= n2pb:
+    if (N3 != 1 or N1p % dfscan.HOIST_ATOMS or not 1 <= N2 <= n2pb
+            or n2pb % dfscan.HOIST_BLOCK):
         raise ValueError("unsupported re-scan hoist shape (N1p %d, N2 %d, "
                          "N3 %d, N2pb %d)" % (N1p, N2, N3, n2pb))
 
@@ -381,8 +384,10 @@ def _df3_hoist_cuda(A1h, A2h, A3h, yh, n2pb):
     q1b, q2b = (new(B, S, n2pb, dt=torch.int8) for _ in range(2))
     rb, ab = new(B, S, n2pb), new(B, S, n2pb)
     row_pack, col_pack, vox = new(B, 38, N1p), new(B, 58, n2pb), new(B, 24)
+    chunks = dfscan.hoist_chunks(B, S, 2, A1h.device)
     kernels.launch("df3hoist", A1h, A2h, A3h, yh, q1a, q2a, ra, q1b, q2b,
-                   rb, ab, row_pack, col_pack, vox, B, S, N1p, N2, n2pb)
+                   rb, ab, row_pack, col_pack, vox, chunks, B, S, N1p, N2,
+                   n2pb)
     return (q1a, q2a, A1h, ra, q1b, q2b, rb, ab, row_pack, col_pack, vox)
 
 

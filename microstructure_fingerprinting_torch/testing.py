@@ -66,8 +66,8 @@ def kernel_agreement(k, p, exact=False):
 
 def fdot_sample_order(contract, x, y):
     """``ops/dfscan.fdot`` (a float64 sum of exact float32 products,
-    rounded once) summed as kernels 9, 10 and 12 sum, and kernel 8 its
-    atoms' Grams with themselves: from +0, one sample after the other (the sample axis is axis 1 of both operands). Patch
+    rounded once) summed as kernel 12 sums, and kernel 8 its atoms' Grams
+    with themselves: from +0, one sample after the other (the sample axis is axis 1 of both operands). Patch
     it over ``dfscan.fdot`` to run a plain version in the kernels'
     order."""
     x, y = x.double(), y.double()
@@ -129,6 +129,26 @@ def fdot_kernel8_order(atom_widths, parts):
         if contract == "bsn,bsn->bn":
             return fdot_sample_order(contract, x, y)
         return fdot_mma_order(contract, x, y)
+    return fdot
+
+
+def fdot_hoist_order(atom_widths, atom_parts, vox_parts):
+    """``ops/dfscan.fdot`` in the orders of kernels 9 and 10: the Grams of
+    an atom block (its width in ``atom_widths``) as their atom launch sums
+    them, in ``atom_parts`` strided parts; the voxel's small Grams (among
+    the signal, the CSF column and kernel 9's [N, 1] column) as their voxel
+    launch sums them, in ``vox_parts`` (``fdot_parts_order`` both; the
+    kernels take ``dfscan.HOIST_PARTS`` for each). ``None`` keeps a group in
+    the einsum order. Patch it over ``dfscan.fdot`` to run
+    ``rescan.df3_hoist_twin`` or ``dfscan.df2_hoist_twin`` in that order."""
+    atoms = fdot_parts_order(atom_parts) if atom_parts else None
+    small = fdot_parts_order(vox_parts) if vox_parts else None
+    einsum = lambda contract, x, y: torch.einsum(
+        contract, x.double(), y.double()).float()
+
+    def fdot(contract, x, y):
+        order = atoms if x.dim() == 3 and x.shape[2] in atom_widths else small
+        return (order or einsum)(contract, x, y)
     return fdot
 
 

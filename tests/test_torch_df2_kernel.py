@@ -17,13 +17,16 @@ source. The ``cuda`` test holds the kernel against its plain version on
 a card.
 
 Kernel 9 (``csrc/df2hoist.cu``) builds kernel 6's operands on the card
-(``df2_scan_operands``: normalization in torch, then ``df2_hoist``); on
-the CPU the plain version ``df2_hoist_twin`` runs, bit for bit
-``df2_scan_operands_plain``. Its float64 sums run in sample order
-(``testing.fdot_sample_order``): the plain version in that order agrees
-with the einsum order's and the route on such operands still matches
-the JAX ``df2_candidates``. Its padded columns are zeros and its pack
-sizes are kernel 6's.
+(``df2_scan_operands``: normalization in torch, then ``df2_hoist``: a
+voxel launch for the signal, and on [N, 1] for the one column too, then
+an atom launch); on the CPU the plain version ``df2_hoist_twin`` runs,
+bit for bit ``df2_scan_operands_plain``. Its float64 sums run in
+``dfscan.HOIST_PARTS`` strided parts in either launch
+(``testing.fdot_hoist_order``): the plain version in either launch's
+order or both agrees with the einsum order's, the [N, 1] column is
+summed as the voxel launch sums, and the route on such operands still
+matches the JAX ``df2_candidates``. Its padded columns are zeros and its
+pack sizes are kernel 6's.
 """
 
 import os
@@ -370,15 +373,26 @@ def test_df2_hoist_padding_is_zero(rng, N2):
     assert _same_bits(ops[2], A1h)
 
 
+def _order(case, *widths):
+    """``testing.fdot_hoist_order`` of ``case``: kernel 9's voxel launch's
+    order alone, its atom launch's alone, or both (the kernel's)."""
+    parts = tdfscan.HOIST_PARTS
+    return ttesting.fdot_hoist_order(set(widths),
+                                     None if case == "voxel" else parts,
+                                     None if case == "atoms" else parts)
+
+
+@pytest.mark.parametrize("case", ["voxel", "atoms", "both"])
 @pytest.mark.parametrize("N2", [28, 1])
-def test_df2_hoist_summation_order(rng, monkeypatch, N2):
-    """Summed as kernel 9 sums (sample after sample), the plain
-    version's operands agree with the einsum order's by
-    ``testing.kernel_agreement`` (levels exactly), and kernel 6's plain
-    version picks the same i2 on every row and the same top-1."""
+def test_df2_hoist_summation_order(rng, monkeypatch, N2, case):
+    """Summed as kernel 9 sums (in strided parts: the voxel launch's
+    Grams, the atom launch's, or both), the plain version's operands
+    agree with the einsum order's by ``testing.kernel_agreement`` (levels
+    exactly), and kernel 6's plain version picks the same i2 on every row
+    and the same top-1."""
     A1, A2, y = (_t(x) for x in _problem(rng, "plain", N2, S=64, N1=40))
     ops0, _yn = tdfscan.df2_scan_operands(A1, A2, y)
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    monkeypatch.setattr(tdfscan, "fdot", _order(case, 256, N2))
     ops1, _yn = tdfscan.df2_scan_operands(A1, A2, y)
     monkeypatch.undo()
     for name, a, b in zip(OPS, ops1, ops0):
@@ -391,6 +405,34 @@ def test_df2_hoist_summation_order(rng, monkeypatch, N2):
     assert ttesting.kernel_agreement(rv1, rv0)[0]
     assert torch.equal(tdfscan.df2_top1_from_rows(rv1, ri1, N2)[0],
                        tdfscan.df2_top1_from_rows(rv0, ri0, N2)[0])
+
+
+@pytest.mark.parametrize("N2", [28, 1])
+def test_df2_hoist_narrow_column_is_the_voxels(rng, monkeypatch, N2):
+    """On the [N, 1] grid kernel 9's voxel launch takes the one column
+    (its levels, planes, Grams and pack), so no block of the atom launch
+    has one live atom; on [N, N] the columns are atom blocks. So the
+    column Grams d2 and q (col_pack entries 0-3, which depend on no other
+    Gram) are summed in the voxel launch's order on [N, 1] and in the atom
+    launch's on [N, N]: with the other launch's order alone patched in
+    they are the einsum order's bit for bit, with their own launch's alone
+    the kernel order's. The wrapper takes n2pb = 1 (no column block) and
+    multiples of ``HOIST_BLOCK``."""
+    A1, A2, y = (_t(x) for x in _problem(rng, "plain", N2, S=64, N1=40))
+    runs = {"einsum": tdfscan.df2_scan_operands(A1, A2, y)[0]}
+    for case in ("voxel", "atoms", "both"):
+        monkeypatch.setattr(tdfscan, "fdot", _order(case, 256, N2))
+        runs[case] = tdfscan.df2_scan_operands(A1, A2, y)[0]
+        monkeypatch.undo()
+    own, other = ("voxel", "atoms") if N2 == 1 else ("atoms", "voxel")
+    grams = lambda ops: ops[9][:, :4]
+    assert _same_bits(grams(runs[own]), grams(runs["both"]))
+    assert _same_bits(grams(runs[other]), grams(runs["einsum"]))
+    z = lambda *s: torch.zeros(s)
+    tdfscan.df2_hoist_shapes(z(2, 8, 256), z(2, 8, 1), 1)
+    tdfscan.df2_hoist_shapes(z(2, 8, 256), z(2, 8, 28), 64)
+    with pytest.raises(ValueError, match="unsupported df2 hoist"):
+        tdfscan.df2_hoist_shapes(z(2, 8, 256), z(2, 8, 28), 40)
 
 
 def test_df2_hoist_layout_is_the_sources():
@@ -418,7 +460,8 @@ def test_df2_hoist_layout_is_the_sources():
 @pytest.mark.parametrize("N2", [28, 1])
 def test_route_on_kernel9_order_operands_matches_jax(wl_blocks, monkeypatch,
                                                      N2):
-    """The route on operands summed as kernel 9 sums them against the
+    """The route on operands summed as kernel 9 sums them (strided parts,
+    ``testing.fdot_hoist_order``) against the
     JAX ``df2_candidates(M=1)`` on ``test_route_matches_jax``'s inputs
     (its programs are compiled once in this module): equal candidates,
     residuals within 1e-6."""
@@ -429,7 +472,7 @@ def test_route_on_kernel9_order_operands_matches_jax(wl_blocks, monkeypatch,
     A1, A2 = (np.ascontiguousarray(x, np.float32) for x in (A1, A2))
     cj, vj, _qj = jdfscan.df2_candidates(jnp.asarray(A1), jnp.asarray(A2),
                                          jnp.asarray(y), M=1)
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    monkeypatch.setattr(tdfscan, "fdot", _order("both", 256, N2))
     ops, _yn = tdfscan.df2_scan_operands(_t(A1), _t(A2), _t(y))
     monkeypatch.undo()
     rv, ri = tdfscan.df2_rows_twin(*ops, n1=A1.shape[2], n2=N2)
@@ -441,24 +484,31 @@ def test_route_on_kernel9_order_operands_matches_jax(wl_blocks, monkeypatch,
 
 @pytest.mark.cuda
 def test_cuda_df2_hoist_matches_plain_version(rng):
-    """On the card, both shapes: every operand of kernel 9 by
-    ``testing.kernel_agreement`` (levels exactly, NaN bits included)
-    against its plain version, kernel 6 fed either set picks the same
-    i2 on every row; df2_candidates(M=1) launches kernel 9 once."""
+    """On the card, at the fit's shapes [782, 782] and [782, 1] and at
+    [200, 300]: every operand of kernel 9 by ``testing.kernel_agreement``
+    (levels exactly, NaN bits included) against its plain version, and
+    bit for bit the plain version summed in the kernel's order; kernel 6
+    fed either set picks the same i2 on every row; df2_candidates(M=1)
+    launches kernel 9 once (its two launches counted together)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for N2 in (300, 1):
+    for N1, N2 in ((782, 782), (782, 1), (200, 300), (200, 1)):
         A1, A2, y = (_t(x).cuda() for x in
-                     _problem(rng, "zero_atom", N2, B=4, S=64, N1=200))
+                     _problem(rng, "zero_atom", N2, B=4, S=64, N1=N1))
         ops_k, _yn = tdfscan.df2_scan_operands(A1, A2, y)
         ops_p, _yn = tdfscan.df2_scan_operands_plain(A1, A2, y)
         for a, b in zip(ops_k, ops_p):
             assert ttesting.kernel_agreement(a, b, a.dtype == torch.int8)[0]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tdfscan, "fdot", _order("both", ops_k[0].shape[2],
+                                                N2))
+            ops_o, _yn = tdfscan.df2_scan_operands_plain(A1, A2, y)
+        assert all(_same_bits(a, b) for a, b in zip(ops_k, ops_o))
         nan = torch.isnan(ops_p[8])
         assert torch.equal(ops_k[8][nan].view(torch.int32),
                            ops_p[8][nan].view(torch.int32))
-        rk, ik = tdfscan.df2_rows(*ops_k, n1=200, n2=N2)
-        rp, ip = tdfscan.df2_rows(*ops_p, n1=200, n2=N2)
+        rk, ik = tdfscan.df2_rows(*ops_k, n1=N1, n2=N2)
+        rp, ip = tdfscan.df2_rows(*ops_p, n1=N1, n2=N2)
         assert ttesting.kernel_agreement(rk, rp)[0] and torch.equal(ik, ip)
         kernels.reset_counts()
         tdfscan.df2_candidates(A1, A2, y, M=1)

@@ -2,21 +2,24 @@
 CPU sees it.
 
 On a card ``rescan.row_scan_df3_operands`` normalizes in torch and
-launches kernel 10 (``df3_hoist``) for the quantize, the Grams, the
+launches kernel 10 (``df3_hoist``: a voxel launch for the signal and the
+CSF column, then an atom launch) for the quantize, the Grams, the
 compensated chain and the packs that kernel 3 reads; on the CPU it runs
 the plain version ``df3_hoist_twin`` (``_hoists`` and the packing that
 ``row_scan_df3_operands`` did itself before the kernel), bit for bit
 ``row_scan_df3_operands_plain``. The kernel sums its float64 cross
-products in sample order, where the plain version's einsum takes another
-order: summed in the kernel's order (``testing.fdot_sample_order``) the
-plain version's operands agree by ``testing.kernel_agreement`` (levels
-exactly), kernel 3's plain version picks the same top-1, and the
-re-scan's top-1 is the JAX package's. Its padded columns are zeros, not
-the chain's value of a zero column. The pack layout read from the
-source is ``_hoists``' and ``rescan3.cu``'s. The ``cuda`` test holds the
-kernel against its plain version on a card.
+products in ``dfscan.HOIST_PARTS`` strided parts, the voxel's small Grams
+in its voxel launch and the atoms' in its atom launch, where the plain
+version's einsum takes another order: summed in either launch's order or
+both (``testing.fdot_hoist_order``) the plain version's operands agree by
+``testing.kernel_agreement`` (levels exactly), kernel 3's plain version
+picks the same top-1, and the re-scan's top-1 is the JAX package's. Its
+padded columns are zeros, not the chain's value of a zero column. The
+pack layout read from the source is ``_hoists``' and ``rescan3.cu``'s;
+the voxel launch's scratch and vox read-back are the sources'. The
+``cuda`` test holds the kernel against its plain version on a card at
+every shape the wrapper takes.
 """
-
 import inspect
 import os
 import re
@@ -205,23 +208,34 @@ def test_layout_is_the_sources():
         == tdfscan.HOIST_ATOMS
 
 
+def _order(case, *widths):
+    """``testing.fdot_hoist_order`` of ``case``: the voxel launch's order
+    alone, the atom launch's alone, or both (the kernel's)."""
+    parts = tdfscan.HOIST_PARTS
+    return ttesting.fdot_hoist_order(set(widths),
+                                     None if case == "voxel" else parts,
+                                     None if case == "atoms" else parts)
+
+
 def _top1(rr, ri, B, N2):
     return trescan.candidates_from_rows(
         rr.reshape(B, -1), ri.reshape(B, -1),
         segments=trescan.n_segments(N2))
 
 
+@pytest.mark.parametrize("case", ["voxel", "atoms", "both"])
 @pytest.mark.parametrize("N2", [10, 140])
-def test_kernel_summation_order(rng, monkeypatch, N2):
+def test_kernel_summation_order(rng, monkeypatch, N2, case):
     """c1 and c2 of every Gram are float64 sums of exact products whose
-    last bits depend on the order. Summed in the kernel's order (sample
-    after sample) the plain version's operands agree with the einsum
+    last bits depend on the order. Summed in the kernel's orders (the
+    voxel launch's small Grams, the atom launch's Grams, or both, in
+    strided parts) the plain version's operands agree with the einsum
     order's by ``testing.kernel_agreement``, levels exactly, and kernel
     3's plain version picks the same row minima, first indices and top-1
     from both."""
     args = _problem(rng, S=64, N2=N2)
     ops0, segw, _yn = trescan.row_scan_df3_operands(*args)
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    monkeypatch.setattr(tdfscan, "fdot", _order(case, 128, N2))
     ops1, _segw, _yn = trescan.row_scan_df3_operands(*args)
     monkeypatch.undo()
     for name, a, b in zip(NAMES, ops1, ops0):
@@ -236,7 +250,7 @@ def test_kernel_summation_order(rng, monkeypatch, N2):
 
 def test_rescan_on_kernel10_order_operands_matches_jax(rng, monkeypatch):
     """The re-scan on operands summed as kernel 10 sums them (float64
-    cross products sample after sample, ``testing.fdot_sample_order``)
+    cross products in strided parts, ``testing.fdot_hoist_order``)
     against JAX row_scan_df3(interpret=True) on the first shape of
     ``tests/test_torch_kernels.py::test_rescan_matches_jax`` (a program
     the suite compiles there): top-1 (i1, i2) equal, values to rtol 1e-5
@@ -250,7 +264,7 @@ def test_rescan_on_kernel10_order_operands_matches_jax(rng, monkeypatch):
                                        (A1, A2, a3, y)], interpret=True)
     cj, vj = jpdf.candidates_from_rows(rr, ri, 1,
                                        segments=jpdf.n_segments(N2))
-    monkeypatch.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+    monkeypatch.setattr(tdfscan, "fdot", _order("both", 128, N2))
     ops, segw, _yn = trescan.row_scan_df3_operands(
         *[_t(x) for x in (A1, A2, a3, y)])
     monkeypatch.undo()
@@ -263,17 +277,61 @@ def test_rescan_on_kernel10_order_operands_matches_jax(rng, monkeypatch):
                                atol=1e-7)
 
 
+def test_voxel_scratch_layout_is_the_sources():
+    """The voxel launch's scratch and what the atom launch reads back: the
+    chunks of the small columns (``ColChunk``: int2 levels and float64
+    (R, a) of kSK samples a column) are ``dfscan.hoist_chunks``' size for
+    kernel 10's two columns and kernel 9's one; the parts, the chunk and
+    the atom block are the wrappers' constants (``HOIST_PARTS``,
+    ``HOIST_CHUNK``, ``HOIST_BLOCK``: a divisor of every row and column
+    width the wrappers take); the atom launch reads vox's (hi, lo) of each
+    quadruple in the voxel launch's order, and w's value."""
+    hoist, k10, k9 = _src("hoist.cuh"), _src("df3hoist.cu"), _src("df2hoist.cu")
+    c = _constants(hoist)
+    assert (c["kParts"], c["kSK"], c["kBA"]) == (
+        tdfscan.HOIST_PARTS, tdfscan.HOIST_CHUNK, tdfscan.HOIST_BLOCK)
+    assert c["kSK"] % c["kParts"] == 0 and c["kStreamThreads"] == (
+        c["kParts"] * c["kBA"])
+    chunk = re.search(r"struct alignas\(16\) ColChunk \{\s*int2 q\[C\]\[kSK\];"
+                      r"\s*double2 ra\[C\]\[kSK\];\s*\};", hoist)
+    assert chunk is not None
+    assert tdfscan.HOIST_CHUNK_COL * 4 == c["kSK"] * (8 + 16)
+    for text, cols in ((k10, 2), (k9, 1)):
+        assert "ColChunk<%d>* cc = reinterpret_cast<ColChunk<%d>*>(chunks)" \
+            % (cols, cols) in text
+    for fn, cols in ((trescan._df3_hoist_cuda, 2),
+                     (tdfscan._df2_hoist_cuda, 1)):
+        assert "hoist_chunks(B, S, %d, A1h.device)" % cols in \
+            inspect.getsource(fn)
+    assert tdfscan.hoist_chunks(3, 70, 2, "cpu").shape == (
+        3, 3 * 2 * tdfscan.HOIST_CHUNK_COL)
+    assert tdfscan.HOIST_ATOMS % tdfscan.HOIST_BLOCK == 0
+    assert all(trescan.col_blocks(n)[1] % tdfscan.HOIST_BLOCK == 0
+               for n in (1, 10, 128, 140, 256, 782))
+    # vox: the voxel launch's quadruples {C2v, w, d3, r3}, read back
+    quads = _names(re.search(r"const P2 vq\[\w+\] = \{([^}]+)\};", k10).group(1))
+    reads = re.findall(r"(\w+)\{vx\[(\d+)\], vx\[(\d+)\]\}", k10)
+    assert [r[0] for r in reads] == quads
+    assert [(int(r[1]), int(r[2])) for r in reads] == [
+        (4 * k, 4 * k + 1) for k in range(len(quads))]
+    assert "wf(vx[4 * kVoxQuads])" in k10
+
+
 @pytest.mark.cuda
 def test_cuda_df3_hoist_matches_plain_version(rng):
-    """On the card, with padded rows and columns, at a column block of
-    two segments' width and at the narrow 10-column grid: every operand
-    by ``testing.kernel_agreement`` (levels exactly, NaN bits included),
-    kernel 3 fed either operand set agrees and picks the same top-1, and
-    row_scan_df3_operands launches kernel 10 once."""
+    """On the card, with padded rows and columns, at every shape the
+    wrapper takes (the two-pass 128 x 128, the overflow tiers 256 x 256
+    and 782 x 782, the narrow 782 x 10 grid) and at a column block of two
+    segments' width: every operand by ``testing.kernel_agreement``
+    (levels exactly, NaN bits included) and bit for bit the plain version
+    summed in the kernel's order, kernel 3 fed either operand set agrees
+    and picks the same top-1, and row_scan_df3_operands launches kernel
+    10 once (its two launches counted together)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for N2 in (300, 10):
-        args = tuple(x.cuda() for x in _problem(rng, B=4, S=64, N1=200,
+    for N1, N2 in ((128, 128), (256, 256), (782, 782), (782, 10),
+                   (200, 300)):
+        args = tuple(x.cuda() for x in _problem(rng, B=4, S=64, N1=N1,
                                                 N2=N2))
         kernels.reset_counts()
         ops_k, segw, _yn = trescan.row_scan_df3_operands(*args)
@@ -281,6 +339,11 @@ def test_cuda_df3_hoist_matches_plain_version(rng):
         ops_p, _segw, _yn = trescan.row_scan_df3_operands_plain(*args)
         for a, b in zip(ops_k, ops_p):
             assert ttesting.kernel_agreement(a, b, a.dtype == torch.int8)[0]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tdfscan, "fdot", _order("both", ops_k[0].shape[2],
+                                                N2))
+            ops_o, _segw, _yn = trescan.row_scan_df3_operands_plain(*args)
+        assert all(_same_bits(a, b) for a, b in zip(ops_k, ops_o))
         nan = torch.isnan(ops_p[8])
         assert nan.any()
         assert torch.equal(ops_k[8][nan].view(torch.int32),

@@ -224,10 +224,12 @@ def test_layout_is_the_sources(n4):
     voxj = voxj[:voxj.index("};")]
     assert sum(line.count(",") + 1 for line in voxj.splitlines()
                if line.strip().startswith("P2 ")) * 2 == consts["kScrJ"]
-    # the voxel launch's parts, and the atoms' quantize by products with
-    # the inverse level scales
+    # the voxel launch's parts, and the atoms' quantize (hoist.cuh's,
+    # shared) by products with the inverse level scales
     assert "t += kParts" in text and "t.c1 = t.c1 + u.c1;" in text
-    assert "mf::mul(x, 128.0f)" in text and "32768.0f" in text
+    assert "mf::hoist::quantize2(" in text
+    hoist = _src("hoist.cuh")
+    assert "mul(x, 128.0f)" in hoist and "32768.0f" in hoist
     assert 2.0 ** -7 * 128.0 == 1.0 and 2.0 ** -15 * 32768.0 == 1.0
     # the small columns' chunks the voxel launch writes and every atom
     # block copies: kSK samples, levels of kQC columns, planes of kFC

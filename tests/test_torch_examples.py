@@ -12,8 +12,8 @@ import torch
 import re
 
 from microstructure_fingerprinting_torch.examples import (
-    demo_synthetic, df2_probe, ear_rsweep, exactness_check, kernel_phases,
-    profile_stages, whole_brain)
+    demo_synthetic, df2_probe, ear_rsweep, exactness_check, hoist_probe,
+    kernel_phases, profile_stages, whole_brain)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
@@ -101,17 +101,23 @@ def test_example_runs_as_module(name):
 def test_kernel_phases_names_every_mark(monkeypatch):
     """``kernel_phases`` (a card's measurement) names every phase mark of
     the kernels it reads (``MF_PHASE(k)`` in ``csrc/df4hoist.cu``,
-    ``csrc/row4hoist.cu``, ``csrc/df2scan.cu`` and ``csrc/rhsprep.cu``,
-    whose counter readers it calls: each reader's names cover its
-    source's marks), stops with a message where there is no card, and
-    its ``--help`` imports no JAX."""
+    ``csrc/row4hoist.cu``, ``csrc/df2scan.cu``, ``csrc/rhsprep.cu``, and
+    in ``csrc/df3hoist.cu`` and ``csrc/df2hoist.cu`` with the voxel and
+    atom launches of ``csrc/hoist.cuh`` that they call, whose counter
+    readers it calls: each reader's names cover its sources' marks), stops
+    with a message where there is no card, and its ``--help`` imports no
+    JAX."""
     csrc = os.path.join(REPO, "microstructure_fingerprinting_torch", "csrc")
-    for src, reader in (("df4hoist.cu", "mf_df4hoist_phases"),
-                        ("row4hoist.cu", "mf_row4hoist_phases"),
-                        ("df2scan.cu", "mf_df2scan_phases"),
-                        ("rhsprep.cu", "mf_rhsprep_phases")):
-        with open(os.path.join(csrc, src)) as f:
-            text = f.read()
+    for srcs, reader in ((("df4hoist.cu",), "mf_df4hoist_phases"),
+                         (("row4hoist.cu",), "mf_row4hoist_phases"),
+                         (("df2scan.cu",), "mf_df2scan_phases"),
+                         (("rhsprep.cu",), "mf_rhsprep_phases"),
+                         (("df3hoist.cu", "hoist.cuh"), "mf_df3hoist_phases"),
+                         (("df2hoist.cu", "hoist.cuh"), "mf_df2hoist_phases")):
+        text = ""
+        for src in srcs:
+            with open(os.path.join(csrc, src)) as f:
+                text += f.read()
         marks = {int(k) for k in re.findall(r"MF_PHASE\((\d)\)", text)}
         assert marks and max(marks) < len(kernel_phases.PHASES[reader])
         assert "MF_PHASE_API(%s)" % reader in text
@@ -159,6 +165,40 @@ def test_df2_probe_cuts_apply_to_the_source(monkeypatch):
             "try:\n"
             "    runpy.run_module('microstructure_fingerprinting_torch."
             "examples.df2_probe', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'microstructure_fingerprinting_tpu'))))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--reps" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_hoist_probe_cuts_apply_to_the_source(monkeypatch):
+    """``hoist_probe`` (a card's measurement) builds kernels 9 and 10 from
+    their shipped sources changed each way of its ``CUTS``: each cut finds
+    the text it replaces (so an edit of ``csrc/hoist.cuh``,
+    ``csrc/df2hoist.cu`` or ``csrc/df3hoist.cu`` that moves it fails here,
+    not on the card), every build but the shipped one differs from the
+    sources and keeps both C entry points; it stops with a message where
+    there is no card, and its ``--help`` imports no JAX."""
+    src = hoist_probe.sources()
+    assert list(src) == list(hoist_probe.CUTS)
+    for name, files in src.items():
+        same = all(files[f] == src["shipped"][f] for f in files)
+        assert same == (name == "shipped"), name
+        assert 'extern "C" int mf_df2hoist(' in files["df2hoist.cu"]
+        assert 'extern "C" int mf_df3hoist(' in files["df3hoist.cu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        hoist_probe.main([])
+    code = ("import runpy, sys\n"
+            "sys.argv = ['hoist_probe', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('microstructure_fingerprinting_torch."
+            "examples.hoist_probe', run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    assert e.code == 0, e.code\n"
             "print(sorted(m for m in sys.modules if m == 'jax' or "
