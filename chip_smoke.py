@@ -17,9 +17,11 @@ operands, on an EAR chunk at 256 x 256 and on the 782 x 782 grid for 8
 voxels; kernel 11, the EAR row pass's hoists, on an EAR chunk at
 782 x 782; each operand, and kernels 3, 5, 6 and 4 fed them and the
 plain ones; kernel 7, the
-double-float finalize, on the gathered columns of
-flagship, mixed and EAR chunks and, bit for bit, on columns whose
-largest value sits an ulp off a power of two), times the four hoisted
+fit's finalize, on the planted winners of flagship, mixed and EAR chunks
+as the fit runs it (the winner's columns read from the rotated blocks,
+the weights and residuals bit for bit, R^2 within R2_TOL), on the same
+columns as a block through ``df_nnls_cols`` and, bit for bit, on columns
+whose largest value sits an ulp off a power of two), times the four hoisted
 functions' routes a chunk (the df2 scan, the two re-scans, the two row
 passes) against the routes with the plain hoists and the plain versions,
 in turns, then drives the main
@@ -69,7 +71,9 @@ captures, the memory the graphs hold and the device-idle share of a
 flagship, an EAR and a mixed fit on each route. Every phase runs; exits non-zero
 on any failure; needs one CUDA device. The last line of standard output
 is the JSON summary {"ok": true, "device": {...}}; the kernel table is
-the JSON line before the card's name and power limit, with kernel 1 in
+the JSON line before the card's name and power limit (each row's "ms"
+the wrapper's time by CUDA events, "device_ms" its launches' device time
+by ``torch.profiler``), with kernel 1 in
 a row per rhs width (its launches in the fits at that width, its times
 at that width) and every row's launches summed over the fits that run
 it; an earlier ``record:`` line holds every number measured. Each fit
@@ -243,6 +247,9 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 RECORD = {}
 #: max|kernel - plain| of kernel 7 in the phases after the kernels phase
 FINALIZE_ERR = []
+#: kernel 7's R^2 against its plain version: the same float64 values summed
+#: in another order
+R2_TOL = 1e-12
 
 
 def log(msg):
@@ -315,9 +322,8 @@ def hoist_ops(name, B, S, n1, n2, n_small, nx=0, ns=0):
 def row4_hoist_ops(B, S, n1, n2, n4):
     """Operations of kernel 11 on the real atoms (n1 rows, n2 columns)
     of B voxels: the voxel's 3 + 3 n4 small Grams and the quantize3 of
-    its 2 + n4 small columns once, and each atom's chain (what the
-    function needs; the kernel sums the small Grams again in every block
-    of the voxel)."""
+    its 2 + n4 small columns once (the kernel's voxel launch), and each
+    atom's chain."""
     nx, ns = 1 + n4, n4
     grams = float(B) * (3 + 3 * n4) * S
     row, col = ROW4_CHAIN_OPS
@@ -330,12 +336,12 @@ def row4_hoist_ops(B, S, n1, n2, n4):
 def row3_hoist_ops(B, S, n1, n2):
     """Operations of kernel 12 on the real atoms (n1 rows, n2 columns) of
     B voxels: the voxel's 3 small Grams and the quantize3 of its 2 small
-    columns once, and each atom's chain (the kernel sums the small Grams
-    again in every block of the voxel)."""
+    columns once (the kernel's voxel launch), and each atom's chain."""
     grams = float(B) * 3 * S
     row, col = ROW3_CHAIN_OPS
     return {"int8": 2 * GRAM3_INT_OPS * grams,
-            "f32": (2 * GRAM3_F32_OPS * grams + QUANTIZE3_OPS * float(B) * 2 * S
+            "f32": (2 * GRAM3_F32_OPS * grams
+                    + QUANTIZE3_OPS * float(B) * 2 * S
                     + float(B) * (n1 * row + n2 * col))}
 
 
@@ -345,15 +351,20 @@ def rhs_prep_ops(B, S, n_cols):
     return {"f32": (RHS_PREP_OPS + QUANTIZE3_OPS) * float(B) * S * n_cols}
 
 
-def finalize_ops(B, S, C):
+def finalize_ops(B, S, C, r2=False):
     """Operations of kernel 7 (counted from ``csrc/finalize.cu``): per
     sample and column ~15 to scale and quantize; per entry i <= j of
     the (C + 1)^2 Gram 8 integer operations, per entry used 4 float64;
     per voxel the solver's double-float chain, ~20 operations a product
     or sum: 1 divide and quotient form for C = 1, ~60 df operations for
-    C = 2, ~250 for C = 3, ~1,500 for C = 4 (15 supports, Cramer)."""
+    C = 2, ~250 for C = 3, ~1,500 for C = 4 (15 supports, Cramer); with
+    ``r2``, per sample R^2's float64 work: y_rec (C products, C - 1
+    sums), the two means' sums and the centred sums (2 differences, 3
+    products, 3 sums), counted at the float32 rate."""
     K = C + 1
     sample = 15 * K + 8 * K * (K + 1) // 2 + 4 * (C * K + 1)
+    if r2:
+        sample += 2 * C + 9
     solver = 20 * {1: 10, 2: 60, 3: 250, 4: 1500}[C]
     return {"f32": float(B) * (S * sample + solver)}
 
@@ -447,17 +458,34 @@ def plain_sliced(fn, ops, step):
                  for parts in zip(*outs))
 
 
-def row(err, ms, plain_ms, bytes_moved, ops):
+def device_ms(fn, reps=3):
+    """Device milliseconds a call of fn(): the kernels and copies it puts
+    on the card, from a ``torch.profiler`` trace (CUPTI), mean of reps
+    (``utils.profiling.device_ms``); None where no whole trace was read."""
+    from microstructure_fingerprinting_torch.utils import profiling
+    return profiling.device_ms(fn, reps)
+
+
+def kernel_times(fn):
+    """A kernel call's wrapper time (``timed``: CUDA events around the
+    calls, the wrapper's host time before its first launch included) and
+    its device time (``device_ms``)."""
+    return timed(fn), device_ms(fn)
+
+
+def row(err, times, plain_ms, bytes_moved, ops):
+    ms, dev_ms = times
     b_ms, b_by = bound(bytes_moved, ops)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def check_prep(rows, name, blocks, rhs, n_rhs):
     """Kernel 1 on each (A, tile, planes) block against its plain
     version; rows[name] gets the summed times and bounds."""
     from microstructure_fingerprinting_torch.ops import prep
-    err, ms_k, ms_p, nb, ops = 0.0, 0.0, 0.0, 0, {}
+    err, ms_k, dev_k, ms_p, nb, ops = 0.0, 0.0, 0.0, 0.0, 0, {}
     for A, tile, planes in blocks:
         ins = (prep.pad_block(A, tile)[0].contiguous(),) + tuple(rhs)
         kern = lambda: prep.prep_block(*ins, tile, planes, n_rhs=n_rhs)
@@ -471,12 +499,15 @@ def check_prep(rows, name, blocks, rhs, n_rhs):
                               plain()):
             if k is not None:
                 err = max(err, held("%s %s" % (shape, what), k, p))
-        ms_k += timed(kern)
+        ms, dev = kernel_times(kern)
+        ms_k += ms
+        # a block whose trace was lost leaves the row's device time unknown
+        dev_k = None if dev is None or dev_k is None else dev_k + dev
         ms_p += timed(plain)
         nb += nbytes(ins, outs)
         for kind, n in prep_ops(ins[0], n_rhs).items():
             ops[kind] = ops.get(kind, 0.0) + n
-    rows[name] = row(err, ms_k, ms_p, nb, ops)
+    rows[name] = row(err, (ms_k, dev_k), ms_p, nb, ops)
 
 
 def check_prep_narrow(A, rhs, n_rhs, W_want, S_wide):
@@ -603,6 +634,25 @@ def check_hoist(what, k, p, flags=(), names=HOIST_NAMES):
     return err
 
 
+def held_in_parts_order(what, plain, ins, k, names=None):
+    """A hoist kernel's outputs ``k`` against its plain version ``plain``
+    on ``ins`` with the small Grams' float64 sums in the voxel launch's
+    order (``testing.fdot_parts_order`` at ``dfscan.HOIST_PARTS``): every
+    entry bit for bit (``held`` exact: the float32 entries as int32 bits,
+    NaN bits included; kernels 11 and 12)."""
+    from microstructure_fingerprinting_torch import testing
+    from microstructure_fingerprinting_torch.ops import dfscan
+    einsum = dfscan.fdot
+    dfscan.fdot = testing.fdot_parts_order(dfscan.HOIST_PARTS)
+    try:
+        p = plain(*ins)
+    finally:
+        dfscan.fdot = einsum
+    for name, a, b in zip(names or ROW4_NAMES, k, p):
+        held("%s %s, the plain version in the parts' order" % (what, name),
+             a, b, exact=True)
+
+
 def df4_flags(n4):
     """(operand, entries) of the 0/1 flags in kernel 8's packs: rowok of
     each sweep in row_pack, ok34 of each sweep in vox (n3 = 1)."""
@@ -643,8 +693,8 @@ def check_rhsprep(y, a3, a4=None):
     live = [i for i, t in enumerate(k) if t is not None]
     err = check_hoist(what, [k[i] for i in live], [p[i] for i in live],
                       names=[RHS_NAMES[i] for i in live])
-    r = row(err, timed(kern), timed(plain, reps=1), nbytes(y, a3, a4, k),
-            rhs_prep_ops(B, S, n))
+    r = row(err, kernel_times(kern), timed(plain, reps=1),
+            nbytes(y, a3, a4, k), rhs_prep_ops(B, S, n))
     log("%s: kernel %.3f ms vs plain %.3f (bound %.3f, %s)" % (
         what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
     return r
@@ -683,7 +733,9 @@ def check_rhsprep_edges(y, a3, a4=None):
 def check_row3hoist(A1, A2, a3, y):
     """Kernel 12 on the flagship row pass's inputs against its plain
     version: every output by ``check_hoist`` (the flag stab1 exactly, NaN
-    bits, the column lows and the floor), kernel 2 fed both output sets
+    bits, the column lows and the floor) and bit for bit against the plain
+    version in its voxel launch's order (``held_in_parts_order``), kernel 2
+    fed both output sets
     (row and column bounds by ``held``); timed, with the function a
     chunk (``rowmin_3``) and the ATen ops of ``rowmin_3_operands`` and its
     plain route. Returns its row (times, bound on the real atoms)."""
@@ -696,6 +748,7 @@ def check_row3hoist(A1, A2, a3, y):
     k, p = kern(), plain()
     what = "row3hoist %d x %d, %d voxels" % (n1, n2, B)
     err = check_hoist(what, k, p, ((0, [11]),), ROW4_NAMES)
+    held_in_parts_order(what, f32scan.row3_hoist_twin, ins, k)
     fed = [f32scan.rowmin3_rows(*(planes + tuple(o[:3])), n1=n1, n2=n2)
            for o in (k, p)]
     for name, a, b in zip(("lo_row", "up_row", "lo_col"), *fed):
@@ -703,7 +756,7 @@ def check_row3hoist(A1, A2, a3, y):
     # the bytes of the real rows and columns: the Gram rows read, the
     # small columns, the packs' entries and the outputs written once
     gA, gB, yh, a3h = ins
-    r = row(err, timed(kern), timed(plain, reps=1),
+    r = row(err, kernel_times(kern), timed(plain, reps=1),
             nbytes(gA[:, :3, :n1], gB[:, :3, :n2], yh, a3h,
                    k[0][:, :12, :n1], k[1][:, :6, :n2], k[2][:, :2],
                    k[3][:, :n2], k[4]),
@@ -755,7 +808,7 @@ def check_df3hoist(what, A1, A2, a3, y):
     cut = lambda i: n1 if i < 4 else n2
     real = [o[..., :cut(i)] for i, o in enumerate(ops) if i not in (2, 8,
                                                                     9, 10)]
-    r = row(err, timed(kern), timed(plain, reps=1),
+    r = row(err, kernel_times(kern), timed(plain, reps=1),
             nbytes(blk[0][..., :n1], blk[1:], real, ops[8][..., :n1],
                    ops[9][..., :n2], ops[10]),
             hoist_ops("df3hoist", B, S, n1, n2, 2))
@@ -797,7 +850,7 @@ def check_df2(rows, A1, A2, a3, y):
                                  "candidates differ")
         # the bytes of the grid's real rows and columns: the inputs once
         # and the operands once (a1h too: kernel 9 writes it)
-        r9 = row(0.0, timed(kern9), timed(plain9, reps=1),
+        r9 = row(0.0, kernel_times(kern9), timed(plain9, reps=1),
                  nbytes(A1h[..., :N_ATOM], A2h, yh,
                         [o[..., :N_ATOM] if i < 4 or i == 8 else
                          (o if i == 10 else o[..., :n2])
@@ -833,7 +886,7 @@ def check_df2(rows, A1, A2, a3, y):
         # padding (rows to N1p, columns to a multiple of 64) is not work
         cut = lambda i: N_ATOM if i in (0, 1, 2, 3, 8) else n2
         real = [o if i == 10 else o[..., :cut(i)] for i, o in enumerate(ops)]
-        r = row(0.0, timed(kern), timed(plain, reps=1),
+        r = row(0.0, kernel_times(kern), timed(plain, reps=1),
                 nbytes(real, [t[:, :N_ATOM] for t in k]),
                 scan_ops("df2scan", B, S, N_ATOM, n2))
         RECORD.setdefault("df2scan", {})[name] = r
@@ -894,35 +947,68 @@ def check_df2_ties(A1, A2, y):
     del ops, k, p, A1t, A2t
 
 
-def gathered(D, ids, extra=()):
-    """The columns a fit's finalize gathers: D[:, k][:, :, ids[:, k]] for
-    each fascicle k of ``ids`` (B, K), then the ``extra`` (B, S, 1)
-    columns, as one (B, S, C) tensor."""
-    import torch
-    B, _K, S, _N = D.shape
-    idx = torch.as_tensor(ids, dtype=torch.int64, device=D.device)
-    cols = [torch.gather(D[:, k], 2, idx[:, None, k:k + 1].expand(B, S, 1))
-            for k in range(idx.shape[1])]
-    return torch.cat(cols + list(extra), dim=2).contiguous()
-
-
-def check_finalize(label, cols, y, exact=False):
-    """Kernel 7 (``df_nnls_cols`` on the card) against its plain version
-    on the same columns: weights and residuals by ``held``; timed.
-    Returns the row and records it under ``label``."""
+def check_cols(label, cols, y):
+    """Kernel 7 on a (B, S, C) block (``df_nnls_cols`` on the card)
+    against its plain version on the same columns: weights and residuals
+    bit for bit. Returns max|err|."""
     from microstructure_fingerprinting_torch.ops import dfscan
-    kern = lambda: dfscan.df_nnls_cols(cols, y)
-    plain = lambda: dfscan.df_nnls_cols_twin(cols, y)
+    k = dfscan.df_nnls_cols(cols, y)
+    p = dfscan.df_nnls_cols_twin(cols, y)
+    what = "df_nnls_cols %s, C = %d, %d voxels" % (label, cols.shape[2],
+                                                   cols.shape[0])
+    return max(held(what + " weights", k[0], p[0], exact=True),
+               held(what + " residuals", k[1], p[1], exact=True))
+
+
+def check_finalize(label, D, csf, ear, y, ids, K, csf_on, ear_on):
+    """Kernel 7 as the fit runs it (``finalize_top1`` on the card: the
+    winner's columns read from the rotated blocks D, the CSF signature
+    csf (S,) and the EAR signatures ear (S, E), and R^2) against its plain
+    version (``finalize_top1_plain``) on the winner ``ids`` (B, K) (with
+    EAR the atom EAR_ATOM last): weights and residuals bit for bit, R^2
+    within R2_TOL; the same columns as a block through ``df_nnls_cols``
+    bit for bit; timed, with the ATen ops of a call of each route.
+    Returns the row and records it under ``label``."""
+    import torch
+    from microstructure_fingerprinting_torch.ops import dfscan
+    B, S = y.shape
+    y = y.contiguous()  # as the fit pushes it: no copy inside the timing
+    cand = torch.as_tensor(np.asarray(ids)[:, :K], dtype=torch.int64,
+                           device=y.device)
+    if ear_on:
+        cand = torch.cat([cand, torch.full_like(cand[:, :1], EAR_ATOM)], 1)
+    args = (D, csf, ear, y, cand, csf_on, ear_on, K)
+    kern = lambda: dfscan.finalize_top1(*args)
+    plain = lambda: dfscan.finalize_top1_plain(*args)
     k, p = kern(), plain()
-    what = "finalize %s, C = %d, %d voxels" % (label, cols.shape[2],
-                                               cols.shape[0])
-    err = max(held(what + " weights", k[0], p[0], exact),
-              held(what + " residuals", k[1], p[1], exact))
-    r = row(err, timed(kern), timed(plain, reps=1), nbytes(cols, y, k),
-            finalize_ops(*cols.shape))
+    C = k[0].shape[1]
+    what = "finalize %s, C = %d, %d voxels" % (label, C, B)
+    err = max(held(what + " weights", k[0], p[0], exact=True),
+              held(what + " residuals", k[1], p[1], exact=True))
+    r2_err = float((k[2] - p[2]).abs().max())
+    log("%s R^2: max|kernel - plain| %.3e (limit %.0e), min %.12f"
+        % (what, r2_err, R2_TOL, float(k[2].min())))
+    if not r2_err <= R2_TOL:
+        raise AssertionError("%s: R^2 differs from the plain version's by "
+                             "%.3e" % (what, r2_err))
+    err = max(err, check_cols(label, dfscan.winner_columns(
+        D, csf, ear, cand, csf_on, ear_on, K), y))
+    # the bytes the function needs: each voxel's K fascicle columns and
+    # signal, the shared CSF and EAR signature columns and the winner read
+    # once, the weights, residuals and R^2 written once
+    r = row(err, kernel_times(kern), timed(plain, reps=1),
+            4 * B * S * (K + 1) + 4 * S * (int(csf_on) + int(ear_on))
+            + nbytes(cand, k),
+            finalize_ops(B, S, C, r2=True))
+    r["r2_err"] = r2_err
     RECORD.setdefault("finalize", {})[label] = r
-    log("%s: kernel %.3f ms vs plain %.3f (bound %.4f, %s)"
-        % (what, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    log("%s: kernel %.3f ms (device %.4f) vs plain %.3f (bound %.4f, %s)"
+        % (what, r["ms"], r["device_ms"] or float("nan"), r["plain_ms"],
+           r["bound_ms"], r["bound_by"]))
+    few = (D[:8], csf, ear, y[:8], cand[:8], csf_on, ear_on, K)
+    record_ops("finalize_top1 %s" % label,
+               route=lambda: dfscan.finalize_top1(*few),
+               plain=lambda: dfscan.finalize_top1_plain(*few))
     return r
 
 
@@ -982,7 +1068,7 @@ def phase_kernels(wl):
     err = max(held("rowmin3 " + name, k, p) for name, k, p in
               zip(("lo_row", "up_row", "lo_col"), outs, plain()))
     n1p, n2p = ops[6].shape[2], ops[7].shape[2]
-    rows["rowmin3"] = row(err, timed(kern), timed(plain),
+    rows["rowmin3"] = row(err, kernel_times(kern), timed(plain),
                           nbytes(ops, outs),
                           scan_ops("rowmin3", CHUNK, S, n1p, n2p))
     del ops, outs
@@ -1021,7 +1107,7 @@ def phase_kernels(wl):
         err = max(err, e)
         if n == 128:
             shape = (B, S, ops[0].shape[2], ops[4].shape[2])
-            rows["rescan3"] = row(0.0, timed(kern), timed(plain),
+            rows["rescan3"] = row(0.0, kernel_times(kern), timed(plain),
                                   nbytes(ops, outs),
                                   scan_ops("rescan3", *shape))
             RECORD["rescan3_bound_ms_dekker_chain"] = bound(
@@ -1066,18 +1152,19 @@ def phase_kernels(wl):
     check_df2_ties(A1, A2, y)
     D = torch.stack([A1, A2], dim=1)
     gt = wl["gt_ids"][:CHUNK]
-    cols = gathered(D, gt, (a3,))
-    del D
-    rows["finalize"] = check_finalize("flagship", cols, y)
-    e1 = check_finalize("constructed", cols[:, :, :1].contiguous(), y)
+    csf = a3[0, :, 0]
+    rows["finalize"] = check_finalize("flagship", D, csf, None, y, gt, 2,
+                                      True, False)
+    e1 = check_finalize("constructed", D, None, None, y, gt, 1, False,
+                        False)
     rows["finalize"]["max_abs_err"] = max(rows["finalize"]["max_abs_err"],
                                           e1["max_abs_err"])
+    del D
     for C in (1, 2, 3, 4):
-        check_finalize("scale edges", *scale_edges(C, S, 1200 + C),
-                       exact=True)
+        check_cols("scale edges", *scale_edges(C, S, 1200 + C))
     RECORD["kernel_check_voxels"] = CHUNK
     log_rows(rows)
-    del A1, A2, a3, y, cols
+    del A1, A2, a3, y
     torch.cuda.empty_cache()
     return rows
 
@@ -1106,7 +1193,9 @@ def ear_inputs(wl, sig_ear, B, device):
 def check_row4hoist(A1, A2, a3, a4, y, function=True):
     """Kernel 11 on the EAR row pass's inputs against its plain version:
     every output by ``check_hoist`` (the flags exactly, NaN bits, the
-    column lows and the floor), kernel 4 fed both output sets (row and
+    column lows and the floor) and bit for bit against the plain version
+    in its voxel launch's order (``held_in_parts_order``), kernel 4 fed
+    both output sets (row and
     column bounds by ``held``); timed, with (``function``) the function a
     chunk (``rowmin_4``) and the ATen ops of ``rowmin_4_operands``.
     Returns its row (times, bound on the real atoms)."""
@@ -1120,6 +1209,7 @@ def check_row4hoist(A1, A2, a3, a4, y, function=True):
     k, p = kern(), plain()
     what = "row4hoist %d x %d, %d voxels" % (n1, n2, B)
     err = check_hoist(what, k, p, row4_flags(n4), ROW4_NAMES)
+    held_in_parts_order(what, f32scan.row4_hoist_twin, ins, k)
     nr = f32scan.row4_pack_rows(1, n4)[0]
     kw = dict(n1=n1, n2=n2, n3=1, n4=n4, nr=nr)
     fed = [f32scan.rowmin4_rows(*(planes + tuple(o[:3])), **kw)
@@ -1130,7 +1220,7 @@ def check_row4hoist(A1, A2, a3, a4, y, function=True):
     # small columns, the packs' entries and the outputs written once
     ncol, nvox = 2 + 4 * nx + 4 * ns, 1 + nx + 3 * ns
     gA, gB, yh, a3h, a4h = ins
-    r = row(err, timed(kern), timed(plain, reps=1),
+    r = row(err, kernel_times(kern), timed(plain, reps=1),
             nbytes(gA[:, :3 + n4, :n1], gB[:, :3 + n4, :n2], yh, a3h, a4h,
                    k[0][:, :nr + 2, :n1], k[1][:, :ncol, :n2],
                    k[2][:, :nvox], k[3][:, :n2], k[4]),
@@ -1198,7 +1288,7 @@ def phase_ear_kernels(wl, sig_ear):
     err = max(held("rowmin4 " + name, k, p) for name, k, p in
               zip(("lo_row", "up_row", "lo_col"), outs, plain()))
     n1p, n2p = ops[6].shape[2], ops[7].shape[2]
-    rows["rowmin4"] = row(err, timed(kern), timed(plain, reps=1),
+    rows["rowmin4"] = row(err, kernel_times(kern), timed(plain, reps=1),
                           nbytes(ops, outs),
                           scan_ops("rowmin4", CHUNK, S, n1p, n2p, nx, ns))
     RECORD["rowmin4_packs"] = [ops[6].shape[1], ops[7].shape[1],
@@ -1235,7 +1325,7 @@ def phase_ear_kernels(wl, sig_ear):
         real = [o[..., :n] for i, o in enumerate(ops) if i not in (2, 10)]
         if n == R_EAR:
             rows["df4hoist"] = row(
-                0.0, timed(kern8), timed(plain8, reps=1),
+                0.0, kernel_times(kern8), timed(plain8, reps=1),
                 nbytes([b_[..., :n] for b_ in blk[:2]], blk[2:], real,
                        ops[10]),
                 hoist_ops("df4hoist", B, S, n, n, 2 + N_EAR, nx, ns))
@@ -1252,7 +1342,7 @@ def phase_ear_kernels(wl, sig_ear):
         e, outs = check_rescan("rescan4", kern, plain, top1, B, n)
         err = max(err, e)
         if n == R_EAR:
-            rows["rescan4"] = row(0.0, timed(kern), timed(plain),
+            rows["rescan4"] = row(0.0, kernel_times(kern), timed(plain),
                                   nbytes(ops, outs),
                                   scan_ops("rescan4", B, S, ops[0].shape[2],
                                            ops[4].shape[2], nx, ns))
@@ -1275,12 +1365,11 @@ def phase_ear_kernels(wl, sig_ear):
                plain=lambda: rescan.row_scan_df4_operands_plain(*few))
     df4_chunk_cost(A1[:, :, :R_EAR].contiguous(),
                    A2[:, :, :R_EAR].contiguous(), a3, a4, y)
-    # kernel 7 on the chunk's planted columns: two fascicles, CSF and EAR
+    # kernel 7 on the chunk's planted winner: two fascicles, CSF and EAR
     # atom EAR_ATOM (C = 4, the EAR finalize)
-    cols = gathered(torch.stack([A1, A2], dim=1), wl["gt_ids"][:CHUNK],
-                    (a3, a4[:, :, EAR_ATOM:EAR_ATOM + 1]))
-    FINALIZE_ERR.append(check_finalize("EAR", cols, y)["max_abs_err"])
-    del cols
+    FINALIZE_ERR.append(check_finalize(
+        "EAR", torch.stack([A1, A2], dim=1), a3[0, :, 0], a4[0], y,
+        wl["gt_ids"][:CHUNK], 2, True, True)["max_abs_err"])
     log_rows(rows)
     del A1, A2, a3, a4, y
     torch.cuda.empty_cache()
@@ -1495,6 +1584,13 @@ def warm_fits(label, model, args, kw, launches, split=()):
                 raise AssertionError(
                     "%d of the fit's %d launches of %s lie inside stage %s"
                     % (n, launches[kernel], kernel, stage_name))
+            if stage_name == "finalize":
+                # the whole stage is kernel 7's one launch a chunk step
+                steps = sum(1 for ev in st.events if ev[0] == "finalize")
+                if n != steps:
+                    raise AssertionError(
+                        "%d launches of kernel 7 in %d finalize stages"
+                        % (n, steps))
             stages["%s: kernel %s" % (stage_name, kernel)] = k_ms
             torch_ms -= k_ms
         stages[stage_name + ": torch hoists"] = torch_ms
@@ -1740,7 +1836,7 @@ def check_rescan3_ear_grid(wl, mix, sig_ear):
     err, outs = check_rescan("rescan3 EAR grid", kern, plain, top1, B,
                              N_ATOM, N_EAR)
     # the bound counts the grid's real points, not its padded columns
-    r = row(err, timed(kern), timed(plain), nbytes(ops, outs),
+    r = row(err, kernel_times(kern), timed(plain), nbytes(ops, outs),
             scan_ops("rescan3", B, S, N_ATOM, N_EAR))
     RECORD["rescan3_ear_grid"] = dict(r, voxels=B, padded_columns=
                                       ops[4].shape[2])
@@ -1934,16 +2030,17 @@ def df4_chunk_cost(A1, A2, a3, a4, y):
 
 
 def check_finalize_mixed(wl, mix):
-    """Kernel 7 on the planted columns of the mixed volume's df2 buckets,
+    """Kernel 7 on the planted winners of the mixed volume's df2 buckets,
     C = 2 each: a chunk of one fascicle + CSF, and the 256 voxels of two
     fascicles without CSF."""
     for (K, csf), name in (((1, True), "mixed (1, CSF)"),
                            ((2, False), "mixed (2, no CSF)")):
         vox = mix["buckets"][(K, csf)][:CHUNK]
         D, y, a3 = voxel_inputs(wl, vox, mix["y"], "cuda")
-        cols = gathered(D[:, :K], wl["gt_ids"][vox, :K], (a3,) if csf else ())
-        FINALIZE_ERR.append(check_finalize(name, cols, y)["max_abs_err"])
-        del D, y, a3, cols
+        FINALIZE_ERR.append(check_finalize(
+            name, D, a3[0, :, 0], None, y, wl["gt_ids"][vox], K, csf,
+            False)["max_abs_err"])
+        del D, y, a3
 
 
 def cross_check(label, wl, mix, buckets, sig_ear):
@@ -3053,7 +3150,7 @@ KERNEL_META = {
     "rescan4": ("csrc/rescan4.cu", "ops/pallas_dfscan.py:911"),
     # XLA in the JAX package, no Pallas: the jitted function's line
     "df2scan": ("csrc/df2scan.cu", "ops/dfscan.py:428"),
-    "finalize": ("csrc/finalize.cu", "ops/dfscan.py:1190"),
+    "finalize": ("csrc/finalize.cu", "models/fit.py:143"),
     # the XLA prologues of the JAX functions of rows rescan4 and df2scan
     "df4hoist": ("csrc/df4hoist.cu", "ops/pallas_dfscan.py:696"),
     "df2hoist": ("csrc/df2hoist.cu", "ops/dfscan.py:444"),

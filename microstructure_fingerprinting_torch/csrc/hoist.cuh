@@ -46,8 +46,9 @@ namespace hoist {
 // atoms (threads) a block of kernels 11 and 12; the row blocks of every
 // hoist kernel need N1p to be a multiple of it
 constexpr int kAtoms = 128;
-// samples of the small columns staged at a time (kernels 11 and 12)
-constexpr int kTile = 32;
+// the strided parts of every Gram sum of a voxel launch, and of kernels 9
+// and 10's atom launch (testing.fdot_parts_order, fdot_hoist_order)
+constexpr int kParts = 4;
 // dfscan._S1, _S2: the level scales 2^-7 and 2^-15
 constexpr float kS1 = 0.0078125f, kS2 = 3.0517578125e-05f;
 
@@ -189,43 +190,94 @@ __device__ __forceinline__ float gram3_value(const Gram3& g) {
   return add(h, mul(__int2float_rn(g.t33), 0x1p-46f));
 }
 
-// a tile of the voxel's small columns, quantize3'd for _gram3_hi
-template <int C>
-struct Tile3 {
-  int4 q[C][kTile];
-  float4 v[C][kTile];
+// samples of the small columns a voxel launch of kernels 11 and 12 stages
+// at a time
+constexpr int kVoxTile = 64;
+static_assert(kVoxTile % kParts == 0, "a tile keeps every part's samples");
+
+// The shared memory of vox_grams: a tile of kVoxTile samples of C small
+// columns, quantize3'd for _gram3_hi, sample-major so that the threads of a
+// warp, which read one sample of several columns, fall on distinct banks;
+// the parts' sums of V Grams.
+template <int C, int V>
+struct VoxGrams {
+  int4 q[kVoxTile][C];
+  float4 v[kVoxTile][C];
+  Gram3 part[kParts][V];
 };
 
-// The voxel's small Grams, one a thread in sample order so that every block
-// of a voxel holds the same bits: ``cols(c, s)`` is sample s of small column
-// c < nc (C at most), quantised a tile at a time into shared memory;
-// thread t < nv sums the Gram of the columns ``pair(t)`` and returns its
-// value (other threads return a value of no use). Every thread of the
-// block takes part.
-template <int C, class Cols, class Pair>
-__device__ __forceinline__ float small_grams(Tile3<C>& tile, const Cols& cols,
-                                             int nc, int S, const Pair& pair,
-                                             int nv) {
+// The voxel launch's small Grams (kernels 11 and 12), a block of Threads
+// threads a voxel: ``cols(c, s)`` is sample s of small column c < nc (C at
+// most), quantised once, a tile at a time; the Grams ``pair(t)``, t < nv (V
+// at most), summed in kParts strided parts: thread t sums Gram t % slots,
+// slots = Threads / kParts, over part p = t / slots, the samples
+// s = p mod kParts in order; the parts are added in part order, the int32
+// sums exactly and the float64 sums rounded once
+// (testing.fdot_parts_order). Their values go to ``vg`` (shared memory,
+// nv floats), there for every thread on return. Every thread takes part.
+template <int C, int V, int Threads, class Cols, class Pair>
+__device__ __forceinline__ void vox_grams(VoxGrams<C, V>& sm, float* vg,
+                                          const Cols& cols, int nc,
+                                          const Pair& pair, int nv, int S) {
+  constexpr int kSlots = Threads / kParts;
+  // samples of the small columns a thread quantises a tile
+  constexpr int kPer = (C * kVoxTile + Threads - 1) / Threads;
+  static_assert(V <= kSlots && Threads % kParts == 0, "slots");
   const int tid = threadIdx.x;
-  const int2 pr = pair(tid < nv ? tid : 0);
+  const int gi = tid % kSlots, p = tid / kSlots;
+  const int2 pr = pair(gi < nv ? gi : 0);
   Gram3 g = {0, 0, 0, 0, 0, 0.0, 0.0};
-  for (int s0 = 0; s0 < S; s0 += kTile) {
-    const int kn = min(kTile, S - s0);
+  // the thread's samples of a tile (entry e = tid + u Threads: column
+  // e / kVoxTile, sample e % kVoxTile), loaded a tile ahead so that the
+  // loads are in flight while the last tile is summed
+  float xv[kPer];
+  auto load_tile = [&](int s0) {
+    #pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = tid + u * Threads;
+      const int c = e / kVoxTile, t = e % kVoxTile;
+      xv[u] = c < nc && s0 + t < S ? cols(c, s0 + t) : 0.0f;
+    }
+  };
+  load_tile(0);
+  for (int s0 = 0; s0 < S; s0 += kVoxTile) {
+    const int kn = min(kVoxTile, S - s0);
     __syncthreads();  // the last tile is consumed
-    for (int e = tid; e < nc * kTile; e += kAtoms) {
-      const int c = e / kTile, t = e % kTile;
-      if (t < kn) quantize3_planes(cols(c, s0 + t), tile.q[c][t], tile.v[c][t]);
+    #pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = tid + u * Threads;
+      const int c = e / kVoxTile, t = e % kVoxTile;
+      if (c < nc && t < kn) quantize3_planes(xv[u], sm.q[t][c], sm.v[t][c]);
     }
     __syncthreads();
-    if (tid < nv) {
+    if (s0 + kVoxTile < S) load_tile(s0 + kVoxTile);
+    if (gi < nv) {
       #pragma unroll 1
-      for (int t = 0; t < kn; ++t) {
-        gram3_step(g, tile.q[pr.x][t], tile.v[pr.x][t], tile.q[pr.y][t],
-                   tile.v[pr.y][t]);
+      for (int t = p; t < kn; t += kParts) {
+        gram3_step(g, sm.q[t][pr.x], sm.v[t][pr.x], sm.q[t][pr.y],
+                   sm.v[t][pr.y]);
       }
     }
   }
-  return gram3_value(g);
+  if (gi < nv) sm.part[p][gi] = g;
+  __syncthreads();
+  if (tid < nv) {
+    // the parts in part order: int32 sums exact, float64 sums rounded once
+    Gram3 t = sm.part[0][tid];
+    #pragma unroll
+    for (int q = 1; q < kParts; ++q) {
+      const Gram3& u = sm.part[q][tid];
+      t.t11 += u.t11;
+      t.t12 += u.t12;
+      t.t22 += u.t22;
+      t.t23 += u.t23;
+      t.t33 += u.t33;
+      t.c1 = t.c1 + u.c1;
+      t.c2 = t.c2 + u.c2;
+    }
+    vg[tid] = gram3_value(t);
+  }
+  __syncthreads();
 }
 
 // the scalars the plain versions pass as python floats (f32scan._EPS,
@@ -299,8 +351,6 @@ __global__ void fold_min(const T* __restrict__ part, T* __restrict__ out,
 // a voxel launch, then an atom launch.
 // ---------------------------------------------------------------------------
 
-// the strided parts of every Gram sum (testing.fdot_hoist_order)
-constexpr int kParts = 4;
 // the atom launch: kBA atoms a block, kParts threads an atom, kSK samples a
 // chunk, a ring of kStages chunks
 constexpr int kBA = 64, kStreamThreads = kParts * kBA, kSK = 32, kStages = 4;

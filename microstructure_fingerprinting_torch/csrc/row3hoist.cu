@@ -18,36 +18,40 @@
 // What bounds it on an H100: bytes. Per atom it reads 3 Gram entries and
 // writes 16 (row) or 9 (column) entries; the chain is ~60 float32
 // operations a row and ~50 a column (chip_smoke.ROW3_CHAIN_OPS). The plain
-// version runs each operation as one torch kernel: ~800 kernels a call. The
+// version runs each operation as one torch kernel: ~800 kernels a call.
+// Its first design had every block of a voxel, 14 a voxel at 782 x 782,
+// quantise the voxel's 2 small columns and sum its 3 small Grams one a
+// thread in sample order, 552 dependent steps each: 4% of its bound. The
 // design is kernel 11's (csrc/row4hoist.cu; the shared parts in
 // csrc/hoist.cuh):
-//   * one launch a call: blocks 0 .. N1p/128 - 1 own 128 rows of one voxel,
-//     the next ones 128 columns; a thread one atom;
-//   * every block quantises the voxel's 2 small columns a tile of kTile
-//     samples at a time into shared memory and sums the 3 small Grams (w,
-//     d3, r3), one a thread in sample order (int32 level sums, float64 sums
-//     of the bf16 corrections), so all blocks of a voxel hold the same bits
-//     (every block of a voxel sums them again: a known cost, small beside
-//     the packs at S = 552); the first block writes vox;
-//   * a thread runs its atom's chain and writes its pack entries straight
-//     to device memory (coalesced: the atom axis is the pack's contiguous
-//     one);
+//   * a voxel launch (row3vox_kernel), a block a voxel, quantises the 2
+//     small columns once and sums the 3 small Grams (w, d3, r3) in kParts
+//     strided parts added in part order (hoist::vox_grams, kernel 11's
+//     pass; testing.fdot_parts_order); it writes vox and the scratch
+//     (B, kScr) = (w, d3, r3, 1 / d3) that the atom launch reads;
+//   * the atom launch (row3hoist_kernel): blocks 0 .. N1p/128 - 1 own 128
+//     rows of one voxel, the next ones 128 columns; a thread one atom. A
+//     thread reads its voxel's scratch, runs its atom's chain and writes
+//     its pack entries straight to device memory (coalesced: the atom axis
+//     is the pack's contiguous one);
 //   * upf is a minimum over every column of a voxel, across column blocks:
 //     each column block writes the minimum of its columns' upper bounds
-//     (the first one also the voxel's own supports {3} and {}) to a scratch
-//     row of partials, and a second launch of the same call folds them, a
-//     thread a voxel.
+//     (by shuffles; the first block also the voxel's own supports {3} and
+//     {}) to a scratch row of partials, and a third launch folds them, a
+//     thread a voxel (hoist::fold_min).
 // Plain float32 as the plain version computes it, operation for operation
 // (--fmad=false; 1 / x the IEEE quotient, as torch's reciprocal), the
 // branches of _sanit, _interval, _sub1 and _sub2 (det_tol = 0: the K = 3
 // case logic) as they are, and torch.minimum / amin NaN-first
 // (hoist::tmin): bit for bit, padded atoms' inf and NaN included (a zero
-// Gram gives invd1 = 1 / 0 = inf), but for the order of the float64 sums of
-// the small Grams (testing.kernel_agreement).
+// Gram gives invd1 = 1 / 0 = inf), with the float64 sums of the small Grams
+// in the parts' order (testing.fdot_parts_order; in the einsum's order the
+// two agree by testing.kernel_agreement).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hoist.cuh"
+#include "phases.cuh"
 
 namespace {
 
@@ -70,6 +74,12 @@ constexpr int kGramRows = 16;
 constexpr int kRowPack = 16, kColPack = 8, kVox = 8;
 constexpr int kRowUsed = 12, kColUsed = 6;
 
+// the voxel launch's threads a block: a tile of the 2 small columns, a
+// sample a thread
+constexpr int kVoxThreads = 2 * mf::hoist::kVoxTile;
+// the voxel scratch (B, kScr): w, d3, r3, 1 / d3
+constexpr int kScr = 4;
+
 // the small columns of voxel b: 0 the signal, 1 the CSF column
 struct Cols {
   const float* y;
@@ -86,44 +96,51 @@ struct Pair {
   }
 };
 
-struct Smem {
-  mf::hoist::Tile3<2> tile;
-  float vg[3];
-  float red[kAtoms];
-};
+// The voxel's prologue, a block a voxel: the small Grams, vox and the
+// scratch.
+__global__ void __launch_bounds__(kVoxThreads)
+row3vox_kernel(const float* __restrict__ yh, const float* __restrict__ A3h,
+               float* __restrict__ vox, float* __restrict__ scr, int S) {
+  __shared__ mf::hoist::VoxGrams<2, 3> sm;
+  __shared__ float vg[3];
+  const int b = blockIdx.x;
+  MF_PHASE_BEGIN;
+  const size_t vS = (size_t)b * S;
+  mf::hoist::vox_grams<2, 3, kVoxThreads>(sm, vg, Cols{yh + vS, A3h + vS}, 2,
+                                          Pair{}, 3, S);
+  MF_PHASE(0);
+  // the voxel's values: eliminate the CSF column first
+  if (threadIdx.x == 0) {
+    const float w = vg[0], d3 = vg[1], r3 = vg[2];
+    const float invd3 = dv(1.0f, d3);
+    const float u3 = mul(r3, invd3);
+    float* vx = vox + (size_t)b * kVox;
+    vx[0] = u3;
+    vx[1] = invd3;
+    for (int e = 2; e < kVox; ++e) vx[e] = 0.0f;
+    reinterpret_cast<float4*>(scr)[b] = make_float4(w, d3, r3, invd3);
+  }
+}
 
+// The atoms' chains: row and column blocks of 128 atoms of one voxel.
 __global__ void __launch_bounds__(kAtoms)
 row3hoist_kernel(const float* __restrict__ gramA,
                  const float* __restrict__ gramB,
-                 const float* __restrict__ yh, const float* __restrict__ A3h,
-                 float* __restrict__ row_pack, float* __restrict__ col_pack,
-                 float* __restrict__ vox, float* __restrict__ lo_c_sup,
-                 float* __restrict__ part, int S, int N1p, int N2pb,
-                 Consts k) {
-  __shared__ Smem sm;
+                 const float* __restrict__ scr, float* __restrict__ row_pack,
+                 float* __restrict__ col_pack, float* __restrict__ lo_c_sup,
+                 float* __restrict__ part, int N1p, int N2pb, Consts k) {
+  __shared__ float red[kAtoms / 32];
   const int tid = threadIdx.x, b = blockIdx.y;
   const int row_blocks = N1p / kAtoms;
   const bool is_row = blockIdx.x < row_blocks;
   const int cb = blockIdx.x - row_blocks;  // column block
   const int i = (is_row ? blockIdx.x : cb) * kAtoms + tid;
+  MF_PHASE_BEGIN;
 
-  // the small Grams, one a thread in sample order
-  const size_t vS = (size_t)b * S;
-  const float g =
-      mf::hoist::small_grams(sm.tile, Cols{yh + vS, A3h + vS}, 2, S, Pair{}, 3);
-  if (tid < 3) sm.vg[tid] = g;
-  __syncthreads();
-
-  // the voxel's values: eliminate the CSF column first
-  const float w = sm.vg[0], d3 = sm.vg[1], r3 = sm.vg[2];
-  const float invd3 = dv(1.0f, d3);
-  const float u3 = mul(r3, invd3);
-  if (blockIdx.x == 0 && tid == 0) {
-    float* vx = vox + (size_t)b * kVox;
-    vx[0] = u3;
-    vx[1] = invd3;
-    for (int e = 2; e < kVox; ++e) vx[e] = 0.0f;
-  }
+  // the voxel's values
+  const float4 v = __ldg(reinterpret_cast<const float4*>(scr) + b);
+  const float w = v.x, d3 = v.y, r3 = v.z, invd3 = v.w;
+  MF_PHASE(1);
 
   if (is_row) {
     const size_t st = (size_t)N1p;
@@ -152,6 +169,7 @@ row3hoist_kernel(const float* __restrict__ gramA,
     for (int e = 0; e < kRowPack; ++e) {
       rp[(size_t)e * st] = e < kRowUsed ? rows[e] : 0.0f;
     }
+    MF_PHASE(2);
     return;
   }
 
@@ -161,6 +179,7 @@ row3hoist_kernel(const float* __restrict__ gramA,
   const float* gB = gramB + (size_t)b * kGramRows * st + i;
   float* cp = col_pack + (size_t)b * kColPack * st + i;
   const float d2 = gB[0], q = gB[st], c = gB[2 * st];
+  const float u3 = mul(r3, invd3);
   Interval acc = sub1(d2, q, w, k);
   fold(acc, sub2(d2, d3, c, q, r3, w, 0.0f, k));
   const float cols[kColUsed] = {d2, q, c, sub(d2, mul(mul(c, c), invd3)),
@@ -170,41 +189,55 @@ row3hoist_kernel(const float* __restrict__ gramA,
     cp[(size_t)e * st] = e < kColUsed ? cols[e] : 0.0f;
   }
   lo_c_sup[(size_t)b * N2pb + i] = acc.lo;
+  MF_PHASE(2);
 
-  // the block's part of the floor upf; the first column block adds the
-  // voxel's block-1-free supports {3} and {}
-  sm.red[tid] = acc.up;
+  // the block's part of the floor upf, a minimum (exact in any order, a
+  // NaN winning: hoist::fold_min) by shuffles a warp, then over the warps;
+  // the first column block adds the voxel's block-1-free supports {3} and
+  // {}
+  float m = acc.up;
+  for (int off = 16; off > 0; off /= 2) {
+    m = tmin(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  if (tid % 32 == 0) red[tid / 32] = m;
   __syncthreads();
   if (tid == 0) {
-    float m = sm.red[0];
-    for (int t = 1; t < kAtoms; ++t) m = tmin(m, sm.red[t]);
+    m = red[0];
+    for (int t = 1; t < kAtoms / 32; ++t) m = tmin(m, red[t]);
     if (cb == 0) m = tmin(tmin(sub1(d3, r3, w, k).up, add(w, k.kerr)), m);
     part[(size_t)b * (gridDim.x - row_blocks) + cb] = m;
   }
+  MF_PHASE(3);
 }
 
 }  // namespace
 
+MF_PHASE_API(mf_row3hoist_phases)
+
 extern "C" int mf_row3hoist(const float* gramA, const float* gramB,
                             const float* yh, const float* A3h,
                             float* row_pack, float* col_pack, float* vox,
-                            float* lo_c_sup, float* part, float* upf, int B,
-                            int S, int N1p, int N2pb, float eps, float kerr,
-                            cudaStream_t stream) {
+                            float* lo_c_sup, float* scr, float* part,
+                            float* upf, int B, int S, int N1p, int N2pb,
+                            float eps, float kerr, cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
   if (S < 1 || N1p < kAtoms || N2pb < kAtoms || N1p % kAtoms ||
       N2pb % kAtoms) {
     return (int)cudaErrorInvalidValue;
   }
-  // part (B, N2pb / kAtoms): a partial minimum a column block
+  // scr (B, kScr): the voxel's values; part (B, N2pb / kAtoms): a partial
+  // minimum a column block
+  row3vox_kernel<<<B, kVoxThreads, 0, stream>>>(yh, A3h, vox, scr, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int row_blocks = N1p / kAtoms, col_blocks = N2pb / kAtoms;
   dim3 grid(row_blocks + col_blocks, B);
   // the K = 3 case logic has no determinant cutoff: sub2 takes det_tol = 0
   // and reads no tol
   row3hoist_kernel<<<grid, kAtoms, 0, stream>>>(
-      gramA, gramB, yh, A3h, row_pack, col_pack, vox, lo_c_sup, part, S, N1p,
-      N2pb, Consts{eps, 0.0f, kerr});
-  cudaError_t err = cudaGetLastError();
+      gramA, gramB, scr, row_pack, col_pack, lo_c_sup, part, N1p, N2pb,
+      Consts{eps, 0.0f, kerr});
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mf::hoist::fold_min<float><<<(B + 127) / 128, 128, 0, stream>>>(
       part, upf, B, col_blocks);

@@ -28,11 +28,11 @@
 // the samples one Gram a thread: 92% of its cycles (examples/
 // kernel_phases.py). The design, for this card:
 //   * a first launch, a block a voxel (row4vox_kernel), quantises the
-//     voxel's 2 + N4 small columns once, kVoxTile samples at a time into
-//     shared memory, and sums the 3 + 3 N4 small Grams (w, d3, r3, then d4,
-//     r4, g34 of each EAR column) with the samples split into kParts parts,
-//     a thread a Gram and part: part p takes the samples s = p mod kParts
-//     in order, the int32 level sums are exact in any order and the float64
+//     voxel's 2 + N4 small columns once and sums the 3 + 3 N4 small Grams
+//     (w, d3, r3, then d4, r4, g34 of each EAR column) with the samples
+//     split into kParts parts, a thread a Gram and part (hoist::vox_grams,
+//     shared with kernel 12): part p takes the samples s = p mod kParts in
+//     order, the int32 level sums are exact in any order and the float64
 //     corrections of the parts are added in part order and rounded once.
 //     Then the voxel's factors (L43, D4h, stab34, invD4h, t4, rho34, u3,
 //     u4o, u4), one EAR column a thread: vox, and the scratch (B, kScr)
@@ -84,14 +84,8 @@ constexpr int kMaxE = 13;
 constexpr int kMaxC = 2 + kMaxE, kMaxV = 3 + 3 * kMaxE;
 // rows of kernel 1's Grams (ops/prep: gram (B, 16, Np))
 constexpr int kGramRows = 16;
-// the voxel launch: threads a block, samples quantised at a time, and the
-// parts the samples of a small Gram are split into (thread t sums Gram
-// t % kGramSlots over the samples s = t / kGramSlots mod kParts)
-constexpr int kVoxThreads = 256, kVoxTile = 64, kParts = 4;
-constexpr int kGramSlots = kVoxThreads / kParts;
-static_assert(kMaxV <= kGramSlots && kVoxTile % kParts == 0, "slots");
-// samples of the small columns a thread quantises a tile
-constexpr int kVoxPer = (kMaxC * kVoxTile + kVoxThreads - 1) / kVoxThreads;
+// the voxel launch's threads a block (its small Grams: hoist::vox_grams)
+constexpr int kVoxThreads = 256;
 
 // torch.maximum on the card: a NaN operand wins, else fmaxf
 __device__ __forceinline__ float tmax(float a, float b) {
@@ -187,22 +181,13 @@ struct Pair {
   }
 };
 
-// the voxel launch's tile: kVoxTile samples of the small columns,
-// quantize3'd for _gram3_hi; sample-major, so that the threads of a warp,
-// which read one sample of several columns, fall on distinct banks
-struct VoxTile {
-  int4 q[kVoxTile][kMaxC];
-  float4 v[kVoxTile][kMaxC];
-};
-
 // The voxel's prologue, a block a voxel: the small Grams, the factors, vox
 // and the scratch.
 __global__ void __launch_bounds__(kVoxThreads)
 row4vox_kernel(const float* __restrict__ yh, const float* __restrict__ A3h,
                const float* __restrict__ A4h, float* __restrict__ vox,
                float* __restrict__ scr, int S, int n4, int NV, Consts k) {
-  __shared__ VoxTile tile;
-  __shared__ mf::hoist::Gram3 part[kParts][kMaxV];
+  __shared__ mf::hoist::VoxGrams<kMaxC, kMaxV> sm;
   __shared__ float vg[kMaxV];
   const int tid = threadIdx.x, b = blockIdx.x;
   const int n3 = 1, nx = n3 + n4, ns = n3 * n4;
@@ -211,64 +196,9 @@ row4vox_kernel(const float* __restrict__ yh, const float* __restrict__ A3h,
   MF_PHASE_BEGIN;
 
   const size_t vS = (size_t)b * S;
-  const Cols cols = {yh + vS, A3h + vS, A4h + vS * n4, n4};
-  const int nc = 2 + n4, nv = 3 + 3 * n4;
-  const int gi = tid % kGramSlots, p = tid / kGramSlots;
-  const int2 pr = Pair{}(gi < nv ? gi : 0);
-  mf::hoist::Gram3 g = {0, 0, 0, 0, 0, 0.0, 0.0};
-  // the thread's samples of a tile (entry e = tid + u kVoxThreads: column
-  // e / kVoxTile, sample e % kVoxTile), loaded a tile ahead so that the
-  // loads are in flight while the last tile is summed
-  float xv[kVoxPer];
-  auto load_tile = [&](int s0) {
-    #pragma unroll
-    for (int u = 0; u < kVoxPer; ++u) {
-      const int e = tid + u * kVoxThreads;
-      const int c = e / kVoxTile, t = e % kVoxTile;
-      xv[u] = c < nc && s0 + t < S ? cols(c, s0 + t) : 0.0f;
-    }
-  };
-  load_tile(0);
-  for (int s0 = 0; s0 < S; s0 += kVoxTile) {
-    const int kn = min(kVoxTile, S - s0);
-    __syncthreads();  // the last tile is consumed
-    #pragma unroll
-    for (int u = 0; u < kVoxPer; ++u) {
-      const int e = tid + u * kVoxThreads;
-      const int c = e / kVoxTile, t = e % kVoxTile;
-      if (c < nc && t < kn) {
-        mf::hoist::quantize3_planes(xv[u], tile.q[t][c], tile.v[t][c]);
-      }
-    }
-    __syncthreads();
-    if (s0 + kVoxTile < S) load_tile(s0 + kVoxTile);
-    if (gi < nv) {
-      #pragma unroll 1
-      for (int t = p; t < kn; t += kParts) {
-        mf::hoist::gram3_step(g, tile.q[t][pr.x], tile.v[t][pr.x],
-                              tile.q[t][pr.y], tile.v[t][pr.y]);
-      }
-    }
-  }
-  if (gi < nv) part[p][gi] = g;
-  __syncthreads();
-  if (tid < nv) {
-    // the parts in part order: int32 sums exact, float64 sums rounded once
-    mf::hoist::Gram3 t = part[0][tid];
-    #pragma unroll
-    for (int q = 1; q < kParts; ++q) {
-      const mf::hoist::Gram3& u = part[q][tid];
-      t.t11 += u.t11;
-      t.t12 += u.t12;
-      t.t22 += u.t22;
-      t.t23 += u.t23;
-      t.t33 += u.t33;
-      t.c1 = t.c1 + u.c1;
-      t.c2 = t.c2 + u.c2;
-    }
-    vg[tid] = mf::hoist::gram3_value(t);
-  }
-  __syncthreads();
+  mf::hoist::vox_grams<kMaxC, kMaxV, kVoxThreads>(
+      sm, vg, Cols{yh + vS, A3h + vS, A4h + vS * n4, n4}, 2 + n4, Pair{},
+      3 + 3 * n4, S);
   MF_PHASE(0);
 
   // the voxel's factors: the CSF column's in thread n4, EAR column j's in

@@ -11,12 +11,17 @@ microstructure_fingerprinting_torch.examples.<name> [n] [--device cpu]``:
     EAR chunks (``utils/profiling.StageTimer``);
   * ``ear_rsweep``: the EAR two-pass scan + finalize at several row
     budgets R, time and overflow;
-  * ``kernel_phases``: where the time of kernels 6, 8, 11 and 13 goes,
-    phase by phase (a second build with ``-DMF_PHASES``) and launch by
-    launch;
+  * ``kernel_phases``: where the time of kernels 6-13 goes, phase by
+    phase (a second build with ``-DMF_PHASES``) and launch by launch;
   * ``df2_probe``: kernel 6 timed with parts of its source cut out, and
-    a micro-benchmark of the tensor cores' float64 and int8 ``mma``.
+    a micro-benchmark of the tensor cores' float64 and int8 ``mma``;
+  * ``hoist_probe``: kernels 9 and 10 built with parts of their design
+    changed, timed in turns against the shipped ones;
+  * ``finalize_probe``: the same for kernels 7 and 12, the finalize
+    stage's two routes, and (``--split``) their split as a checkout
+    calls them.
 
-Each runs on the card unless ``--device cpu`` is given (``kernel_phases``
-and ``df2_probe`` only on a card); its numbers are the device's own.
+The probes build their trial builds through ``trials``. Each example runs
+on the card unless ``--device cpu`` is given (``kernel_phases`` and the
+probes only on a card); its numbers are the device's own.
 """

@@ -25,7 +25,6 @@ ratio). It prints the card's name and power limit.
 """
 
 import argparse
-import ctypes
 import os
 import subprocess
 import tempfile
@@ -36,6 +35,7 @@ import torch
 from .. import testing as mft
 from ..ops import dfscan, kernels
 from ..ops import interp as mfi
+from . import trials
 
 #: the folded Gram sums that stand for the chain in the "tile only" cut
 _FOLD = """    if (live) {
@@ -55,26 +55,17 @@ _FOLD = """    if (live) {
 """
 
 
-def _span(begin, end, new):
-    """A cut: the text from ``begin`` up to (not including) ``end``
-    becomes ``new``."""
-    def cut(src):
-        i = src.index(begin) + len(begin)
-        return src[:i] + new + src[src.index(end, i):]
-    return (begin, end), cut
-
-
-def _swap(old, new):
-    return (old,), lambda src: src.replace(old, new)
-
-
-_TILE_ONLY = _span("    MF_PHASE(0);\n", "    MF_PHASE(2);\n", _FOLD)
-_NO_COPIES = _swap("    if (k < steps) {\n      Chunk& f",
-                   "    if (false) {\n      Chunk& f")
-_NO_INT8 = [_swap("          mf::mma_s8(t%s[n], qa%s, qb%s[n]);\n" % x, "")
+_TILE_ONLY = trials.span("df2scan.cu", "    MF_PHASE(0);\n",
+                         "    MF_PHASE(2);\n", _FOLD)
+_NO_COPIES = trials.swap("df2scan.cu",
+                         "    if (k < steps) {\n      Chunk& f",
+                         "    if (false) {\n      Chunk& f")
+_NO_INT8 = [trials.swap("df2scan.cu",
+                        "          mf::mma_s8(t%s[n], qa%s, qb%s[n]);\n" % x,
+                        "")
             for x in (("11", "1", "1"), ("12", "1", "2"), ("12", "2", "1"),
                       ("22", "2", "2"))]
-#: the cut builds of df2scan.cu: (the text it needs, the cut) each
+#: the cut builds of df2scan.cu (``trials`` cuts)
 CUTS = {"shipped": [], "tile only": [_TILE_ONLY],
         "no copies": [_TILE_ONLY, _NO_COPIES],
         "no int8 mma": [_TILE_ONLY, _NO_COPIES] + _NO_INT8}
@@ -178,48 +169,27 @@ int main() {
 """
 
 
-def _ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
+def sources():
+    """The text of each cut build: {build: {"df2scan.cu": text}}; raises
+    where the shipped file no longer holds the text a cut replaces."""
+    return trials.sources("df2_probe", ("df2scan.cu",), CUTS)
 
 
 def _builds(where):
-    """Each cut of df2scan.cu compiled into its own library (all nvcc at
-    once), and the micro-benchmark's executable. Returns (libraries by
-    cut, executable)."""
-    with open(os.path.join(kernels._CSRC, "df2scan.cu")) as f:
-        text = f.read()
-    nvcc = kernels._nvcc()
-    cmds, libs = [], {}
-    for i, (name, cuts) in enumerate(CUTS.items()):
-        src = text
-        for marks, cut in cuts:
-            if not all(m in src for m in marks):
-                raise RuntimeError("df2_probe: df2scan.cu no longer holds "
-                                   "the text its cut %r replaces" % name)
-            src = cut(src)
-        cu = os.path.join(where, "df2scan_%d.cu" % i)
-        with open(cu, "w") as f:
-            f.write(src)
-        libs[name] = os.path.join(where, "df2scan_%d.so" % i)
-        cmds.append([nvcc] + list(kernels.NVCC_FLAGS) + [
-            "-shared", "-I", kernels._CSRC, "-o", libs[name], cu])
+    """Each cut of df2scan.cu compiled into its own library and the
+    micro-benchmark's executable (all nvcc at once). Returns (libraries
+    by cut, executable)."""
     micro = os.path.join(where, "micro")
     with open(micro + ".cu", "w") as f:
         f.write(MICRO)
-    cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                 "-o", micro, micro + ".cu"])
-    for (rc, out), cmd in zip(kernels._run_all(cmds), cmds):
-        if rc:
-            raise RuntimeError("df2_probe: nvcc failed:\n%s" % out)
+    job = subprocess.Popen(
+        [kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+         "-o", micro, micro + ".cu"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    libs, _outs = trials.compile_all("df2_probe", where, sources())
+    out = job.communicate()[0]
+    if job.returncode:
+        raise RuntimeError("df2_probe: nvcc failed:\n%s" % out)
     return libs, micro
 
 
@@ -231,10 +201,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("df2_probe needs a CUDA device")
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()
-    print("card: %s" % (card[0] if card else "not read"))
+    print("card: %s" % trials.card())
     where = kernels.BUILD_DIR + "_probe"
     os.makedirs(where, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=where) as tmp:
@@ -257,9 +224,7 @@ def main(argv=None):
         row_i2 = torch.empty(B, N1p, dtype=torch.int32, device=dev)
         calls = {}
         for name, path in libs.items():
-            fn = ctypes.CDLL(path).mf_df2scan
-            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
+            fn = trials.bind(path, ("df2scan",)).mf_df2scan
             calls[name] = (lambda fn=fn: fn(
                 *[o.data_ptr() for o in ops], row_val.data_ptr(),
                 row_i2.data_ptr(), B, S, N1p, N2pb, 782, 782,
@@ -269,7 +234,8 @@ def main(argv=None):
         for name in order:
             if calls[name]():
                 raise RuntimeError("df2_probe: %s failed to launch" % name)
-            out.setdefault(name, []).append(_ms(calls[name], args.reps))
+            out.setdefault(name, []).append(
+                trials.ms(calls[name], args.reps))
         for name, ms in out.items():
             print("kernel 6 %-12s %d voxels, 782 x 782: %s ms" % (
                 name, B, " / ".join("%.3f" % m for m in ms)))

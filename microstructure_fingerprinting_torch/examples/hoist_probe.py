@@ -28,10 +28,8 @@ the card's name and power limit.
 """
 
 import argparse
-import ctypes
 import os
 import re
-import subprocess
 import tempfile
 
 import numpy as np
@@ -40,6 +38,7 @@ import torch
 from .. import testing as mft
 from ..ops import dfscan, kernels, rescan
 from ..ops import interp as mfi
+from . import trials
 
 _FILES = ("hoist.cuh", "df2hoist.cu", "df3hoist.cu")
 _FUSED = """      #pragma unroll
@@ -89,7 +88,7 @@ _VOX_LOOP = """    #pragma unroll 1
 
 
 #: the trial builds: (file, text, its replacement) each
-CUTS = {
+_CUTS = {
     "shipped": [],
     "two loops": [("hoist.cuh", _FUSED + _UNROLLED,
                    _FUSED.replace("    };\n", _TWO_LOOPS))],
@@ -110,75 +109,26 @@ CUTS = {
     "voxel loop unrolled": [("hoist.cuh", _VOX_LOOP,
                              _VOX_LOOP.replace("unroll 1", "unroll 4"))],
 }
+#: the same as cuts (``trials.swap``)
+CUTS = {name: [trials.swap(*c) for c in cuts] for name, cuts in _CUTS.items()}
 
 
 def sources():
     """The text of each build's files: {build: {file: text}}; raises where
     a shipped file no longer holds the text a cut replaces."""
-    shipped = {}
-    for f in _FILES:
-        with open(os.path.join(kernels._CSRC, f)) as fh:
-            shipped[f] = fh.read()
-    out = {}
-    for name, cuts in CUTS.items():
-        src = dict(shipped)
-        for f, old, new in cuts:
-            if old not in src[f]:
-                raise RuntimeError("hoist_probe: %s no longer holds the text "
-                                   "its cut %r replaces" % (f, name))
-            src[f] = src[f].replace(old, new)
-        out[name] = src
-    return out
+    return trials.sources("hoist_probe", _FILES, CUTS)
 
 
-def _builds(where):
-    """Each build's two kernels compiled into a library of its own (all
-    nvcc at once). Returns (libraries by build, ptxas lines by build)."""
-    nvcc = kernels._nvcc()
-    cmds, libs = [], {}
-    for i, (name, src) in enumerate(sources().items()):
-        d = os.path.join(where, "b%d" % i)
-        os.makedirs(d)
-        for f, text in src.items():
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(text)
-        libs[name] = os.path.join(d, "lib.so")
-        cmds.append([nvcc] + list(kernels.NVCC_FLAGS) + [
-            "-shared", "-I", kernels._CSRC, "-o", libs[name],
-            os.path.join(d, "df2hoist.cu"), os.path.join(d, "df3hoist.cu")])
-    ptxas = {}
-    for (rc, out), name in zip(kernels._run_all(cmds), libs):
-        if rc:
-            raise RuntimeError("hoist_probe: nvcc failed:\n%s" % out)
-        lines = out.splitlines()
-        ptxas[name] = [
-            "%s: %s" % (re.search(r"(df[23](?:hoist|vox)_kernel)", line)
+def _ptxas(out):
+    """ptxas's registers and spills of each kernel in nvcc's output."""
+    lines = out.splitlines()
+    return ["%s: %s" % (re.search(r"(df[23](?:hoist|vox)_kernel)", line)
                         .group(1), "; ".join(
                             x.split(":", 1)[-1].strip() for x in
                             lines[i + 2:i + 4]))
             for i, line in enumerate(lines)
             if "Compiling entry function" in line
             and re.search(r"df[23](?:hoist|vox)_kernel", line)]
-    return libs, ptxas
-
-
-def _ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-def _same(a, b):
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-    return torch.equal(a, b)
 
 
 def main(argv=None):
@@ -189,27 +139,16 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("hoist_probe needs a CUDA device")
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()
-    print("card: %s" % (card[0] if card else "not read"))
+    print("card: %s" % trials.card())
     where = kernels.BUILD_DIR + "_probe"
     os.makedirs(where, exist_ok=True)
     saved = kernels._lib
     with tempfile.TemporaryDirectory(dir=where) as tmp:
-        paths, ptxas = _builds(tmp)
-        libs = {}
-        for name, path in paths.items():
-            lib = ctypes.CDLL(path)
-            for key in ("df2hoist", "df3hoist"):
-                cname, kinds = kernels._SIGNATURES[key]
-                fn = getattr(lib, cname)
-                fn.argtypes = [kernels._CTYPES[k] for k in kinds] + [
-                    ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            libs[name] = lib
-        for name, lines in ptxas.items():
-            print("%-20s %s" % (name, " | ".join(lines)))
+        paths, outs = trials.compile_all("hoist_probe", tmp, sources())
+        libs = {name: trials.bind(path, ("df2hoist", "df3hoist"))
+                for name, path in paths.items()}
+        for name, out in outs.items():
+            print("%-20s %s" % (name, " | ".join(_ptxas(out))))
         wl = mft.make_fit_workload(num_atom=782, n_vox=args.chunk,
                                    device="cuda")
         rotate, perm = mfi.make_grouped_rotation_paired(wl["msinterp"],
@@ -244,7 +183,7 @@ def main(argv=None):
                 want = fn()
                 for name, lib in libs.items():
                     kernels._lib = lib
-                    if not all(_same(a, b) for a, b in zip(fn(), want)):
+                    if not all(trials.same(a, b) for a, b in zip(fn(), want)):
                         raise AssertionError("hoist_probe: %s differs from "
                                              "the shipped kernels at %s"
                                              % (name, label))
@@ -252,7 +191,7 @@ def main(argv=None):
                 for name in list(libs) + list(libs)[::-1]:
                     kernels._lib = libs[name]
                     out.setdefault(label, {}).setdefault(name, []).append(
-                        _ms(fn, args.reps))
+                        trials.ms(fn, args.reps))
         finally:
             kernels._lib = saved
         for label, times in out.items():

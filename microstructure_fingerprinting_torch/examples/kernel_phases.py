@@ -1,4 +1,4 @@
-"""Where the time of kernels 6, 8, 9, 10, 11 and 13 goes, phase by phase.
+"""Where the time of kernels 6-13 goes, phase by phase.
 
 Builds the kernels a second time with ``-DMF_PHASES`` (``csrc/phases.cuh``:
 at each mark a block barrier, then thread 0 adds the clock cycles since
@@ -13,7 +13,10 @@ two fascicles without CSF) on the chunk's two rotated blocks at 782 x
 column) and at 2 + ``--ear`` columns; kernel 10 (``rescan.df3_hoist``,
 the re-scan's operands) at the two-pass shape 128 x 128; kernel 9
 (``dfscan.df2_hoist``, the df2 scan's operands) at 782 x 782 and 782 x 1
-(the CSF column). For each kernel it prints every
+(the CSF column); kernel 12 (``f32scan.row3_hoist``, the flagship row
+pass's hoists) at 782 x 782; kernel 7 (``dfscan.finalize_top1``, the
+fit's finalize) on the chunk's planted winners at C = 3 (two fascicles
++ CSF) and C = 4 (+ EAR atom 4). For each kernel it prints every
 phase's cycles, summed over blocks, and their share, beside the kernel
 call's time on the fit's library (CUDA events, mean of ``--reps``), and
 the card's name and power limit, and each launch's device time
@@ -61,6 +64,14 @@ PHASES = {
                           "the pack stores"),
     "mf_df3hoist_phases": _DF_HOIST_PHASES,
     "mf_df2hoist_phases": _DF_HOIST_PHASES,
+    "mf_row3hoist_phases": ("the voxel launch (quantise, small Grams)",
+                            "the atom launch's scratch read",
+                            "the chain and the pack stores",
+                            "the column blocks' floor partials"),
+    "mf_finalize_phases": ("the column reads (staged)",
+                           "the scales and the Gram",
+                           "the solve across the lanes",
+                           "R^2 and the stores"),
 }
 
 
@@ -179,7 +190,12 @@ def main(argv=None):
                                                 A2[:, :, :128], a3, y2)
     ins9 = {name: dfscan.df2_normalized(A1, blk, y2)[:3]
             for name, blk in (("782 x 782", A2), ("782 x 1", a3))}
-    del D
+    _planes3, ins12 = f32scan.rowmin_3_prep(A1, A2, a3, y2)
+    gt = torch.as_tensor(wl["gt_ids"], dtype=torch.int64, device=dev)
+    csf, ear = a3[0, :, 0], a4[0]
+    fin3 = (D, csf, None, y2, gt, True, False, 2)
+    fin4 = (D, csf, ear, y, torch.cat([gt, torch.full_like(gt[:, :1], 4)],
+                                      1), True, True, 2)
     runs = (
         ("df4hoist", "mf_df4hoist_phases", "kernel 8 df4hoist %d x %d, "
          "E = %d, %d voxels" % (n, n, args.ear, B),
@@ -199,7 +215,13 @@ def main(argv=None):
         ("df2hoist %s" % name, "mf_df2hoist_phases", "kernel 9 df2hoist "
          "%s, %d voxels" % (name, B),
          lambda x=x: dfscan.df2_hoist(*x, dfscan.df2_cols(x[1].shape[2])))
-        for name, x in ins9.items())
+        for name, x in ins9.items()) + (
+        ("row3hoist", "mf_row3hoist_phases", "kernel 12 row3hoist 782 x "
+         "782, %d voxels" % B, lambda: f32scan.row3_hoist(*ins12)),
+        ("finalize C = 3", "mf_finalize_phases", "kernel 7 finalize_top1 "
+         "C = 3, %d voxels" % B, lambda: dfscan.finalize_top1(*fin3)),
+        ("finalize C = 4", "mf_finalize_phases", "kernel 7 finalize_top1 "
+         "C = 4, %d voxels" % B, lambda: dfscan.finalize_top1(*fin4)))
     ms = {key: _ms(fn, args.reps) for key, _r, _l, fn in runs}
     launches = {key: _launches(fn, args.reps) for key, _r, _l, fn in runs}
 

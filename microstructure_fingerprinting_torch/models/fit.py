@@ -1,6 +1,7 @@
 """Bucket fit steps.
 
-PyTorch counterpart of ``_r_squared``, ``_finalize_top1``,
+PyTorch counterpart of ``_finalize_top1`` (``_r_squared`` and its body
+are ``ops/dfscan.r_squared`` and ``finalize_top1``),
 ``_twopass_step3``, ``_twopass_step4``, ``run_bucket_fast``,
 ``run_bucket_trivial``, ``fit_step``, ``_build_blocks``,
 ``fit_step_candidates`` and ``run_bucket`` in
@@ -23,8 +24,8 @@ a double-float finalize of the winner on the device:
   * 2 fascicles without CSF: ``dfscan.df2_candidates`` (kernel 6) on
     [N, N];
 
-and every one ends in ``dfscan.df_nnls_cols`` (kernel 7) on the winner's
-columns.
+and every one ends in ``dfscan.finalize_top1`` (kernel 7): the winner's
+columns, ``df_nnls_cols`` and R^2.
 
 ``run_bucket`` is the general path (the JAX package's ``engine='xla'``)
 for any bucket of 1-4 blocks: the gather-and-lerp rotation
@@ -64,45 +65,17 @@ from . import graphs
 from . import refine as refine_mod
 
 
-def _r_squared(y, y_rec):
-    """Pearson correlation squared between measured and predicted signal,
-    with the reference's guards (num_seq > 1, non-zero stds)."""
-    n = y.shape[-1]
-    yc = y - y.mean(dim=-1, keepdim=True)
-    rc = y_rec - y_rec.mean(dim=-1, keepdim=True)
-    num = (yc * rc).sum(dim=-1)
-    den = torch.sqrt((yc * yc).sum(dim=-1) * (rc * rc).sum(dim=-1))
-    ok = (den > 0) & (n > 1)
-    r = torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
-                    torch.zeros_like(den))
-    return r * r
-
-
 def _finalize_top1(D, sig_csf, sig_ear, y, cand, csf_on=False,
                    ear_on=False, K=2):
-    """Double-float finalize of the scan winner.
-
-    D (B, K, S, N) rotated fascicle blocks (raw scale); sig_csf (S,) and
-    sig_ear (S, E), each used only when its flag is set; y (B, S) raw;
-    cand (B, C') winner, the fascicle indices first and, with ``ear_on``,
-    the EAR atom last. Returns (w (B, C), obj (B,), r2 (B,)) for the
-    columns (fascicle 1[, fascicle 2][, CSF][, EAR]), C = K + csf_on +
-    ear_on."""
-    B, S = y.shape
-    cand = cand.long()
-    cols = [torch.gather(D[:, k], 2,
-                         cand[:, None, k:k + 1].expand(B, S, 1))
-            for k in range(K)]
-    if csf_on:
-        cols.append(sig_csf[None, :, None].expand(B, S, 1))
-    if ear_on:
-        cols.append(sig_ear.t()[cand[:, -1]][:, :, None])
-    cols = torch.cat(cols, dim=2)                          # (B, S, C)
-    w, res = dfscan.df_nnls_cols(cols, y)
-    # R^2 of a near-perfect fit is 1 - O(1e-7) and float32 sums would
-    # round it by a few ulp: evaluate it in float64 (B x S work)
-    y_rec = (cols.double() * w.double()[:, None, :]).sum(dim=2)
-    return w, res, _r_squared(y.double(), y_rec)
+    """Double-float finalize of the scan winner: ``dfscan.finalize_top1``
+    (kernel 7 alone on a card). D (B, K, S, N) rotated fascicle blocks
+    (raw scale); sig_csf (S,) and sig_ear (S, E), each used only when its
+    flag is set; y (B, S) raw; cand (B, C') winner, the fascicle indices
+    first and, with ``ear_on``, the EAR atom last. Returns (w (B, C), obj
+    (B,), r2 (B,)) for the columns (fascicle 1[, fascicle 2][, CSF][,
+    EAR]), C = K + csf_on + ear_on."""
+    return dfscan.finalize_top1(D, sig_csf, sig_ear, y, cand, csf_on, ear_on,
+                                K)
 
 
 def _finalized(D, csf_d, ear_d, y, cand, K, csf_on, ear_on, ok=None):
@@ -567,7 +540,7 @@ def fit_step(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
             -1, S, 1))[:, :, 0]
         y_rec = y_rec + w[:, j][:, None] * col
     return {"w": w, "ind": ind, "min_obj": min_obj, "mse": min_obj / S,
-            "r2": _r_squared(y, y_rec)}
+            "r2": dfscan.r_squared(y, y_rec)}
 
 
 def fit_step_candidates(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,

@@ -18,7 +18,8 @@ buckets run:
     ``_sub1_df``/``_sub2_df``/``_sub3_df`` of the EAR re-scan's hoists;
   * ``df_nnls_cols``: the winner's weights, objective and residual with
     double-float values and f32 decision booleans (the device finalize),
-    for 1 to 4 columns.
+    for 1 to 4 columns, and ``finalize_top1``, the fit's whole finalize
+    stage around it.
 
 Two of these run hand-written kernels on CUDA tensors, the plain code
 on CPU tensors (the JAX package runs both as plain XLA): ``df2_candidates``
@@ -26,7 +27,10 @@ at M = 1 launches kernel 9 (``csrc/df2hoist.cu``: ``df2_scan_operands``,
 the hoists) and kernel 6 (``csrc/df2scan.cu``: ``df2_rows``; then
 ``df2_top1_from_rows``), ``df_nnls_cols`` kernel 7 (``csrc/finalize.cu``);
 their plain versions are ``df2_hoist_twin``, ``df2_rows_twin`` /
-``df2_candidates_plain`` and ``df_nnls_cols_twin``. A failed build or
+``df2_candidates_plain`` and ``df_nnls_cols_twin``. The fit's finalize,
+``finalize_top1`` (the winner's columns, ``df_nnls_cols`` and R^2: the
+JAX package's ``models/fit._finalize_top1``), is kernel 7 alone on CUDA
+tensors, ``finalize_top1_plain`` on CPU tensors. A failed build or
 launch raises.
 
 Sums over the sequence axis: integer level products are exact in any
@@ -890,13 +894,14 @@ def _df_nnls3(w_y, G, p):
     return w, _df_where(full, res_f, fb_r)
 
 
-def _df_nnls4(w_y, G, p):
-    """df mirror of the 4-variable NNLS: exhaustive support enumeration
-    in ascending mask order with strict-improvement updates.
-    Returns (w list of 4 df, res df)."""
+def _df_nnls4_supports(w_y, G, p):
+    """The 15 non-empty supports of the 4-variable NNLS in ascending mask
+    order: each one's weights (a list of 4 df, zero off the support) and
+    its residual df, infinite (with a zero lo) unless every weight is
+    finite and >= 0 and the residual a number. Kernel 7 solves them on
+    lanes 1-15 of a warp (``csrc/finalize.cu``)."""
     zero = (torch.zeros_like(w_y[0]), torch.zeros_like(w_y[1]))
-    best_w = [zero, zero, zero, zero]
-    best_r = w_y
+    out = []
     for mask in range(1, 16):
         S = [i for i in range(4) if mask >> i & 1]
         G_S = tuple(tuple(G[r][c] for c in S) for r in S)
@@ -909,10 +914,22 @@ def _df_nnls4(w_y, G, p):
         res = _df_quadres(w_y, G_S, Y_S, w_S)
         rv = _where(feas & ~torch.isnan(res[0]), res[0], float("inf"))
         res = (rv, _where(torch.isfinite(rv), res[1], 0.0))
-        better = _df_lt(res, best_r)
         new_w = [zero] * 4
         for wi, i in zip(w_S, S):
             new_w[i] = wi
+        out.append((new_w, res))
+    return out
+
+
+def _df_nnls4(w_y, G, p):
+    """df mirror of the 4-variable NNLS: exhaustive support enumeration
+    in ascending mask order with strict-improvement updates from the
+    empty support (y'y). Returns (w list of 4 df, res df)."""
+    zero = (torch.zeros_like(w_y[0]), torch.zeros_like(w_y[1]))
+    best_w = [zero, zero, zero, zero]
+    best_r = w_y
+    for new_w, res in _df_nnls4_supports(w_y, G, p):
+        better = _df_lt(res, best_r)
         best_w = [_df_where(better, x, y) for x, y in zip(new_w, best_w)]
         best_r = _df_where(better, res, best_r)
     return best_w, best_r
@@ -927,7 +944,7 @@ def df_nnls_cols(cols, y):
     Columns and signal are scaled by per-column powers of two (exact),
     one packed df Gram of [cols | y] gives G, A'y and y'y, and the
     closed-form solver runs with double-float values. CUDA tensors launch
-    kernel 7 (``csrc/finalize.cu``), CPU tensors run
+    kernel 7 (``csrc/finalize.cu``) on the block, CPU tensors run
     ``df_nnls_cols_twin``.
     """
     if cols.is_cuda:
@@ -935,27 +952,56 @@ def df_nnls_cols(cols, y):
     return df_nnls_cols_twin(cols, y)
 
 
+def _n_cols(C):
+    if not 1 <= C <= 4:
+        raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)
+    return C
+
+
+def _finalize_launch(B, S, C, y, cols=None, gathered=None):
+    """Kernel 7 on the columns of the block ``cols`` (B, S, C), or, with
+    ``gathered`` = (D, cand, csf, ear, K, csf_on, ear_on), on the winner's
+    columns it reads itself (and then R^2 too). Returns (w, res, r2 or
+    None)."""
+    y = y.float().contiguous()
+    kernels.check(y, torch.float32, (B, S), "y")
+    dev = y.device
+    w = torch.empty(B, C, dtype=torch.float32, device=dev)
+    res = torch.empty(B, dtype=torch.float32, device=dev)
+    # the 3-variable Cramer tolerance as torch compares it: in float32
+    tol3 = float(np.float32(-_TOL3))
+    if cols is not None:
+        kernels.launch("finalize", cols, None, None, None, None, y, w, res,
+                       None, B, S, C, 0, 0, 0, 0, *([0] * 9), tol3)
+        return w, res, None
+    D, cand, csf, ear, K, csf_on, ear_on = gathered
+    r2 = torch.empty(B, dtype=torch.float64, device=dev)
+    strides = (tuple(D.stride()) + tuple(cand.stride())
+               + ((csf.stride(0),) if csf_on else (0,))
+               + (tuple(ear.stride()) if ear_on else (0, 0)))
+    if max(strides) >= 2 ** 31:
+        raise ValueError("finalize_top1: a stride of 2^31 elements or more")
+    kernels.launch("finalize", None, D, cand, csf if csf_on else None,
+                   ear if ear_on else None, y, w, res, r2, B, S, C, K,
+                   int(csf_on), int(ear_on), cand.shape[1], *strides, tol3)
+    return w, res, r2
+
+
 def _df_nnls_cols_cuda(cols, y):
     B, S, C = cols.shape
-    if not 1 <= C <= 4:
-        raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)
+    _n_cols(C)
     cols = cols.float().contiguous()
-    y = y.float().contiguous()
     kernels.check(cols, torch.float32, (B, S, C), "cols")
-    kernels.check(y, torch.float32, (B, S), "y")
-    w = torch.empty(B, C, dtype=torch.float32, device=cols.device)
-    res = torch.empty(B, dtype=torch.float32, device=cols.device)
-    # the 3-variable Cramer tolerance as torch compares it: in float32
-    kernels.launch("finalize", cols, y, w, res, B, S, C,
-                   float(np.float32(-_TOL3)))
-    return w, res
+    return _finalize_launch(B, S, C, y, cols=cols)[:2]
 
 
-def df_nnls_cols_twin(cols, y):
-    """Plain PyTorch version of ``df_nnls_cols`` (kernel 7)."""
+def _df_system(cols, y):
+    """The double-float system of ``df_nnls_cols``: the columns and the
+    signal scaled by powers of two, ``quantize2``'d, and one packed df Gram
+    of [cols | y]. Returns (G (C x C nested df), p = A'y (C df), y'y df,
+    the columns' scales (B, C), the signal's (B,))."""
     B, S, C = cols.shape
-    if not 1 <= C <= 4:
-        raise ValueError("df_nnls_cols takes 1 to 4 columns, got %d" % C)
+    _n_cols(C)
     cols = cols.float()
     y = y.float()
 
@@ -971,7 +1017,13 @@ def df_nnls_cols_twin(cols, y):
     Mh, Ml = df_gram(qz, qz, "bsi,bsj->bij")
     G = [[(Mh[:, i, j], Ml[:, i, j]) for j in range(C)] for i in range(C)]
     p = [(Mh[:, i, C], Ml[:, i, C]) for i in range(C)]
-    w_y = (Mh[:, C, C], Ml[:, C, C])
+    return G, p, (Mh[:, C, C], Ml[:, C, C]), sc, sy
+
+
+def df_nnls_cols_twin(cols, y):
+    """Plain PyTorch version of ``df_nnls_cols`` (kernel 7)."""
+    C = cols.shape[2]
+    G, p, w_y, sc, sy = _df_system(cols, y)
     if C == 1:
         w0 = _df_div(p[0], G[0][0])
         pos = _val(p[0]) >= 0
@@ -990,3 +1042,95 @@ def df_nnls_cols_twin(cols, y):
     w = w * (sy[:, None] / sc)
     return w, _val(res) * (sy * sy)
 
+
+# ---------------------------------------------------------------------------
+# The fit's finalize of the scan winner
+# ---------------------------------------------------------------------------
+
+def r_squared(y, y_rec):
+    """Pearson correlation squared between measured and predicted signal,
+    with the reference's guards (num_seq > 1, non-zero stds): the JAX
+    package's ``models/fit._r_squared``."""
+    n = y.shape[-1]
+    yc = y - y.mean(dim=-1, keepdim=True)
+    rc = y_rec - y_rec.mean(dim=-1, keepdim=True)
+    num = (yc * rc).sum(dim=-1)
+    den = torch.sqrt((yc * yc).sum(dim=-1) * (rc * rc).sum(dim=-1))
+    ok = (den > 0) & (n > 1)
+    r = torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                    torch.zeros_like(den))
+    return r * r
+
+
+def finalize_top1(D, sig_csf, sig_ear, y, cand, csf_on=False, ear_on=False,
+                  K=2):
+    """Double-float finalize of the scan winner (the JAX package's
+    ``models/fit._finalize_top1``).
+
+    D (B, K', S, N) rotated fascicle blocks (raw scale, K' >= K); sig_csf
+    (S,) and sig_ear (S, E), each used only when its flag is set; y (B, S)
+    raw; cand (B, C') winner, the fascicle indices first and, with
+    ``ear_on``, the EAR atom last. Returns (w (B, C), obj (B,), r2 (B,)
+    float64) for the columns (fascicle 1[, fascicle 2][, CSF][, EAR]),
+    C = K + csf_on + ear_on. CUDA tensors launch kernel 7 once, which reads
+    the winner's columns itself and computes R^2; CPU tensors run
+    ``finalize_top1_plain``."""
+    if y.is_cuda:
+        return _finalize_top1_cuda(D, sig_csf, sig_ear, y, cand, csf_on,
+                                   ear_on, K)
+    return finalize_top1_plain(D, sig_csf, sig_ear, y, cand, csf_on, ear_on,
+                               K)
+
+
+def _finalize_top1_cuda(D, sig_csf, sig_ear, y, cand, csf_on, ear_on, K):
+    B, S = y.shape
+    C = _n_cols(K + int(csf_on) + int(ear_on))
+    if D.dtype != torch.float32 or D.dim() != 4 or (
+            D.shape[0], D.shape[2]) != (B, S) or D.shape[1] < K:
+        raise ValueError("D must be float32 (B, >= K, S, N), got %s %s"
+                         % (D.dtype, tuple(D.shape)))
+    if cand.dim() != 2 or cand.shape[0] != B or (
+            cand.shape[1] < K + int(ear_on)):
+        raise ValueError("cand must be (B, >= K + ear_on), got %s"
+                         % (tuple(cand.shape),))
+    for name, t, shape, on in (("sig_csf", sig_csf, (S,), csf_on),
+                               ("sig_ear", sig_ear, None, ear_on)):
+        if on and (t is None or t.dtype != torch.float32 or t.shape[0] != S
+                   or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError("%s must be float32 with %d samples" % (name,
+                                                                     S))
+    if cand.dtype != torch.int64:
+        cand = cand.long()
+    return _finalize_launch(B, S, C, y, gathered=(D, cand, sig_csf, sig_ear,
+                                                  K, csf_on, ear_on))
+
+
+def winner_columns(D, sig_csf, sig_ear, cand, csf_on=False, ear_on=False,
+                   K=2):
+    """The winner's columns as a (B, S, C) block, ``finalize_top1``'s
+    arguments: fascicle k's atom ``cand[:, k]`` of D[:, k], then the CSF
+    signature and the EAR signature ``sig_ear[:, cand[:, -1]]`` where
+    their flags are set."""
+    B, S = D.shape[0], D.shape[2]
+    cand = cand.long()
+    cols = [torch.gather(D[:, k], 2,
+                         cand[:, None, k:k + 1].expand(B, S, 1))
+            for k in range(K)]
+    if csf_on:
+        cols.append(sig_csf[None, :, None].expand(B, S, 1))
+    if ear_on:
+        cols.append(sig_ear.t()[cand[:, -1]][:, :, None])
+    return torch.cat(cols, dim=2)
+
+
+def finalize_top1_plain(D, sig_csf, sig_ear, y, cand, csf_on=False,
+                        ear_on=False, K=2):
+    """Plain PyTorch version of ``finalize_top1``: the winner's columns
+    gathered (``winner_columns``), ``df_nnls_cols_twin`` and R^2 in
+    float64."""
+    cols = winner_columns(D, sig_csf, sig_ear, cand, csf_on, ear_on, K)
+    w, res = df_nnls_cols_twin(cols, y)
+    # R^2 of a near-perfect fit is 1 - O(1e-7) and float32 sums would
+    # round it by a few ulp: evaluate it in float64 (B x S work)
+    y_rec = (cols.double() * w.double()[:, None, :]).sum(dim=2)
+    return w, res, r_squared(y.double(), y_rec)

@@ -348,6 +348,11 @@ def row3_hoist_twin(gramA, gramB, yh, A3h):
     return row_pack, col_pack, vox, lo_c_sup, upf
 
 
+#: floats of kernel 12's voxel scratch (csrc/row3hoist.cu kScr): w, d3,
+#: r3, 1 / d3
+ROW3_VOX_SCRATCH = 4
+
+
 def row3_hoist_shapes(gramA, gramB, A3h):
     """Raises ValueError unless kernel 12 takes the shapes: N3 = 1, N1p
     and N2pb positive multiples of dfscan.HOIST_ATOMS (every shape
@@ -373,9 +378,9 @@ def _row3_hoist_cuda(gramA, gramB, yh, A3h):
                                      device=gramA.device)
     row_pack, col_pack, vox = new(B, 16, N1p), new(B, 8, N2pb), new(B, 8)
     lo_c_sup, upf = new(B, N2pb), new(B)
-    part = new(B, N2pb // dfscan.HOIST_ATOMS)
+    scr, part = new(B, ROW3_VOX_SCRATCH), new(B, N2pb // dfscan.HOIST_ATOMS)
     kernels.launch("row3hoist", gramA, gramB, yh, A3h, row_pack, col_pack,
-                   vox, lo_c_sup, part, upf, B, S, N1p, N2pb, _EPS, KERR)
+                   vox, lo_c_sup, scr, part, upf, B, S, N1p, N2pb, _EPS, KERR)
     return row_pack, col_pack, vox, lo_c_sup, upf
 
 

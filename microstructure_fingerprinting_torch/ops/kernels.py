@@ -68,12 +68,12 @@ _SIGNATURES = {
     "rowmin4": ("mf_rowmin4", "ppppppppppp" + "iiiiiiiiiiiiii"),
     "rescan4": ("mf_rescan4", "ppppppppppppp" + "iiiiiiiiii" + "f"),
     "df2scan": ("mf_df2scan", "ppppppppppppp" + "iiiiii"),
-    "finalize": ("mf_finalize", "pppp" + "iii" + "f"),
+    "finalize": ("mf_finalize", "p" * 9 + "i" * 16 + "f"),
     "df4hoist": ("mf_df4hoist", "p" * 17 + "i" * 9 + "f"),
     "df2hoist": ("mf_df2hoist", "p" * 15 + "i" * 5),
     "df3hoist": ("mf_df3hoist", "p" * 15 + "i" * 5),
     "row4hoist": ("mf_row4hoist", "p" * 12 + "i" * 9 + "fff"),
-    "row3hoist": ("mf_row3hoist", "p" * 10 + "i" * 4 + "ff"),
+    "row3hoist": ("mf_row3hoist", "p" * 11 + "i" * 4 + "ff"),
     "rhsprep": ("mf_rhsprep", "p" * 10 + "i" * 7),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

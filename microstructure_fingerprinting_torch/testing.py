@@ -1,6 +1,7 @@
 """Synthetic workload generators (smoke runs and tests), the rule that
-holds a CUDA kernel against its plain version, and the plain versions'
-float64 sums in the orders of the hoist kernels (8-12).
+holds a CUDA kernel against its plain version, the plain versions'
+float64 sums in the orders of the hoist kernels (8-12), and kernel 7's
+lane reduction.
 
 Same generators as ``microstructure_fingerprinting_tpu/testing.py``: an
 HCP-like dense multi-shell PGSE scheme, a smooth single-fascicle
@@ -66,10 +67,10 @@ def kernel_agreement(k, p, exact=False):
 
 def fdot_sample_order(contract, x, y):
     """``ops/dfscan.fdot`` (a float64 sum of exact float32 products,
-    rounded once) summed as kernel 12 sums, and kernel 8 its atoms' Grams
-    with themselves: from +0, one sample after the other (the sample axis is axis 1 of both operands). Patch
-    it over ``dfscan.fdot`` to run a plain version in the kernels'
-    order."""
+    rounded once) summed as kernel 8 sums its atoms' Grams with
+    themselves: from +0, one sample after the other (the sample axis is
+    axis 1 of both operands). Patch it over ``dfscan.fdot`` to run a plain
+    version in the kernel's order."""
     x, y = x.double(), y.double()
     acc = None
     for s in range(x.shape[1]):
@@ -79,8 +80,8 @@ def fdot_sample_order(contract, x, y):
 
 
 def fdot_parts_order(parts):
-    """``ops/dfscan.fdot`` summed as the voxel launches of kernels 8 and
-    11 sum the voxel's small Grams: the samples split into ``parts``
+    """``ops/dfscan.fdot`` summed as the voxel launches of kernels 8, 11
+    and 12 sum the voxel's small Grams: the samples split into ``parts``
     parts, part p the samples s = p mod ``parts``, each part summed from
     +0 one sample after the other, then the parts' sums added in part
     order and rounded once. Patch it over ``dfscan.fdot`` to run a plain
@@ -150,6 +151,36 @@ def fdot_hoist_order(atom_widths, atom_parts, vox_parts):
         order = atoms if x.dim() == 3 and x.shape[2] in atom_widths else small
         return (order or einsum)(contract, x, y)
     return fdot
+
+
+def df_lanes_first_min(hi, lo):
+    """Kernel 7's choice among the 4-column NNLS's supports (``csrc/
+    finalize.cu`` ``first_min``): slot l < 16 of the last axis holds the
+    residual (``hi``, ``lo``) of the support of mask l (slot 0 the empty
+    support's y'y), one a lane; a butterfly over the offsets 1, 2, 4, 8
+    keeps, of two neighbouring blocks of slots, the lower block's value
+    unless the upper block's is strictly less under ``dfscan._df_lt``.
+    Returns the winning slot (int64, the last axis reduced). Where no
+    residual but y'y holds a NaN, this is the slot that ``_df_nnls4``'s
+    sequential fold (strict improvement from y'y on) keeps."""
+    hi, lo = hi.clone(), lo.clone()
+    idx = torch.arange(16).expand(hi.shape).clone()
+    lane = torch.arange(16)
+    for off in (1, 2, 4, 8):
+        o = lane ^ off
+        upper = (lane & off) != 0
+        o_hi, o_lo, o_idx = hi[..., o], lo[..., o], idx[..., o]
+        l_hi = torch.where(upper, o_hi, hi)
+        l_lo = torch.where(upper, o_lo, lo)
+        l_idx = torch.where(upper, o_idx, idx)
+        u_hi = torch.where(upper, hi, o_hi)
+        u_lo = torch.where(upper, lo, o_lo)
+        u_idx = torch.where(upper, idx, o_idx)
+        take = (u_hi < l_hi) | ((u_hi == l_hi) & (u_lo < l_lo))
+        hi = torch.where(take, u_hi, l_hi)
+        lo = torch.where(take, u_lo, l_lo)
+        idx = torch.where(take, u_idx, l_idx)
+    return idx[..., 0]
 
 
 def fibonacci_sphere(n):

@@ -9,8 +9,9 @@ also records the region it was opened in, so that a stage can be split
 exactly into the regions nested in it (``StageTimer.inside``).
 
 ``device_trace(log_dir)`` captures a ``torch.profiler`` trace (the
-counterpart of the JAX package's ``jax.profiler`` capture) and
-``annotate(name)`` labels a function's work in it.
+counterpart of the JAX package's ``jax.profiler`` capture),
+``annotate(name)`` labels a function's work in it, and ``device_ms(fn)``
+reads a call's device time from such a trace.
 """
 
 import contextlib
@@ -110,6 +111,52 @@ def device_trace(log_dir):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 str(log_dir))) as prof:
         yield prof
+
+
+def device_ms(fn, reps=3, pattern=None, warm=2, tries=3):
+    """Device milliseconds a call of ``fn()``: the kernels and copies it
+    puts on the card, from a ``torch.profiler`` trace (CUPTI). The trace
+    holds ``warm + reps`` calls, each after a marker kernel
+    (``torch.cuda._sleep``), and the launches between the last ``reps +
+    1`` markers, the markers themselves left out, are summed (only those
+    whose name matches the regular expression ``pattern``, where one is
+    given), so that events a trace loses at its start do not count. None
+    where no trace of ``tries`` holds the markers, or none holds device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm + reps):
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        # the device events in time order, each with its device time (0
+        # for the profiler's own spans)
+        evs = sorted((e.time_range.start, e.name, e.device_time_total)
+                     for e in prof.events()
+                     if str(e.device_type).endswith("CUDA"))
+        total = marked_us(evs, reps, pattern)
+        if total is not None:
+            return total / 1e3 / reps if total else None
+    return None
+
+
+def marked_us(evs, reps, pattern=None):
+    """Device microseconds of the events ``evs`` ((start, name, us) each,
+    in time order) between the last ``reps + 1`` markers
+    (``torch.cuda._sleep``'s ``spin_kernel``), the markers left out and,
+    where ``pattern`` is given, only the names that match it; None where
+    ``evs`` holds ``reps`` markers or fewer."""
+    import re
+    marks = [i for i, e in enumerate(evs) if "spin_kernel" in e[1]]
+    if len(marks) <= reps:
+        return None
+    return sum(us for _t, name, us in evs[marks[-reps - 1] + 1:marks[-1]]
+               if "spin_kernel" not in name
+               and (pattern is None or re.search(pattern, name)))
 
 
 def annotate(name):

@@ -12,8 +12,8 @@ import torch
 import re
 
 from microstructure_fingerprinting_torch.examples import (
-    demo_synthetic, df2_probe, ear_rsweep, exactness_check, hoist_probe,
-    kernel_phases, profile_stages, whole_brain)
+    demo_synthetic, df2_probe, ear_rsweep, exactness_check, finalize_probe,
+    hoist_probe, kernel_phases, profile_stages, trials, whole_brain)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
@@ -101,7 +101,8 @@ def test_example_runs_as_module(name):
 def test_kernel_phases_names_every_mark(monkeypatch):
     """``kernel_phases`` (a card's measurement) names every phase mark of
     the kernels it reads (``MF_PHASE(k)`` in ``csrc/df4hoist.cu``,
-    ``csrc/row4hoist.cu``, ``csrc/df2scan.cu``, ``csrc/rhsprep.cu``, and
+    ``csrc/row4hoist.cu``, ``csrc/df2scan.cu``, ``csrc/rhsprep.cu``,
+    ``csrc/row3hoist.cu``, ``csrc/finalize.cu``, and
     in ``csrc/df3hoist.cu`` and ``csrc/df2hoist.cu`` with the voxel and
     atom launches of ``csrc/hoist.cuh`` that they call, whose counter
     readers it calls: each reader's names cover its sources' marks), stops
@@ -113,7 +114,9 @@ def test_kernel_phases_names_every_mark(monkeypatch):
                          (("df2scan.cu",), "mf_df2scan_phases"),
                          (("rhsprep.cu",), "mf_rhsprep_phases"),
                          (("df3hoist.cu", "hoist.cuh"), "mf_df3hoist_phases"),
-                         (("df2hoist.cu", "hoist.cuh"), "mf_df2hoist_phases")):
+                         (("df2hoist.cu", "hoist.cuh"), "mf_df2hoist_phases"),
+                         (("row3hoist.cu",), "mf_row3hoist_phases"),
+                         (("finalize.cu",), "mf_finalize_phases")):
         text = ""
         for src in srcs:
             with open(os.path.join(csrc, src)) as f:
@@ -150,13 +153,12 @@ def test_df2_probe_cuts_apply_to_the_source(monkeypatch):
     with open(os.path.join(REPO, "microstructure_fingerprinting_torch",
                            "csrc", "df2scan.cu")) as f:
         text = f.read()
-    for name, cuts in df2_probe.CUTS.items():
-        src = text
-        for marks, cut in cuts:
-            assert all(m in src for m in marks), name
-            src = cut(src)
-        assert (src == text) == (name == "shipped"), name
-        assert 'extern "C" int mf_df2scan(' in src
+    src = df2_probe.sources()
+    assert list(src) == list(df2_probe.CUTS)
+    for name, files in src.items():
+        assert list(files) == ["df2scan.cu"]
+        assert (files["df2scan.cu"] == text) == (name == "shipped"), name
+        assert 'extern "C" int mf_df2scan(' in files["df2scan.cu"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         df2_probe.main([])
@@ -208,3 +210,62 @@ def test_hoist_probe_cuts_apply_to_the_source(monkeypatch):
     assert run.returncode == 0, run.stderr
     assert "--reps" in run.stdout
     assert run.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_finalize_probe_cuts_apply_to_the_source(monkeypatch):
+    """``finalize_probe`` (a card's measurement) builds kernels 7 and 12
+    from their shipped sources changed each way of its ``CUTS``: each cut
+    finds the text it replaces (so an edit of ``csrc/finalize.cu`` or
+    ``csrc/row3hoist.cu`` that moves it fails here, not on the card),
+    every build but the shipped one differs from the source and keeps its
+    C entry point; it stops with a message where there is no card, and its
+    ``--help`` imports no JAX."""
+    src = finalize_probe.sources()
+    assert set(src) == {(f, name) for f, cuts in finalize_probe.CUTS.items()
+                        for name in cuts}
+    for (f, name), text in src.items():
+        with open(os.path.join(REPO, "microstructure_fingerprinting_torch",
+                               "csrc", f)) as fh:
+            assert (text == fh.read()) == (name == "shipped"), name
+        cname = finalize_probe.kernels._SIGNATURES[
+            finalize_probe._ENTRY[f]][0]
+        assert 'extern "C" int %s(' % cname in text
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        finalize_probe.main([])
+    code = ("import runpy, sys\n"
+            "sys.argv = ['finalize_probe', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('microstructure_fingerprinting_torch."
+            "examples.finalize_probe', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'microstructure_fingerprinting_tpu'))))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--split" in run.stdout
+    assert run.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_trial_cuts_change_their_file_or_raise(monkeypatch, tmp_path):
+    """The probes' trial builds (``examples/trials``): a swap and a span
+    change only their own file, the shipped build is the sources as read,
+    and a cut whose text the file no longer holds raises, naming the probe
+    and the build."""
+    (tmp_path / "a.cu").write_text("x = 1;\n// begin\ny = 2;\n// end\n")
+    (tmp_path / "b.cuh").write_text("z = 3;\n")
+    monkeypatch.setattr(trials.kernels, "_CSRC", str(tmp_path))
+    cuts = {"shipped": [],
+            "swap": [trials.swap("a.cu", "x = 1;", "x = 4;")],
+            "span": [trials.span("a.cu", "// begin\n", "// end", "y = 5;\n")]}
+    src = trials.sources("probe", ("a.cu", "b.cuh"), cuts)
+    assert src["shipped"] == {"a.cu": "x = 1;\n// begin\ny = 2;\n// end\n",
+                              "b.cuh": "z = 3;\n"}
+    assert src["swap"]["a.cu"] == "x = 4;\n// begin\ny = 2;\n// end\n"
+    assert src["span"]["a.cu"] == "x = 1;\n// begin\ny = 5;\n// end\n"
+    assert src["swap"]["b.cuh"] == src["span"]["b.cuh"] == "z = 3;\n"
+    with pytest.raises(RuntimeError, match="probe: b.cuh .* 'gone'"):
+        trials.sources("probe", ("a.cu", "b.cuh"),
+                       {"gone": [trials.swap("b.cuh", "w = 0;", "")]})

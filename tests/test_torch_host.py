@@ -267,6 +267,30 @@ def test_cpu_tensors_run_the_twins(rng):
                                 "rhsprep": 0}
 
 
+@pytest.mark.parametrize("name", sorted(kernels._SIGNATURES))
+def test_entry_point_takes_its_signature(name):
+    """Each C entry point of ``csrc/`` takes the arguments that
+    ``kernels.launch`` passes it: a pointer, int or float for each kind of
+    its signature, in order, then the stream (ctypes would pass a
+    mismatch silently)."""
+    import re
+    cname, kinds = kernels._SIGNATURES[name]
+    decl = None
+    for src in kernels.SOURCES:
+        with open(os.path.join(kernels._CSRC, src)) as f:
+            m = re.search(r'extern "C" int %s\((.*?)\)\s*\{' % cname,
+                          f.read(), re.S)
+        if m:
+            decl = m.group(1)
+    assert decl is not None, cname
+    params = [p.strip() for p in decl.split(",")]
+    assert params[-1].startswith("cudaStream_t")
+    got = "".join("p" if "*" in p else "i" if p.startswith("int ")
+                  else "f" if p.startswith("float ") else "?"
+                  for p in params[:-1])
+    assert got == kinds, (cname, got, kinds)
+
+
 def test_kernel_library_reused_when_built(monkeypatch, tmp_path):
     """A library built from the same sources and flags is reused: no
     compiler is asked for."""

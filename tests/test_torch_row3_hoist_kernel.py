@@ -8,11 +8,13 @@ the chain prefixes that kernel 2 reads; on the CPU it runs the plain
 version ``row3_hoist_twin`` (the code ``rowmin_3_operands`` ran itself
 before the kernel), bit for bit ``rowmin_3_operands_plain``. The packs
 are the JAX package's (``rowmin_3(pallas=True, _prep_only=True)``). The
-kernel sums the small Grams' float64 corrections in sample order, where
-the plain version's einsum takes another order: summed in the kernel's
-order (``testing.fdot_sample_order``) the plain version's outputs agree
-by ``testing.kernel_agreement`` (the flag exactly), kernel 2's plain
-version gives the same bounds, the row pass is the JAX package's and
+kernel sums the small Grams' float64 corrections once a voxel (its voxel
+launch, ``hoist::vox_grams``, kernel 11's pass), the samples split into
+``dfscan.HOIST_PARTS`` strided parts added in part order, where the plain
+version's einsum takes another order: summed in the kernel's order
+(``testing.fdot_parts_order``) the plain version's outputs agree by
+``testing.kernel_agreement`` (the flag exactly), kernel 2's plain version
+gives the same bounds, the row pass is the JAX package's and
 ``df3_twopass`` selects the same. The pack layout read from the source
 is ``rowmin3.cu``'s. The ``cuda`` test holds the kernel against its
 plain version on a card.
@@ -177,8 +179,17 @@ def test_layout_is_the_sources():
     assert "vx[0] = u3;" in text and "vx[1] = invd3;" in text
     assert "u3v = vox[(size_t)b * 8 + 0]" in reads
     with open(os.path.join(CSRC, "hoist.cuh")) as f:
-        assert int(re.search(r"kAtoms = (\d+);", f.read()).group(1)) == \
-            tdfscan.HOIST_ATOMS
+        hoist = f.read()
+    assert int(re.search(r"kAtoms = (\d+);", hoist).group(1)) == \
+        tdfscan.HOIST_ATOMS
+    # the voxel launch: the shared Gram pass in the wrappers' parts, and
+    # the scratch the atom launch reads back (w, d3, r3, 1 / d3)
+    assert int(re.search(r"kParts = (\d+);", hoist).group(1)) == \
+        tdfscan.HOIST_PARTS
+    assert "vox_grams<2, 3, kVoxThreads>" in text
+    assert int(sizes["kScr"]) == tf32scan.ROW3_VOX_SCRATCH
+    assert "make_float4(w, d3, r3, invd3)" in text
+    assert "const float w = v.x, d3 = v.y, r3 = v.z, invd3 = v.w;" in text
 
 
 @pytest.mark.parametrize("N2", [96, 700])
@@ -213,10 +224,13 @@ def test_twin_packs_match_jax(rng, N2):
 
 def _kernel_order_hoist(monkeypatch):
     """``row3_hoist_twin`` with the small Grams' float64 sums in kernel
-    12's order (sample after sample)."""
+    12's order (its voxel launch's ``dfscan.HOIST_PARTS`` strided parts,
+    added in part order: ``testing.fdot_parts_order``)."""
+    fdot = ttesting.fdot_parts_order(tdfscan.HOIST_PARTS)
+
     def hoist(*a):
         with monkeypatch.context() as m:
-            m.setattr(tdfscan, "fdot", ttesting.fdot_sample_order)
+            m.setattr(tdfscan, "fdot", fdot)
             return tf32scan.row3_hoist_twin(*a)
     return hoist
 

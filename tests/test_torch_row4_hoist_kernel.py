@@ -220,9 +220,10 @@ def test_layout_is_the_sources(n4):
     assert consts["kScr"] == tf32scan.ROW4_VOX_SCRATCH
     assert "float d4, r4, g34, invd4v, L43, invD4h, t4, rho34;" in text
     assert "float w, d3, r3, invd3v;\n  VoxJ vj[kMaxE];" in text
-    parts = _parts()
-    assert parts >= 1 and "t += kParts" in text
-    assert "t.c1 = t.c1 + u.c1;" in text and "t.c2 = t.c2 + u.c2;" in text
+    parts, hoist = _parts(), _src("hoist.cuh")
+    assert parts >= 1 and "t += kParts" in hoist
+    assert "t.c1 = t.c1 + u.c1;" in hoist and "t.c2 = t.c2 + u.c2;" in hoist
+    assert "vox_grams<kMaxC, kMaxV, kVoxThreads>" in text
     # the entries inside each group, in the order kernel 4 reads them
     reads = _src("rowmin4.cu")
     for group in ("L1x = Rx[0], invd1px = Rx[TM], kap_ppx = Rx[2 * TM]",
@@ -251,8 +252,9 @@ def test_layout_is_the_sources(n4):
 
 
 def _parts():
-    """kParts of kernel 11's voxel launch, read from the source."""
-    return int(re.search(r"kParts = (\d+);", _src("row4hoist.cu")).group(1))
+    """kParts of kernel 11's voxel launch (``hoist::vox_grams``), read from
+    the source."""
+    return int(re.search(r"kParts = (\d+);", _src("hoist.cuh")).group(1))
 
 
 def _kernel_order_hoist(monkeypatch):

@@ -435,3 +435,18 @@ def test_device_trace_and_annotate(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "mf_region" for e in events)
+
+
+def test_device_time_sums_between_markers_only():
+    """``device_ms`` sums the launches between the last reps + 1 marker
+    kernels of its trace: not those before (a trace may lose its start),
+    not the markers between the timed calls, and only the names that
+    match its pattern; a trace with too few markers reads as None."""
+    mark = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    evs = [(0, "lost_kernel", 50.0), (1, mark, 3.0), (2, "mf_a", 10.0),
+           (3, mark, 3.0), (4, "mf_a", 11.0), (5, "copy", 2.0),
+           (6, mark, 3.0), (7, "mf_a", 12.0), (8, mark, 3.0)]
+    assert profiling.marked_us(evs, 2) == 11.0 + 2.0 + 12.0
+    assert profiling.marked_us(evs, 3) == 10.0 + 11.0 + 2.0 + 12.0
+    assert profiling.marked_us(evs, 3, pattern="mf_") == 33.0
+    assert profiling.marked_us(evs, 4) is None
