@@ -47,6 +47,12 @@ path) runs through ``graphs.run``: on a card, one captured CUDA graph a
 step and shape, replayed for every chunk, as the JAX package jits each
 step; eagerly on the CPU and under a stage timer. The overflow tiers
 and the atoms-split scan stay eager.
+
+Spans (``utils/profiling.stage``) of the bucket runners: "push" (a
+bucket's pushes), "pull" (each blocking read from the card), "overflow
+2R" and "overflow N" (a tier's batches), "trivial"
+(``run_bucket_trivial``); the chunk steps' stages ("rotation", "scan",
+...) as before.
 """
 
 import math
@@ -302,27 +308,9 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     slots = [row[0] for row in rows]
     n, S = y.shape
     held = []   # pinned host buffers of the pushes, held until the pull
-    # the rotation emits sequences in group order: permute the signal and
-    # the fixed columns alike (every result is permutation-invariant)
-    csf_d = ear_d = E = None
-    if csf_on:
-        csf_d = _push(np.asarray(sig_csf)[perm], dev, dt, held)
-    if ear_on:
-        ear_d = _push(np.asarray(sig_ear)[perm], dev, dt, held)
-        E = ear_d.shape[1]
-    # the read-only blocks on every data row's device
-    put = lambda t, d: None if t is None else t.to(d)
-    consts = {d: (tables_ys.to(d), put(csf_d, d), put(ear_d, d))
-              for d in slots}
-
     n_pad = int(math.ceil(n / batch) * batch)
-    pk = np.zeros((n_pad, K, 3))
-    pk[:n] = np.asarray(peaks).reshape(n, K, 3)
-    y_all = np.zeros((n_pad, S))
-    y_all[:n] = np.asarray(y)[:, perm]
-    if n_pad > n:  # pad rows replicate voxel 0 to keep the kernels finite
-        pk[n:] = pk[0]
-        y_all[n:] = y_all[0]
+    n_rows = len(slots)
+    shares, where = _deal(n_pad, batch, n_rows)
 
     def pushed(idx, j):
         """Directions and signals of the voxels ``idx`` on row j."""
@@ -343,10 +331,31 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
             return graphs.run(_chunk_step, *args, **kw)
         return _chunk_step(*args, **kw)
 
-    # each row's chunks pushed at once, every chunk enqueued before a pull
-    n_rows = len(slots)
-    shares, where = _deal(n_pad, batch, n_rows)
-    pushes = [pushed(idx, j) for j, idx in enumerate(shares)]
+    with stage("push"):
+        # the rotation emits sequences in group order: permute the signal
+        # and the fixed columns alike (every result is
+        # permutation-invariant)
+        csf_d = ear_d = E = None
+        if csf_on:
+            csf_d = _push(np.asarray(sig_csf)[perm], dev, dt, held)
+        if ear_on:
+            ear_d = _push(np.asarray(sig_ear)[perm], dev, dt, held)
+            E = ear_d.shape[1]
+        # the read-only blocks on every data row's device
+        put = lambda t, d: None if t is None else t.to(d)
+        consts = {d: (tables_ys.to(d), put(csf_d, d), put(ear_d, d))
+                  for d in slots}
+
+        pk = np.zeros((n_pad, K, 3))
+        pk[:n] = np.asarray(peaks).reshape(n, K, 3)
+        y_all = np.zeros((n_pad, S))
+        y_all[:n] = np.asarray(y)[:, perm]
+        if n_pad > n:  # pad rows replicate voxel 0 to keep the kernels finite
+            pk[n:] = pk[0]
+            y_all[n:] = y_all[0]
+        # each row's chunks pushed at once
+        pushes = [pushed(idx, j) for j, idx in enumerate(shares)]
+    # every chunk enqueued before a pull
     outs = [solved(j, pushes[j][0][sl], pushes[j][1][sl],
                    rows_R if twopass and not sharded else None)
             for j, sl in where]
@@ -357,41 +366,47 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
         cand, w, obj, r2, ok = (torch.cat([t.to(dev) for t in x])[:n]
                                 for x in zip(*outs))
 
-        bad = torch.nonzero(~ok).flatten().cpu().numpy()
+        with stage("pull"):
+            bad = torch.nonzero(~ok).flatten().cpu().numpy()
         if bad.size:
             # row-budget overflow (heavily tied voxels): re-solve at 2R,
             # then with every row and column (R = N), where ok cannot fail
             fb = min(batch, 64)
             tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
             for R in tiers:
-                sels = [bad[st:st + fb] for st in range(0, bad.size, fb)]
-                res = []
-                for i, sel in enumerate(sels):
-                    idx = np.concatenate([sel, np.full(fb - sel.size,
-                                                       sel[0])])
-                    res.append(solved(i % n_rows, *pushed(idx, i % n_rows),
-                                      R, graph=False))
-                still = []
-                for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
-                    m = sel.size
-                    good = ok_f[:m].cpu().numpy() | (R == n_atom)
-                    done = _push(sel[good], dev, held=held)
-                    keep = _push(np.flatnonzero(good), c_f.device,
-                                 held=held)
-                    cand[done] = c_f[keep].to(dev)
-                    w[done] = w_f[keep].to(dev)
-                    obj[done] = o_f[keep].to(dev)
-                    r2[done] = r_f[keep].to(dev)
-                    still.extend(sel[~good])
-                bad = np.asarray(still, dtype=np.int64)
+                with stage("overflow N" if R == n_atom else "overflow 2R"):
+                    sels = [bad[st:st + fb] for st in range(0, bad.size, fb)]
+                    res = []
+                    for i, sel in enumerate(sels):
+                        idx = np.concatenate([sel, np.full(fb - sel.size,
+                                                           sel[0])])
+                        j = i % n_rows
+                        res.append(solved(j, *pushed(idx, j), R,
+                                          graph=False))
+                    still = []
+                    for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
+                        m = sel.size
+                        with stage("pull"):
+                            good = ok_f[:m].cpu().numpy() | (R == n_atom)
+                        done = _push(sel[good], dev, held=held)
+                        keep = _push(np.flatnonzero(good), c_f.device,
+                                     held=held)
+                        cand[done] = c_f[keep].to(dev)
+                        w[done] = w_f[keep].to(dev)
+                        obj[done] = o_f[keep].to(dev)
+                        r2[done] = r_f[keep].to(dev)
+                        still.extend(sel[~good])
+                    bad = np.asarray(still, dtype=np.int64)
                 if not bad.size:
                     break
 
         # the df quadratic form can round a noiseless voxel's residual a
         # few ulp below zero; a reported objective is never negative
-        obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
-        w_b = w.double().cpu().numpy()
-        ind = cand.cpu().numpy().astype(np.int32)
+        with stage("pull"):
+            obj_b = np.maximum(obj.double().cpu().numpy(), 0.0)
+            w_b = w.double().cpu().numpy()
+            ind = cand.cpu().numpy().astype(np.int32)
+            r2_b = r2.double().cpu().numpy()
         held.clear()   # every copy is done: its results are on the host
         # clip the fascicle (and CSF) columns to the atom range and the
         # EAR column to its own
@@ -409,7 +424,7 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
             ind = np.concatenate([ind[:, :1], zero, ind[:, 1:]], axis=1)
         elif K == 2 and csf_on and not ear_on:  # [i1, i2] -> + csf=0
             ind = np.concatenate([ind, zero], axis=1)
-        return w_b, ind, obj_b, obj_b / S, r2.double().cpu().numpy()
+        return w_b, ind, obj_b, obj_b / S, r2_b
 
     return finish if defer else finish()
 
@@ -420,48 +435,50 @@ def run_bucket_trivial(y, sig_csf, sig_ear, csf_on, ear_on):
     analysis vectorized over voxels (the first minimum over EAR atoms
     wins). Returns NumPy (w, ind, min_obj, mse, r2) with
     C = csf_on + ear_on columns."""
-    if not (csf_on or ear_on):
-        raise ValueError("Empty configuration: no compartments to fit.")
-    y64 = np.asarray(y, dtype=np.float64)
-    n, S = y64.shape
-    y_sq = np.einsum("ns,ns->n", y64, y64)
-    if csf_on:
-        csf64 = np.asarray(sig_csf, dtype=np.float64)
-    if ear_on:
-        ear64 = np.asarray(sig_ear, dtype=np.float64)
-    rows = np.arange(n)
-    if csf_on and ear_on:
-        A11 = float(csf64 @ csf64)
-        A22 = np.einsum("se,se->e", ear64, ear64)          # (E,)
-        A12 = csf64 @ ear64                                # (E,)
-        Y1 = y64 @ csf64                                   # (n,)
-        Y2 = y64 @ ear64                                   # (n, E)
-        w1, w2, res = mfn.lsqnonneg_2var(
-            y_sq[:, None], A11, A12[None, :], A22[None, :], Y1[:, None],
-            Y2)                                            # (n, E)
-        ie = np.argmin(res, axis=1)
-        w_b = np.stack([w1[rows, ie], w2[rows, ie]], axis=1)
-        ind_b = np.stack([np.zeros(n, np.int32), ie.astype(np.int32)],
-                         axis=1)
-        obj_b = res[rows, ie]
-        y_rec = w_b[:, :1] * csf64[None, :] + w_b[:, 1:] * ear64[:, ie].T
-    elif csf_on:
-        w, res = mfn.lsqnonneg_1var(y_sq, float(csf64 @ csf64), y64 @ csf64)
-        w_b = w[:, None]
-        ind_b = np.zeros((n, 1), np.int32)
-        obj_b = res
-        y_rec = w_b * csf64[None, :]
-    else:  # EAR only
-        a_sq = np.einsum("se,se->e", ear64, ear64)
-        w, res = mfn.lsqnonneg_1var(y_sq[:, None], a_sq[None, :],
-                                    y64 @ ear64)           # (n, E)
-        ie = np.argmin(res, axis=1)
-        w_b = w[rows, ie][:, None]
-        ind_b = ie.astype(np.int32)[:, None]
-        obj_b = res[rows, ie]
-        y_rec = w_b * ear64[:, ie].T
-    obj_b = np.maximum(obj_b, 0.0)
-    return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
+    with stage("trivial"):
+        if not (csf_on or ear_on):
+            raise ValueError("Empty configuration: no compartments to fit.")
+        y64 = np.asarray(y, dtype=np.float64)
+        n, S = y64.shape
+        y_sq = np.einsum("ns,ns->n", y64, y64)
+        if csf_on:
+            csf64 = np.asarray(sig_csf, dtype=np.float64)
+        if ear_on:
+            ear64 = np.asarray(sig_ear, dtype=np.float64)
+        rows = np.arange(n)
+        if csf_on and ear_on:
+            A11 = float(csf64 @ csf64)
+            A22 = np.einsum("se,se->e", ear64, ear64)          # (E,)
+            A12 = csf64 @ ear64                                # (E,)
+            Y1 = y64 @ csf64                                   # (n,)
+            Y2 = y64 @ ear64                                   # (n, E)
+            w1, w2, res = mfn.lsqnonneg_2var(
+                y_sq[:, None], A11, A12[None, :], A22[None, :], Y1[:, None],
+                Y2)                                            # (n, E)
+            ie = np.argmin(res, axis=1)
+            w_b = np.stack([w1[rows, ie], w2[rows, ie]], axis=1)
+            ind_b = np.stack([np.zeros(n, np.int32), ie.astype(np.int32)],
+                             axis=1)
+            obj_b = res[rows, ie]
+            y_rec = w_b[:, :1] * csf64[None, :] + w_b[:, 1:] * ear64[:, ie].T
+        elif csf_on:
+            w, res = mfn.lsqnonneg_1var(y_sq, float(csf64 @ csf64),
+                                        y64 @ csf64)
+            w_b = w[:, None]
+            ind_b = np.zeros((n, 1), np.int32)
+            obj_b = res
+            y_rec = w_b * csf64[None, :]
+        else:  # EAR only
+            a_sq = np.einsum("se,se->e", ear64, ear64)
+            w, res = mfn.lsqnonneg_1var(y_sq[:, None], a_sq[None, :],
+                                        y64 @ ear64)           # (n, E)
+            ie = np.argmin(res, axis=1)
+            w_b = w[rows, ie][:, None]
+            ind_b = ie.astype(np.int32)[:, None]
+            obj_b = res[rows, ie]
+            y_rec = w_b * ear64[:, ie].T
+        obj_b = np.maximum(obj_b, 0.0)
+        return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
 
 
 def _r2_np(y, y_rec):
@@ -581,28 +598,30 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
     n, S = y.shape
     slots = [dev] if mesh is None else mesh.data_devices
     held = []   # pinned host buffers of the pushes, held until the pull
-    sig_csf_d = _push(sig_csf if csf_on else np.zeros(S), dev, dtype, held)
-    sig_ear_d = _push(sig_ear if ear_on else np.zeros((S, 1)), dev, dtype,
-                      held)
-    # the read-only tables, plan and fixed columns on each row's device
-    consts = {d: tuple(t.to(d) for t in tuple(tables) + tuple(plan)
-                       + (sig_csf_d, sig_ear_d)) for d in slots}
-
     n_pad = int(math.ceil(n / batch) * batch)
-    # float64 peaks for the host refine; the device copy in the scan dtype
-    pk64 = np.zeros((n_pad, max(K, 1), 3), dtype=np.float64)
-    y_all = np.zeros((n_pad, S), dtype=np.float64)
-    if K > 0:
-        pk64[:n] = np.asarray(peaks).reshape(n, K, 3)
-    y_all[:n] = y
-    if n_pad > n:  # pad rows replicate voxel 0 to keep the scans NaN-free
-        pk64[n:] = pk64[0]
-        y_all[n:] = y_all[0]
-    # each row's chunks pushed at once
     shares, where = _deal(n_pad, batch, len(slots))
-    pushes = [(_push(pk64[idx, :K], slots[j], dtype, held),
-               _push(y_all[idx], slots[j], dtype, held))
-              for j, idx in enumerate(shares)]
+    with stage("push"):
+        sig_csf_d = _push(sig_csf if csf_on else np.zeros(S), dev, dtype,
+                          held)
+        sig_ear_d = _push(sig_ear if ear_on else np.zeros((S, 1)), dev,
+                          dtype, held)
+        # the read-only tables, plan and fixed columns on each row's device
+        consts = {d: tuple(t.to(d) for t in tuple(tables) + tuple(plan)
+                           + (sig_csf_d, sig_ear_d)) for d in slots}
+
+        # float64 peaks for the host refine; the device copy in the scan dtype
+        pk64 = np.zeros((n_pad, max(K, 1), 3), dtype=np.float64)
+        y_all = np.zeros((n_pad, S), dtype=np.float64)
+        if K > 0:
+            pk64[:n] = np.asarray(peaks).reshape(n, K, 3)
+        y_all[:n] = y
+        if n_pad > n:  # pad rows replicate voxel 0 to keep the scans NaN-free
+            pk64[n:] = pk64[0]
+            y_all[n:] = y_all[0]
+        # each row's chunks pushed at once
+        pushes = [(_push(pk64[idx, :K], slots[j], dtype, held),
+                   _push(y_all[idx], slots[j], dtype, held))
+                  for j, idx in enumerate(shares)]
 
     step = fit_step_candidates if refine else fit_step
     extra = dict(M=topm) if refine else {}
@@ -616,7 +635,8 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
 
     if refine:
         # float32 device scan -> top-M candidates -> exact float64 re-score
-        cand = torch.cat([c.to(dev) for c in chunks]).cpu().numpy()[:n]
+        with stage("pull"):
+            cand = torch.cat([c.to(dev) for c in chunks]).cpu().numpy()[:n]
         y64 = np.asarray(y, dtype=np.float64)
         w_b, ind_b, obj_b, y_rec = refine_mod.refine_candidates(
             ms_host, plan_host, pk64[:n, :K], y64,
@@ -626,8 +646,9 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
         obj_b = np.maximum(obj_b, 0.0)   # never report a negative residual
         return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
 
-    stacked = {k: torch.cat([c[k].to(dev) for c in chunks]).cpu().numpy()[:n]
-               for k in ("w", "ind", "min_obj", "mse", "r2")}
+    with stage("pull"):
+        stacked = {k: torch.cat([c[k].to(dev) for c in chunks]).cpu()
+                   .numpy()[:n] for k in ("w", "ind", "min_obj", "mse", "r2")}
     return (stacked["w"], stacked["ind"],
             np.maximum(stacked["min_obj"], 0.0),
             np.maximum(stacked["mse"], 0.0), stacked["r2"])

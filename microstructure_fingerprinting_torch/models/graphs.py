@@ -16,7 +16,10 @@ alive), and the static keyword arguments (R, K, csf_on, ear_on, M).
 Route: a step replays a graph when its tensors lie on a CUDA device, no
 ``utils.profiling.StageTimer`` is active (its events cannot be recorded
 inside a replay) and no ``eager()`` block is open; otherwise it runs
-eagerly, as it always does on the CPU.
+eagerly, as it always does on the CPU. A ``torch.profiler`` leaves the
+route as it is. Spans (``utils.profiling.stage``): "capture" (a key's
+eager first chunk, warm-up and capture) and "replay" (a chunk's input
+copies, replay and output clones).
 
 On a key's first chunk the step runs eagerly: that chunk's results and
 launches are real. Then the kernel library is built, the step is run
@@ -109,7 +112,7 @@ class _Entry:
             self.capture_s = time.perf_counter() - t0
 
     def replay(self, args, dev):
-        with _CARD.device(dev):
+        with profiling.stage("replay"), _CARD.device(dev):
             for mine, a in zip(self.inputs, args):
                 if isinstance(mine, torch.Tensor):
                     mine.copy_(a)
@@ -147,11 +150,12 @@ def run(step, *args, **statics):
     key = _key(step, args, statics, dev)
     entry = _ENTRIES.get(key)
     if entry is None:
-        out = step(*args, **statics)
-        pool = _POOLS.get(dev)
-        if pool is None:
-            pool = _POOLS[dev] = _CARD.pool()
-        _ENTRIES[key] = _Entry(step, args, statics, dev, pool)
+        with profiling.stage("capture"):
+            out = step(*args, **statics)
+            pool = _POOLS.get(dev)
+            if pool is None:
+                pool = _POOLS[dev] = _CARD.pool()
+            _ENTRIES[key] = _Entry(step, args, statics, dev, pool)
         return out
     return entry.replay(args, dev)
 

@@ -11,13 +11,16 @@ small NNLS exactly in float64 on the host for just those candidates.
 The closed-form subproblems are the device scans' own bodies
 (ops/nnls.lsqnonneg_* with ``xp=np``), so the decision rules (Cramer
 sign tests, fallback chains, tie-breaking by candidate rank) are the
-same.
+same. Spans (``utils/profiling.stage``): "refine" (``refine_candidates``),
+in it "refine.columns" (the columns' interpolation) and "refine.solve"
+(the solves and the selection).
 """
 
 import numpy as np
 
 from ..ops import nnls as mfn
 from ..utils import native
+from ..utils.profiling import stage
 
 
 def interp_columns(ms, plan, newdir, atom_ids, out=None):
@@ -173,17 +176,27 @@ def refine_candidates(ms, plan, peaks, y, sig_csf, sig_ear,
         cand_ids is advisory only: the ear atom is re-enumerated exactly.
     Returns (w (B, C), ind (B, C) int32, min_obj (B,), y_rec (B, Nseq)).
     """
-    B, M, C = cand_ids.shape
-    y = np.asarray(y, dtype=np.float64)
-    Nseq = y.shape[1]
-    C0 = K + int(csf_on)
-    cols = np.empty((C0, B, M, Nseq), dtype=np.float64)
-    for k in range(K):
-        interp_columns(ms, plan, peaks[:, k, :], cand_ids[:, :, k],
-                       out=cols[k])
-    if csf_on:
-        cols[K] = sig_csf[None, None, :]
+    with stage("refine"):
+        B, M = cand_ids.shape[:2]
+        y = np.asarray(y, dtype=np.float64)
+        Nseq = y.shape[1]
+        C0 = K + int(csf_on)
+        with stage("refine.columns"):
+            cols = np.empty((C0, B, M, Nseq), dtype=np.float64)
+            for k in range(K):
+                interp_columns(ms, plan, peaks[:, k, :], cand_ids[:, :, k],
+                               out=cols[k])
+            if csf_on:
+                cols[K] = sig_csf[None, None, :]
+        with stage("refine.solve"):
+            return _select(cols, y, sig_ear, cand_ids, ear_on)
 
+
+def _select(cols, y, sig_ear, cand_ids, ear_on):
+    """The exact float64 solve of every candidate of ``cand_ids`` on its
+    columns ``cols`` (C0, B, M, Nseq), and the winner: what
+    ``refine_candidates`` returns."""
+    C0, C = cols.shape[0], cand_ids.shape[2]
     if ear_on:
         sig_ear64 = np.asarray(sig_ear, dtype=np.float64)
         w, e_idx, res = _solve_support_ear(cols, y, sig_ear64)

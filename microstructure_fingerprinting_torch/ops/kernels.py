@@ -23,10 +23,11 @@ and no ``--use_fast_math``.
 through ``launch`` and, for a CUDA graph (``models/graphs.py``), the
 launches its capture recorded, once each replay. Inside ``recorded()``
 (a capture, or its warm-up) a launch is kept apart instead of counted.
-Under a ``utils.profiling.StageTimer`` each launch is its own stage
-"kernel <name>", inside the fit path's stage that holds it, so a stage
-splits into its kernel and the torch code around it. Importing this
-module needs neither ``nvcc`` nor a GPU.
+Each launch is its own span (``utils.profiling.stage``) "kernel <name>",
+inside the fit path's span that holds it: under a ``StageTimer`` a stage
+so splits into its kernel and the torch code around it. The build or
+load of the library is the span "build". Importing this module needs
+neither ``nvcc`` nor a GPU.
 """
 
 import contextlib
@@ -193,11 +194,12 @@ def library():
     """The loaded kernel library, built on first use in this process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (cname, kinds) in _SIGNATURES.items():
-            fn = getattr(lib, cname)
-            fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        with stage("build"):
+            lib = ctypes.CDLL(build())
+            for name, (cname, kinds) in _SIGNATURES.items():
+                fn = getattr(lib, cname)
+                fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

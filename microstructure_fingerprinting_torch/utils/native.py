@@ -9,7 +9,8 @@ cannot be written, a per-user cache directory; the file name carries a
 hash of the source, so an edit rebuilds it and a later process reuses
 it. Without a working compiler ``available()`` is false and
 models/refine.py takes its NumPy path, which gives the same numbers up
-to rounding.
+to rounding. The build or load is the span "build"
+(``utils/profiling.stage``).
 """
 
 import ctypes
@@ -22,6 +23,7 @@ import threading
 import numpy as np
 
 from ..ops.kernels import _writable
+from .profiling import stage
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "mf_native.cpp")
@@ -74,13 +76,14 @@ def _load():
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
-        path = build()
-        if path is None:
-            return None
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError:
-            return None
+        with stage("build"):
+            path = build()
+            if path is None:
+                return None
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                return None
         i64 = ctypes.c_int64
         dp = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         ip = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

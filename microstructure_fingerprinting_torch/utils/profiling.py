@@ -1,25 +1,37 @@
-"""Stage timing with CUDA events.
+"""The port's span, and device timing.
 
-``stage(name)`` marks a region of the fit path. It costs nothing unless a
-``StageTimer`` is active; inside one, each region on a CUDA device is
-bracketed by two ``torch.cuda.Event``s recorded on the current stream, so
-the sums are device time between the events, without host
-synchronisation inside the path. CPU regions are not timed. A region
-also records the region it was opened in, so that a stage can be split
-exactly into the regions nested in it (``StageTimer.inside``).
+``stage(name, device=None)`` marks a region of the fit path. It has
+three states:
+
+* off (neither a ``torch.profiler`` nor a ``StageTimer`` active): one
+  check, and the shared no-op context; no ``torch.device``, no event;
+* under ``torch.profiler`` (``device_trace``): a
+  ``torch.profiler.record_function`` range named ``"mf." + name``, a
+  ``user_annotation`` event of the trace on the device events' clock;
+  the fit's route is unchanged (chunk steps replay their CUDA graphs);
+* under a ``StageTimer``: a region on a CUDA ``device`` is bracketed by
+  two ``torch.cuda.Event``s recorded on its current stream, so the sums
+  are device time between the events, without host synchronisation
+  inside the path. A region without a device, or on the CPU, is not
+  timed. A region also records the region it was opened in, so that a
+  stage can be split exactly into the regions nested in it
+  (``StageTimer.inside``). The timer runs the chunk steps eagerly
+  (``models/graphs.graphed``).
 
 ``device_trace(log_dir)`` captures a ``torch.profiler`` trace (the
-counterpart of the JAX package's ``jax.profiler`` capture),
-``annotate(name)`` labels a function's work in it, and ``device_ms(fn)``
-reads a call's device time from such a trace.
+counterpart of the JAX package's ``jax.profiler`` capture), and
+``device_ms(fn)`` reads a call's device time from such a trace.
 """
 
 import contextlib
-import functools
 
 import torch
 
 _ACTIVE = []
+#: what ``stage`` returns while no profiler and no timer is active
+_OFF = contextlib.nullcontext()
+#: the prefix of every span's name in a profiler trace
+PREFIX = "mf."
 
 
 def active():
@@ -70,27 +82,38 @@ class StageTimer:
         return out
 
 
+def stage(name, device=None):
+    """A region of stage ``name``: a ``record_function`` range
+    ``"mf." + name`` under ``torch.profiler`` and, under a
+    ``StageTimer``, device time on ``device``'s current stream where it
+    is a CUDA device; the shared no-op where neither is active."""
+    if not _ACTIVE and not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _span(name, device)
+
+
 @contextlib.contextmanager
-def stage(name, device):
-    """A region of stage ``name`` on ``device``: timed, under a
-    ``StageTimer``, on that device's current stream."""
-    dev = torch.device(device)
-    if not _ACTIVE or dev.type != "cuda":
-        yield
-        return
-    stream = torch.cuda.current_stream(dev)
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    timer = _ACTIVE[-1]
-    parent = timer.open[-1] if timer.open else None
-    timer.open.append(name)
-    s.record(stream)
-    try:
-        yield
-    finally:
-        timer.open.pop()
-    e.record(stream)
-    timer.events.append((name, s, e, parent))
+def _span(name, device):
+    with contextlib.ExitStack() as stack:
+        if torch._C._autograd._profiler_enabled():
+            stack.enter_context(torch.profiler.record_function(PREFIX + name))
+        dev = None if device is None or not _ACTIVE else torch.device(device)
+        if dev is None or dev.type != "cuda":
+            yield
+            return
+        stream = torch.cuda.current_stream(dev)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        timer = _ACTIVE[-1]
+        parent = timer.open[-1] if timer.open else None
+        timer.open.append(name)
+        s.record(stream)
+        try:
+            yield
+        finally:
+            timer.open.pop()
+        e.record(stream)
+        timer.events.append((name, s, e, parent))
 
 
 @contextlib.contextmanager
@@ -157,14 +180,3 @@ def marked_us(evs, reps, pattern=None):
     return sum(us for _t, name, us in evs[marks[-reps - 1] + 1:marks[-1]]
                if "spin_kernel" not in name
                and (pattern is None or re.search(pattern, name)))
-
-
-def annotate(name):
-    """Decorator: label a function's work ``name`` in profiler traces."""
-    def wrap(fn):
-        @functools.wraps(fn)
-        def inner(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return inner
-    return wrap

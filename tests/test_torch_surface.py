@@ -420,21 +420,19 @@ def test_viz_without_matplotlib(monkeypatch):
 
 def test_device_trace_and_annotate(tmp_path):
     """device_trace writes a Chrome trace under its directory on the
-    CPU; an annotated function keeps its result and name, and its label
-    is in the trace."""
-    @profiling.annotate("mf_region")
-    def double(x):
-        return 2 * x
-
+    CPU; a span (``profiling.stage``) opened inside it keeps its
+    region's result, and its label, ``mf.`` and the span's name, is in
+    the trace as a host range."""
     with profiling.device_trace(str(tmp_path)):
-        out = double(torch.arange(4.0))
+        with profiling.stage("region"):
+            out = 2 * torch.arange(4.0)
     assert torch.equal(out, 2 * torch.arange(4.0))
-    assert double.__name__ == "double"
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "mf_region" for e in events)
+    assert any(e.get("name") == "mf.region"
+               and e.get("cat") == "user_annotation" for e in events)
 
 
 def test_device_time_sums_between_markers_only():
