@@ -32,7 +32,9 @@ for any bucket of 1-4 blocks: the gather-and-lerp rotation
 (``interp.eval_rotation_batch``), the tiled exhaustive scans of
 ``ops/nnls.py`` in the tables' dtype (plain torch on the device, as they
 are plain XLA there), and, with ``refine``, their top-M candidates
-re-scored exactly in float64 on the host (``models/refine.py``).
+re-scored exactly in float64 on the host (``models/refine.py``), a
+chunk's as soon as its copy has reached the host, while the device runs
+the chunks queued after it (``RESCORES`` counts how often).
 
 ``run_bucket_trivial`` solves the fascicle-free (CSF and/or EAR) voxels
 in closed form on the host.
@@ -571,6 +573,112 @@ def fit_step_candidates(xs, ys, cnt, gdir, shell_lo, shell_hi, wG,
         return mfn.exhaustive_candidates_blocks(tuple(blocks), y, M=M)
 
 
+class _Pulls:
+    """What the general path's chunk pulls ask of the device, in one place
+    (the tests hand in a stand-in, as for ``graphs._CARD``). On a card a
+    chunk's copy to the host is enqueued on the current stream of the
+    chunk's own device, into pinned memory, and an event recorded there
+    after it says when it has landed; on the CPU a copy is done when it
+    returns, and its event is None."""
+
+    def host(self, shape, dtype, device):
+        """An empty host tensor for the copies from ``device``."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=torch.device(device).type == "cuda")
+
+    def copy(self, dst, src):
+        """Enqueue ``dst.copy_(src)``; returns its completion event."""
+        if src.device.type != "cuda":
+            dst.copy_(src)
+            return None
+        dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(src.device))
+        return event
+
+    def done(self, event):
+        return event is None or event.query()
+
+    def wait(self, event):
+        if event is not None:
+            event.synchronize()
+
+
+_PULLS = _Pulls()
+
+#: chunks of the general path re-scored on the host before their bucket's
+#: last chunk step was enqueued ("overlapped", in the shadow of the steps
+#: queued after them) and after it ("tail"), since the process started
+RESCORES = {"overlapped": 0, "tail": 0}
+
+
+class _Rescore:
+    """The float64 host re-score of a bucket's chunks, one chunk at a time,
+    as each chunk's top-M candidates reach the host, in chunk order; every
+    chunk's columns are written into one reused (C0, batch, M, S) buffer
+    whose CSF plane is written once."""
+
+    def __init__(self, n, batch, M, ms_host, plan_host, pk64, y_all,
+                 sig_csf, sig_ear, K, csf_on, ear_on, device):
+        n_pad, S = y_all.shape
+        C = K + csf_on + ear_on
+        self.n, self.batch, self.K = n, batch, K
+        self.ms, self.plan = ms_host, plan_host
+        self.pk64, self.y_all = pk64, y_all
+        self.csf = np.asarray(sig_csf, dtype=np.float64) if csf_on else None
+        self.ear = np.asarray(sig_ear, dtype=np.float64) if ear_on else None
+        self.host = _PULLS.host((n_pad, M, C), torch.int32, device)
+        self.cols = np.empty((K + csf_on, batch, M, S))
+        if csf_on:
+            self.cols[K] = self.csf
+        self.w = np.empty((n, C))
+        self.ind = np.empty((n, C), dtype=np.int32)
+        self.obj = np.empty(n)
+        self.r2 = np.empty(n)
+        self.events = []
+        self.next = 0
+
+    def add(self, cand):
+        """Enqueue the copy of the next chunk's (batch, M, C) candidates
+        to the host."""
+        c = len(self.events)
+        rows = slice(c * self.batch, (c + 1) * self.batch)
+        self.events.append(_PULLS.copy(self.host[rows], cand))
+
+    def ready(self):
+        """Re-score the chunks at the head of the queue whose copies have
+        landed, without waiting for the others."""
+        while (self.next < len(self.events)
+               and _PULLS.done(self.events[self.next])):
+            self._one("overlapped")
+
+    def finish(self):
+        """Wait for the remaining chunks in order and re-score each; the
+        bucket's (w, ind, min_obj, mse, r2), pad rows dropped."""
+        while self.next < len(self.events):
+            with stage("pull"):
+                _PULLS.wait(self.events[self.next])
+            self._one("tail")
+        obj = np.maximum(self.obj, 0.0)  # never report a negative residual
+        return self.w, self.ind, obj, obj / self.y_all.shape[1], self.r2
+
+    def _one(self, when):
+        c, b = self.next, self.batch
+        rows = slice(c * b, (c + 1) * b)
+        keep = slice(c * b, min((c + 1) * b, self.n))
+        real = keep.stop - keep.start
+        y = self.y_all[rows]
+        w, ind, obj, y_rec = refine_mod.refine_candidates(
+            self.ms, self.plan, self.pk64[rows, :self.K], y, self.csf,
+            self.ear, self.host[rows].numpy(), self.K, self.csf is not None,
+            self.ear is not None, cols=self.cols)
+        self.w[keep], self.ind[keep], self.obj[keep] = (
+            w[:real], ind[:real], obj[:real])
+        self.r2[keep] = _r2_np(y[:real], y_rec[:real])
+        self.next += 1
+        RESCORES[when] += 1
+
+
 def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
                K, csf_on, ear_on, batch=128, dtype=None,
                refine=False, ms_host=None, plan_host=None, topm=8,
@@ -586,8 +694,11 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
     and pad rows replicate voxel 0. With ``refine`` the scan keeps its
     ``topm`` best candidates per voxel and the float64 host re-scorer
     picks among them (``ms_host``, ``plan_host``: the host tables and
-    plan). With a ``mesh`` the chunks are dealt to its data rows in
-    turn, tables, plan and fixed columns replicated on each row's device
+    plan): each chunk's candidates are copied to the host as its step is
+    enqueued, and after each enqueue the chunks whose copies have landed
+    are re-scored, in chunk order, without waiting; the rest after the
+    last enqueue (``_Rescore``). With a ``mesh`` the chunks are dealt to
+    its data rows in turn, tables, plan and fixed columns replicated on each row's device
     (as in ``run_bucket_fast``: every voxel's result is the serial
     fit's). Returns NumPy (w, ind, min_obj, mse, r2); objectives are
     clipped at 0.
@@ -625,26 +736,26 @@ def run_bucket(tables, plan, peaks, y, sig_csf, sig_ear,
 
     step = fit_step_candidates if refine else fit_step
     extra = dict(M=topm) if refine else {}
+    if refine:
+        # float32 device scan -> top-M candidates -> exact float64 re-score,
+        # a chunk's while the card runs the chunks queued after it
+        rescore = _Rescore(n, batch, topm, ms_host, plan_host, pk64, y_all,
+                           sig_csf, sig_ear, K, bool(csf_on), bool(ear_on),
+                           dev)
     chunks = []
-    for j, sl in where:
+    for c, (j, sl) in enumerate(where):
         xs, ys, cnt, gdir, lo, hi, wG, csf_j, ear_j = consts[slots[j]]
         chunks.append(graphs.run(
             step, xs, ys, cnt, gdir, lo, hi, wG, pushes[j][0][sl],
             pushes[j][1][sl], csf_j, ear_j, K=K, csf_on=bool(csf_on),
             ear_on=bool(ear_on), **extra))
+        if refine:
+            rescore.add(chunks[-1])
+            if c < len(where) - 1:
+                rescore.ready()
 
     if refine:
-        # float32 device scan -> top-M candidates -> exact float64 re-score
-        with stage("pull"):
-            cand = torch.cat([c.to(dev) for c in chunks]).cpu().numpy()[:n]
-        y64 = np.asarray(y, dtype=np.float64)
-        w_b, ind_b, obj_b, y_rec = refine_mod.refine_candidates(
-            ms_host, plan_host, pk64[:n, :K], y64,
-            np.asarray(sig_csf, dtype=np.float64) if csf_on else None,
-            np.asarray(sig_ear, dtype=np.float64) if ear_on else None,
-            cand, K, bool(csf_on), bool(ear_on))
-        obj_b = np.maximum(obj_b, 0.0)   # never report a negative residual
-        return w_b, ind_b, obj_b, obj_b / S, _r2_np(y64, y_rec)
+        return rescore.finish()
 
     with stage("pull"):
         stacked = {k: torch.cat([c[k].to(dev) for c in chunks]).cpu()

@@ -542,6 +542,7 @@ class MFModel(object):
                           % (K, has_csf, has_ear, idx.size))
                 st_bucket = time.time()
                 name = "bucket K=%d csf=%d ear=%d" % (K, has_csf, has_ear)
+                note = ""
                 if K == 0:
                     pend = (lambda i_=idx, c_=has_csf, e_=has_ear:
                             fit_mod.run_bucket_trivial(
@@ -555,6 +556,7 @@ class MFModel(object):
                             sig_ear=sig_ear, ear_on=has_ear, mesh=mesh,
                             defer=True)
                 else:
+                    before = dict(fit_mod.RESCORES)
                     with stage(name, dev):
                         res_now = fit_mod.run_bucket(
                             tables, plan, peaks_roi[idx, :3 * K], y_roi[idx],
@@ -563,24 +565,29 @@ class MFModel(object):
                             ms_host=self.ms_interpolator, plan_host=plan_h,
                             topm=topm, mesh=mesh)
                     pend = (lambda r=res_now: r)
+                    if refine:
+                        note = ("; chunks re-scored: %d overlapped, %d tail"
+                                % tuple(fit_mod.RESCORES[k] - before[k]
+                                        for k in ("overlapped", "tail")))
                 if VRB >= 2:
                     print("Bucket K=%d csf=%d ear=%d (%d voxels) dispatched "
                           "in %g second(s)." % (K, has_csf, has_ear, idx.size,
                                                 time.time() - st_bucket))
                 pending.append(((K, has_csf, has_ear), idx, pend, st_bucket,
-                                name))
+                                name, note))
             if VRB >= 2:
                 print("All %d bucket(s) dispatched in %g second(s)."
                       % (len(pending), time.time() - st_est))
             vox_done = 0
-            for (K, has_csf, has_ear), idx, pend, st_bucket, name in pending:
+            for (K, has_csf, has_ear), idx, pend, st_bucket, name, note \
+                    in pending:
                 st_pull = time.time()
                 with stage(name, dev if K else None):
                     w, ind, obj, mse, r2 = pend()
                 if VRB >= 2:
-                    print("Bucket K=%d csf=%d ear=%d (%d voxels) pulled in "
+                    print("Bucket K=%d csf=%d ear=%d (%d voxels%s) pulled in "
                           "%g second(s)." % (K, has_csf, has_ear, idx.size,
-                                             time.time() - st_pull))
+                                             note, time.time() - st_pull))
                 if VRB >= 3:
                     t_vox = (time.time() - st_bucket) / max(idx.size, 1)
                     hits = np.arange(vox_done, vox_done + idx.size)

@@ -164,7 +164,7 @@ def _solve_support_ear(cols, y, sig_ear):
 
 
 def refine_candidates(ms, plan, peaks, y, sig_csf, sig_ear,
-                      cand_ids, K, csf_on, ear_on):
+                      cand_ids, K, csf_on, ear_on, cols=None):
     """Select the exact winner among device candidates, in float64.
 
     Args:
@@ -174,6 +174,10 @@ def refine_candidates(ms, plan, peaks, y, sig_csf, sig_ear,
       cand_ids (B, M, C) int32 per-sub-dictionary candidate indices
         (C = K + csf_on + ear_on). With an EAR block, the ear slot of
         cand_ids is advisory only: the ear atom is re-enumerated exactly.
+      cols: None, or a C-contiguous float64 (K + csf_on, B, M, Nseq)
+        buffer for the columns whose CSF plane (index K) already holds
+        ``sig_csf`` (``fit.run_bucket`` reuses one across a bucket's
+        chunks); None allocates one.
     Returns (w (B, C), ind (B, C) int32, min_obj (B,), y_rec (B, Nseq)).
     """
     with stage("refine"):
@@ -182,12 +186,13 @@ def refine_candidates(ms, plan, peaks, y, sig_csf, sig_ear,
         Nseq = y.shape[1]
         C0 = K + int(csf_on)
         with stage("refine.columns"):
-            cols = np.empty((C0, B, M, Nseq), dtype=np.float64)
+            if cols is None:
+                cols = np.empty((C0, B, M, Nseq), dtype=np.float64)
+                if csf_on:
+                    cols[K] = sig_csf[None, None, :]
             for k in range(K):
                 interp_columns(ms, plan, peaks[:, k, :], cand_ids[:, :, k],
                                out=cols[k])
-            if csf_on:
-                cols[K] = sig_csf[None, None, :]
         with stage("refine.solve"):
             return _select(cols, y, sig_ear, cand_ids, ear_on)
 

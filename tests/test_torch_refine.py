@@ -14,14 +14,17 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from microstructure_fingerprinting_tpu.models import fit as jfit
 from microstructure_fingerprinting_tpu.models import refine as jrefine
 from microstructure_fingerprinting_tpu.ops import interp as jinterp
 
 from microstructure_fingerprinting_torch import testing as ttesting
+from microstructure_fingerprinting_torch.models import fit as tfit
 from microstructure_fingerprinting_torch.models import refine as trefine
 from microstructure_fingerprinting_torch.ops import interp as tinterp
+from microstructure_fingerprinting_torch.parallel import mesh as tmesh
 from microstructure_fingerprinting_torch.utils import native
 from microstructure_fingerprinting_torch.utils.scheme import b_values
 
@@ -210,3 +213,139 @@ def test_native_without_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "CXX_CMDS", (("false",), ("false", "-x")))
     assert not native.available()
     assert os.listdir(tmp_path / "build") == []
+
+
+# ---------------------------------------------------------------------------
+# the general path's re-score chunk by chunk (fit.run_bucket with refine)
+# ---------------------------------------------------------------------------
+
+def _bucket_call(wl, K, csf, ear, n, batch):
+    """``run_bucket(..., refine=True)`` on ``n`` noisy voxels of bucket
+    (K, csf, ear) in chunks of ``batch``, float32 scans on the CPU:
+    (args, keywords)."""
+    mix = ttesting.make_mixed(wl, [(n, K, csf)],
+                              wl["sig_ear"] if ear else None, ear_atom=0,
+                              ear_amp=60.0)
+    y = mix["y"] + 2.0 * np.random.RandomState(5).randn(*mix["y"].shape)
+    tables = wl["tms"].device_tables("cpu", torch.float32)
+    plan = tfit.plan_tensors(wl["jplan"], torch.float32, "cpu")
+    args = (tables, plan, mix["peaks"][:, :3 * K], y, wl["sig_csf"],
+            wl["sig_ear"], K, csf, ear)
+    return args, dict(batch=batch, refine=True, ms_host=wl["tms"],
+                      plan_host=wl["jplan"], topm=16)
+
+
+def _bitwise(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("n,batch", [(7, 3), (5, 8)],
+                         ids=["not-a-multiple", "under-a-chunk"])
+@pytest.mark.parametrize("K,csf,ear", [(2, True, False), (1, False, True),
+                                       (2, True, True)])
+def test_run_bucket_rescores_chunks_bitwise(wl, monkeypatch, K, csf, ear,
+                                            n, batch, route):
+    """``run_bucket(..., refine=True)``, which re-scores chunk by chunk in
+    one reused column buffer, returns what ``refine_candidates`` on the
+    whole bucket's candidates (the scan's, chunk by chunk), then
+    ``_r2_np``, return, bit for bit: a bucket of 7 voxels in chunks of 3
+    and one of 5 in a chunk of 8, on the native and the NumPy route."""
+    if route == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    seen = []
+    step = tfit.fit_step_candidates
+
+    def spy(*a, **k):
+        seen.append(step(*a, **k))
+        return seen[-1]
+
+    monkeypatch.setattr(tfit, "fit_step_candidates", spy)
+    args, kw = _bucket_call(wl, K, csf, ear, n, batch)
+    got = tfit.run_bucket(*args, **kw)
+    assert len(seen) == -(-n // batch)
+    cand = torch.cat(seen).numpy()[:n]
+    y = args[3]
+    w, ind, obj, y_rec = trefine.refine_candidates(
+        wl["tms"], wl["jplan"], args[2].reshape(n, K, 3), y,
+        wl["sig_csf"] if csf else None, wl["sig_ear"] if ear else None,
+        cand, K, csf, ear)
+    obj = np.maximum(obj, 0.0)
+    _bitwise(got, (w, ind, obj, obj / y.shape[1], tfit._r2_np(y, y_rec)))
+
+
+class _Event:
+    def __init__(self, c, dst, src):
+        self.c, self.dst, self.src, self.landed = c, dst, src, False
+
+
+class _StandInPulls(tfit._Pulls):
+    """The card's chunk copies on the CPU: chunk c's copy lands (its data
+    reach the host buffer, left full of -1 until then) once ``lag`` more
+    chunks have been copied after it, or when it is waited for; with
+    ``lag`` None only then."""
+
+    def __init__(self, lag):
+        self.lag, self.events, self.waits = lag, [], []
+
+    def host(self, shape, dtype, device):
+        return torch.full(shape, -1, dtype=dtype)
+
+    def copy(self, dst, src):
+        self.events.append(_Event(len(self.events), dst, src.clone()))
+        return self.events[-1]
+
+    def _land(self, ev):
+        if not ev.landed:
+            ev.dst.copy_(ev.src)
+            ev.landed = True
+
+    def done(self, ev):
+        if self.lag is not None and len(self.events) > ev.c + self.lag:
+            self._land(ev)
+        return ev.landed
+
+    def wait(self, ev):
+        self.waits.append(ev.c)
+        self._land(ev)
+
+
+@pytest.mark.parametrize("lag,rows", [(0, 1), (1, 1), (3, 1), (None, 1),
+                                      (2, 2)])
+def test_run_bucket_rescore_pipeline(wl, monkeypatch, lag, rows):
+    """With a stand-in for the card's copies and events, ``run_bucket``
+    re-scores each of its 8 chunks once, in chunk order, none before its
+    copy has landed; the chunks whose copies land before the last chunk
+    step is enqueued count as overlapped in ``fit.RESCORES``, the others
+    as tail, and only those are waited for; every call writes the same
+    (C0, batch, M, S) column buffer; the maps equal the plain serial
+    run's bit for bit, also with the chunks dealt to a two-row CPU
+    mesh."""
+    args, kw = _bucket_call(wl, 2, True, False, 8, 1)
+    want = tfit.run_bucket(*args, **kw)
+    pulls = _StandInPulls(lag)
+    monkeypatch.setattr(tfit, "_PULLS", pulls)
+    calls = []
+    refine = trefine.refine_candidates
+
+    def spy(*a, cols=None, **k):
+        c = int(np.flatnonzero((args[3] == a[3][0]).all(axis=1))[0])
+        calls.append((c, pulls.events[c].landed, id(cols), cols.shape))
+        return refine(*a, cols=cols, **k)
+
+    monkeypatch.setattr(trefine, "refine_candidates", spy)
+    mesh = tmesh.build_mesh(2, 1, devices=["cpu", "cpu"]) if rows == 2 \
+        else None
+    before = dict(tfit.RESCORES)
+    got = tfit.run_bucket(*args, mesh=mesh, **kw)
+    _bitwise(got, want)
+    assert [c for c, *_ in calls] == list(range(8))
+    assert all(landed for _c, landed, *_ in calls)
+    assert len({i for *_, i, _s in calls}) == 1
+    assert all(sh == (3, 1, 16, args[3].shape[1]) for *_, sh in calls)
+    overlapped = 0 if lag is None else max(0, 7 - lag)
+    assert {k: tfit.RESCORES[k] - before[k] for k in before} == {
+        "overlapped": overlapped, "tail": 8 - overlapped}
+    assert pulls.waits == list(range(overlapped, 8))

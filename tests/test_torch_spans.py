@@ -109,9 +109,10 @@ def test_general_fit_spans_nest(volume, tmp_path):
     """An ``engine="xla"``, ``refine=True`` fit under ``device_trace``:
     ``mf.fit`` holds ``mf.marshal``, each bucket's span and
     ``mf.assemble``; the general bucket's span holds ``mf.push``,
-    ``mf.pull`` and ``mf.refine``, which holds ``mf.refine.columns`` and
-    ``mf.refine.solve``; the CSF-only bucket's holds ``mf.trivial``. The
-    maps are those of the fit without the profiler, bit for bit."""
+    ``mf.pull`` and one ``mf.refine`` a chunk, which holds
+    ``mf.refine.columns`` and ``mf.refine.solve``; the CSF-only bucket's
+    holds ``mf.trivial``. The maps are those of the fit without the
+    profiler, bit for bit."""
     dic, args, kw = volume
     kw = dict(kw, engine="xla", refine=True)
     model = mft.MFModel(dic)
@@ -132,9 +133,10 @@ def test_general_fit_spans_nest(volume, tmp_path):
     for name in ("mf.push", "mf.pull", "mf.refine"):
         for s in _named(spans, name):
             assert any(_inside(s, b) for b in buckets), name
-    assert any(_inside(s, general[0]) for s in _named(spans, "mf.refine"))
     refines = _named(spans, "mf.refine")
-    assert len(refines) == 3          # a bucket with fascicles each
+    # a chunk of BATCH each: 2 + 2 + 1 of the three buckets with fascicles
+    assert len(refines) == 5
+    assert sum(_inside(s, general[0]) for s in refines) == 2
     for part in ("mf.refine.columns", "mf.refine.solve"):
         assert len(_named(spans, part)) == len(refines)
         for s in _named(spans, part):
