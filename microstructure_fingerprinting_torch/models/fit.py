@@ -39,6 +39,14 @@ the chunks queued after it (``RESCORES`` counts how often).
 ``run_bucket_trivial`` solves the fascicle-free (CSF and/or EAR) voxels
 in closed form on the host.
 
+With ``refine`` (``MFModel.fit``'s default) ``run_bucket_fast`` makes
+its selection exact against the float64 optimum too: each chunk step
+certifies its voxels' winners against the float32 rotation's error
+bound (``models/certify.py``); the voxels it cannot certify are
+re-scored on the host among their near-ties (``_Exact``), the few left
+certified again wider and then solved by the general path's scan in
+float64. ``CERTIFY`` counts the voxels of each kind.
+
 ``run_bucket_fast`` and ``run_bucket`` take a device mesh
 (``parallel/mesh.py``): whole chunks are dealt to its data rows, so
 every voxel's result is the serial fit's.
@@ -52,11 +60,14 @@ and the atoms-split scan stay eager.
 
 Spans (``utils/profiling.stage``) of the bucket runners: "push" (a
 bucket's pushes), "pull" (each blocking read from the card), "overflow
-2R" and "overflow N" (a tier's batches), "trivial"
-(``run_bucket_trivial``); the chunk steps' stages ("rotation", "scan",
-...) as before.
+2R" and "overflow N" (a tier's batches), "certify" (a chunk's host
+re-score of its near-ties), "certify fallback" (the wide pass and the
+exhaustive float64 solve), "trivial" (``run_bucket_trivial``); the chunk
+steps' stages ("rotation", "scan", ..., "certificate" and in it
+"certificate bound") as before.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -69,6 +80,7 @@ from ..ops import interp as mfi
 from ..ops import nnls as mfn
 from ..ops import rescan
 from ..utils.profiling import stage
+from . import certify
 from . import graphs
 from . import refine as refine_mod
 
@@ -97,63 +109,114 @@ def _finalized(D, csf_d, ear_d, y, cand, K, csf_on, ear_on, ok=None):
     return cand, w, obj, r2, ok
 
 
-def _twopass_step3(D, csf_d, y, R):
+def _certified(out, cells, D, csf_d, ear_d, y, cert, winner, ok=None,
+               **grid):
+    """A chunk step's result ``out`` (cand, w, obj, r2, ok) followed, with
+    a ``cert`` (``_Cert``), by its certificate packed in one (B, 2 + 3 M)
+    int32 tensor: status, the count of candidates, the candidates
+    (``models/certify.certify``). ``ok``: the row pass's budget flags
+    where rows were pruned (their voxels read ``certify.OVERFLOW``)."""
+    if cert is None:
+        return out
+    grid.update(cells, ok=ok)
+    grid["q"] *= cert.wide
+    with stage("certificate", y.device):
+        with stage("certificate bound", y.device):
+            eta = cert.bound.eta(cert.pk, cert.pk64)
+        status, cand, n = certify.certify(D, y, csf_d, ear_d, eta,
+                                          grid.pop("cellv"), grid, winner)
+        pack = torch.cat([status[:, None], n[:, None],
+                          cand.reshape(y.shape[0], -1)], dim=1)
+    return out + (pack,)
+
+
+def _twopass_step3(D, csf_d, y, R, cert=None):
     """One chunk of the production path: interval row pass -> row
     selection -> df re-scan -> winner finalize."""
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
-    cand, _vals, _ysq, ok = f32.df3_twopass(D[:, 0], D[:, 1], csf_blk, y,
-                                            R=R)
-    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False, ok)
+    cand, _vals, _ysq, ok, *cells = f32.df3_twopass(
+        D[:, 0], D[:, 1], csf_blk, y, R=R, cells=cert is not None)
+    out = _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False, ok)
+    return _certified(out, *cells[:1] or [{}], D, csf_d, None, y, cert,
+                      cand[:, 0], ok if R < D.shape[3] else None,
+                      inner="fasc", fixed=3, q=certify.Q_CELLS)
 
 
-def _onepass_step3(D, csf_d, y):
+def _onepass_step3(D, csf_d, y, cert=None):
     """Full-grid df scan (dictionaries with N <= 2R) + finalize."""
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    N2 = D.shape[3]
     with stage("re-scan", y.device):
         rr, ri, _ysq = rescan.row_scan_df3(D[:, 0], D[:, 1], csf_blk, y)
-        cand, _v = rescan.candidates_from_rows(
-            rr, ri, segments=rescan.n_segments(D.shape[3]))
-    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
+        n_seg = rescan.n_segments(N2)
+        cand, _v = rescan.candidates_from_rows(rr, ri, segments=n_seg)
+    out = _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
+    return _certified(
+        out, dict(cellv=rr, n1p=rr.shape[1] // n_seg, n2=N2, rows=None,
+                  cols=None, segw=rescan.col_blocks(N2)[1]
+                  // rescan._SEGMENTS),
+        D, csf_d, None, y, cert, cand[:, 0], inner="fasc", fixed=3,
+        q=certify.Q_CELLS)
 
 
-def _twopass_step4(D, csf_d, ear_d, y, R):
+def _twopass_step4(D, csf_d, ear_d, y, R, cert=None):
     """One chunk of the EAR production path: 4-block interval row pass ->
     row/column selection -> df4 re-scan -> winner finalize."""
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
     ear_blk = ear_d[None].expand(B, S, ear_d.shape[1])
-    cand, _vals, _ysq, ok = f32.df4_twopass(D[:, 0], D[:, 1], csf_blk,
-                                            ear_blk, y, R=R)
-    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True, ok)
+    cand, _vals, _ysq, ok, *cells = f32.df4_twopass(
+        D[:, 0], D[:, 1], csf_blk, ear_blk, y, R=R, cells=cert is not None)
+    out = _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True, ok)
+    return _certified(out, *cells[:1] or [{}], D, csf_d, ear_d, y, cert,
+                      cand[:, 0], ok if R < D.shape[3] else None,
+                      inner="fasc", ear_axis=True, fixed=4,
+                      q=certify.Q_CELLS_EAR)
 
 
-def _onepass_step4(D, csf_d, ear_d, y):
+def _onepass_step4(D, csf_d, ear_d, y, cert=None):
     """Full-grid df4 scan (dictionaries with N <= 2R) + finalize."""
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
     ear_blk = ear_d[None].expand(B, S, ear_d.shape[1])
     N2, E = D.shape[3], ear_d.shape[1]
+    segs = rescan.df4_cell_segments(N2) if cert is not None else 1
     with stage("re-scan", y.device):
         rr, rf, _ysq = rescan.row_scan_df4(D[:, 0], D[:, 1], csf_blk,
-                                           ear_blk, y)
+                                           ear_blk, y, segments=segs)
+        n_seg = rescan.n_segments_df4(N2, segs)
         cand, _v = rescan.candidates_from_rows_df4(
-            rr, rf, E, E, N2, segments_total=rescan.n_segments_df4(N2))
-    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True)
+            rr, rf, E, E, N2, segments_total=n_seg)
+    out = _finalized(D, csf_d, ear_d, y, cand[:, 0], 2, True, True)
+    return _certified(
+        out, dict(cellv=rr, n1p=rr.shape[1] // n_seg, n2=N2, rows=None,
+                  cols=None, segw=rescan.col_blocks(N2, 256, 16)[1] // segs),
+        D, csf_d, ear_d, y, cert, cand[:, 0], inner="fasc", ear_axis=True,
+        fixed=4, q=certify.Q_CELLS_EAR)
 
 
-def _scan12_step(D, csf_d, y):
+def _scan12_step(D, csf_d, y, cert=None):
     """One fascicle + CSF: the [N, 1] df2 scan (the CSF column as the
     second axis) + finalize."""
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
     with stage("df2 scan", y.device):
-        cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], csf_blk, y, M=1)
-    return _finalized(D, csf_d, None, y, cand[:, 0], 1, True, False)
+        if cert is None:
+            cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], csf_blk, y, M=1)
+        else:
+            cand, _v, _ysq, rv = dfscan.df2_row_minima(D[:, 0], csf_blk, y)
+    out = _finalized(D, csf_d, None, y, cand[:, 0], 1, True, False)
+    if cert is None:
+        return out
+    return _certified(
+        out, dict(cellv=rv, n1p=rv.shape[1], n2=1, rows=None, cols=None,
+                  segw=1), D, csf_d, None, y, cert, cand[:, 0],
+        inner="csf", fixed=2, q=certify.Q_CELLS_ONE)
 
 
-def _scan13_step(D, csf_d, ear_d, y):
+def _scan13_step(D, csf_d, ear_d, y, cert=None):
     """One fascicle + CSF + EAR: kernel 3 on the full [N, E, 1] grid (the
     EAR atoms as the second axis, CSF the fixed third block; first
     minimum in (i1, e) order, E <= one segment of columns) + finalize."""
@@ -163,39 +226,67 @@ def _scan13_step(D, csf_d, ear_d, y):
     ear_blk = ear_d[None].expand(B, S, E)
     with stage("re-scan", y.device):
         rr, ri, _ysq = rescan.row_scan_df3(D[:, 0], ear_blk, csf_blk, y)
-        cand, _v = rescan.candidates_from_rows(
-            rr, ri, segments=rescan.n_segments(E))
-    return _finalized(D, csf_d, ear_d, y, cand[:, 0], 1, True, True)
+        n_seg = rescan.n_segments(E)
+        cand, _v = rescan.candidates_from_rows(rr, ri, segments=n_seg)
+    out = _finalized(D, csf_d, ear_d, y, cand[:, 0], 1, True, True)
+    return _certified(
+        out, dict(cellv=rr, n1p=rr.shape[1] // n_seg, n2=E, rows=None,
+                  cols=None, segw=rescan.col_blocks(E)[1] // rescan._SEGMENTS),
+        D, csf_d, ear_d, y, cert, cand[:, 0], inner="ear", fixed=3,
+        q=certify.Q_CELLS)
 
 
-def _scan22_step(D, y):
+def _scan22_step(D, y, cert=None):
     """Two fascicles without CSF: the [N, N] df2 scan + finalize."""
     with stage("df2 scan", y.device):
-        cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], D[:, 1], y, M=1)
-    return _finalized(D, None, None, y, cand[:, 0], 2, False, False)
+        if cert is None:
+            cand, _v, _ysq = dfscan.df2_candidates(D[:, 0], D[:, 1], y, M=1)
+        else:
+            cand, _v, _ysq, rv = dfscan.df2_row_minima(D[:, 0], D[:, 1], y)
+    out = _finalized(D, None, None, y, cand[:, 0], 2, False, False)
+    if cert is None:
+        return out
+    return _certified(
+        out, dict(cellv=rv, n1p=rv.shape[1], n2=D.shape[3], rows=None,
+                  cols=None, segw=D.shape[3]), D, None, None, y, cert,
+        cand[:, 0], inner="full", fixed=2, q=certify.Q_CELLS_ROW)
 
 
-def _chunk_step(rotate, tables_ys, csf_d, ear_d, pk, y, *, K, csf_on,
-                ear_on, R):
+class _Cert:
+    """What a chunk step's certificate reads besides the scan: the
+    rotation's error bound, the chunk's directions in float32 (as the
+    rotation read them) and in float64, and how many times the usual
+    cells it evaluates (``wide``)."""
+
+    def __init__(self, bound, pk, pk64, wide=1):
+        self.bound, self.pk, self.pk64, self.wide = bound, pk, pk64, wide
+
+
+def _chunk_step(rotate, tables_ys, csf_d, ear_d, pk, y, bound=None,
+                pk64=None, *, K, csf_on, ear_on, R, wide=1):
     """One chunk of a fast-path bucket: the rotation of its voxels'
     directions ``pk`` (B, K, 3), then its bucket's scan and finalize
     (two-pass at row budget R, or with R None the full grid where the
-    bucket has one). Returns (cand, w, obj, r2, ok)."""
+    bucket has one). Returns (cand, w, obj, r2, ok); with a ``bound``
+    (``models/certify.Bound``) and the directions in float64 ``pk64``,
+    a sixth item, the chunk's certificate (``_certified``) over
+    ``wide`` times its usual cells."""
     with stage("rotation", y.device):
         D = rotate(tables_ys, pk)
+    cert = None if bound is None else _Cert(bound, pk, pk64, wide)
     if K == 1:
         if ear_on:
-            return _scan13_step(D, csf_d, ear_d, y)
-        return _scan12_step(D, csf_d, y)
+            return _scan13_step(D, csf_d, ear_d, y, cert)
+        return _scan12_step(D, csf_d, y, cert)
     if not csf_on:
-        return _scan22_step(D, y)
+        return _scan22_step(D, y, cert)
     if ear_on:
         if R is None:
-            return _onepass_step4(D, csf_d, ear_d, y)
-        return _twopass_step4(D, csf_d, ear_d, y, R)
+            return _onepass_step4(D, csf_d, ear_d, y, cert)
+        return _twopass_step4(D, csf_d, ear_d, y, R, cert)
     if R is None:
-        return _onepass_step3(D, csf_d, y)
-    return _twopass_step3(D, csf_d, y, R)
+        return _onepass_step3(D, csf_d, y, cert)
+    return _twopass_step3(D, csf_d, y, R, cert)
 
 
 def _pinned(device):
@@ -233,22 +324,200 @@ def _deal(n_pad, batch, n_rows):
     return shares, where
 
 
-def _sharded_step3(devices, D, csf_d, y):
+def _sharded_step3(devices, D, csf_d, y, cert=None):
     """Two fascicles + CSF on one data row of a mesh: the [N, N, 1] df
     scan with the second block's atoms split over the row's ``devices``
-    (``parallel/mesh.atoms_df3_candidates``) + finalize."""
+    (``parallel/mesh.atoms_df3_candidates``) + finalize. With a ``cert``
+    the scan keeps its ``certify.Q_CELLS_ONE`` best combinations, each a
+    cell of the certificate (the first is the top-1's)."""
     from ..parallel import mesh as pmesh
     B, S = y.shape
     csf_blk = csf_d[None, :, None].expand(B, S, 1)
+    m = 1 if cert is None else certify.Q_CELLS_ONE
     with stage("atoms scan", y.device):
-        cand, _v, _ysq = pmesh.atoms_df3_candidates(
-            devices, D[:, 0], D[:, 1], csf_blk, y, M=1)
-    return _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
+        cand, vals, _ysq = pmesh.atoms_df3_candidates(
+            devices, D[:, 0], D[:, 1], csf_blk, y, M=m)
+    out = _finalized(D, csf_d, None, y, cand[:, 0], 2, True, False)
+    if cert is None:
+        return out
+    return _certified(
+        out, dict(cellv=vals, n1p=m, n2=D.shape[3], segw=1,
+                  rows=cand[:, :, 0].long(), cols=None,
+                  inner_of_cell=cand[:, :, 1].long()),
+        D, csf_d, None, y, cert, cand[:, 0], inner="fasc", fixed=3,
+        q=certify.Q_CELLS_ONE - 1)
+
+
+#: the fast path's voxels since the process started, by how their atoms
+#: were decided (``refine``): certified by the scan alone, re-scored in
+#: float64 on the host among their near-ties, or solved by the
+#: exhaustive float64 fallback
+CERTIFY = {"certified": 0, "rescored": 0, "fallback": 0}
+#: voxels a chunk of the fallback's exhaustive float64 solve
+FALLBACK_BATCH = 16
+#: the host re-score's groups of voxels by their count of candidates
+_GROUPS = (1, 2, 4, 8, 16, 32, 64)
+#: the certificate's wide pass over the voxels it first hands to the
+#: fallback: this many times the usual cells, in batches of this many
+#: voxels (a chunk's where the chunk is smaller)
+WIDE = 8
+WIDE_BATCH = 64
+
+
+def _refine_layout(cand3, K, csf_on, ear_on):
+    """``certify.certify``'s candidates (n, M, 3) [i1, second axis, EAR
+    atom] in ``refine_candidates``' layout (n, M, C) [fascicles..., csf=0,
+    ear]."""
+    c = cand3.astype(np.int32)
+    zero = np.zeros_like(c[..., :1])
+    if K == 1:
+        if ear_on:                                     # [i1, csf, e]
+            return np.concatenate([c[..., :1], zero, c[..., 1:2]], axis=-1)
+        return np.concatenate([c[..., :1], zero], axis=-1)
+    if not csf_on:
+        return c[..., :2]
+    if ear_on:
+        return np.concatenate([c[..., :2], zero, c[..., 2:]], axis=-1)
+    return np.concatenate([c[..., :2], zero], axis=-1)
+
+
+class _Exact:
+    """The host side of the fast path's exact selection for one bucket:
+    each chunk's certificate (``_certified``'s pack) is copied to pinned
+    host memory behind its step and read once it has landed, in chunk
+    order; the voxels it leaves to a re-score have their candidates
+    solved in float64 (``refine_candidates``: the general path's
+    function and native columns), the voxels it hands to the fallback
+    wait for ``fallback``. ``apply`` writes both into a bucket's
+    results."""
+
+    def __init__(self, n, batch, ms_host, plan_host, pk64, y64, sig_csf,
+                 sig_ear, K, csf_on, ear_on, device):
+        self.n, self.batch = n, batch
+        self.ms, self.plan = ms_host, plan_host
+        self.pk64, self.y64 = pk64, y64
+        self.K, self.csf_on, self.ear_on = K, csf_on, ear_on
+        self.csf = np.asarray(sig_csf, np.float64) if csf_on else None
+        self.ear = np.asarray(sig_ear, np.float64) if ear_on else None
+        self.host = _PULLS.host((pk64.shape[0], 2 + 3 * certify.M),
+                                torch.int32, device)
+        self.events = []
+        self.next = 0
+        self.fixed = []         # (voxels, (w, ind, obj, r2)) re-solved
+        self.pending = []       # voxels awaiting the wide pass
+        self.fallen = []        # voxels for the exhaustive solve
+        self.wide = None        # wide(voxels) -> their wide certificates
+
+    def add(self, pack):
+        """Enqueue the copy of the next chunk's certificate to the host."""
+        c = len(self.events)
+        rows = slice(c * self.batch, (c + 1) * self.batch)
+        self.events.append(_PULLS.copy(self.host[rows], pack))
+
+    def drain(self):
+        """Wait for the remaining chunks in order and read each; then
+        run the wide pass of every voxel still waiting for it."""
+        while self.next < len(self.events):
+            with stage("pull"):
+                _PULLS.wait(self.events[self.next])
+            self._chunk()
+        self.flush(everything=True)
+
+    def _chunk(self):
+        c, b = self.next, self.batch
+        lo, hi = c * b, min((c + 1) * b, self.n)
+        self.take(np.arange(lo, hi), self.host[lo:hi].numpy())
+        self.next += 1
+        self.flush()
+
+    def flush(self, everything=False):
+        """The wide pass of the voxels waiting for it, a full batch at a
+        time (``everything``: the last one too); what it leaves
+        undecided goes to the exhaustive solve."""
+        wait = np.unique(np.concatenate(self.pending or
+                                        [np.zeros(0, int)]))
+        size = WIDE_BATCH if self.batch >= WIDE_BATCH else self.batch
+        while wait.size >= size or (everything and wait.size):
+            sel, wait = wait[:size], wait[size:]
+            packs = self.wide(sel)
+            # a lone candidate here is re-scored too: the chunk's own
+            # winner came from a narrower scan
+            packs[packs[:, 0] == certify.CERTIFIED, 0] = certify.RESCORE
+            self.take(sel, packs, final=True)
+        self.pending = [wait]
+
+    def take(self, idx, packs, final=False):
+        """Read the certificates ``packs`` (k, 2 + 3 M) of voxels ``idx``:
+        re-score those it leaves to the host, note those for the wide
+        pass (``final``: for the exhaustive solve); a voxel that
+        overflowed its row budget waits for its tier's certificate."""
+        status = packs[:, 0]
+        (self.fallen if final else self.pending).append(
+            idx[status == certify.FALLBACK])
+        sel = status == certify.RESCORE
+        if not sel.any():
+            return
+        n = packs[:, 1]
+        with stage("certify"):
+            # voxels grouped by their count of candidates, each group
+            # handed that many (at most twice its voxels' own)
+            lo = 0
+            for hi in _GROUPS:
+                grp = sel & (n > lo) & (n <= hi)
+                lo = hi
+                if not grp.any():
+                    continue
+                vox = idx[grp]
+                m = int(n[grp].max())
+                cand = _refine_layout(
+                    packs[grp, 2:].reshape(-1, certify.M, 3)[:, :m], self.K,
+                    self.csf_on, self.ear_on)
+                y = self.y64[vox]
+                w, ind, obj, y_rec = refine_mod.refine_candidates(
+                    self.ms, self.plan, self.pk64[vox, :self.K], y, self.csf,
+                    self.ear, cand, self.K, self.csf_on, self.ear_on)
+                self.fixed.append((vox, (w, ind, obj, _r2_np(y, y_rec))))
+
+    def fallback(self, dev):
+        """The exhaustive float64 solve of every voxel handed to the
+        fallback: the general path's scan in float64 on ``dev``."""
+        vox = np.unique(np.concatenate(self.fallen or [np.zeros(0, int)]))
+        self.fallen = vox
+        if not vox.size:
+            return
+        # on a card, a stream of its own (its copies too): the solve need
+        # not wait for the chunks of the buckets queued after this one
+        side = (torch.cuda.stream(torch.cuda.Stream(dev))
+                if dev.type == "cuda" else contextlib.nullcontext())
+        with stage("certify fallback"), graphs.eager(), side:
+            tables = self.ms.device_tables(dev, torch.float64)
+            plan = plan_tensors(self.plan, torch.float64, dev)
+            w, ind, obj, _mse, r2 = run_bucket(
+                tables, plan, self.pk64[vox, :self.K].reshape(vox.size, -1),
+                self.y64[vox], self.csf, self.ear, self.K, self.csf_on,
+                self.ear_on, batch=FALLBACK_BATCH, dtype=torch.float64)
+        self.fixed.append((vox, (w, ind, obj, r2)))
+
+    def apply(self, w, ind, obj, r2):
+        """Write the re-scored and fallback voxels into the bucket's (w,
+        ind, obj, r2), in the order they were solved (a voxel of an
+        overflow tier, or of the fallback, last), and count every
+        voxel."""
+        moved = set()
+        for vox, (w_v, ind_v, obj_v, r2_v) in self.fixed:
+            w[vox], ind[vox], r2[vox] = w_v, ind_v, r2_v
+            obj[vox] = np.maximum(obj_v, 0.0)
+            moved.update(vox.tolist())
+        n_fb = len(self.fallen)
+        CERTIFY["fallback"] += n_fb
+        CERTIFY["rescored"] += len(moved) - n_fb
+        CERTIFY["certified"] += self.n - len(moved)
 
 
 def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                     K, csf_on, batch=128, rotator=None, sig_ear=None,
-                    ear_on=False, mesh=None, defer=False):
+                    ear_on=False, mesh=None, defer=False, refine=False,
+                    bound=None):
     """One fast-path bucket with fascicles: rotation, exact scan and the
     double-float finalize, in ``batch``-voxel chunks on
     ``tables_ys.device``.
@@ -263,6 +532,19 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     band overflows R are re-solved at 2R (batch ``min(batch, 64)``), then
     at R = N, so exact selection is unconditional. The other buckets
     scan their whole grid.
+
+    With ``refine`` the selection is exact against the float64 optimum
+    too (``models/certify``): each chunk step also certifies its
+    voxels' winners against the float32 rotation's error bound
+    (``bound``, a ``certify.Bound`` of ``ms_host`` and ``plan_host``,
+    built here when None); a chunk's certificate is copied to the host
+    behind its step and, once it has landed, the voxels whose near-ties
+    it cannot decide have them re-scored in float64 on the host, span
+    "certify", while the card runs the chunks queued after it; the few
+    voxels with too many near-ties are solved by the exhaustive float64
+    fallback after the bucket's pull, span "certify fallback".
+    ``CERTIFY`` counts the voxels of each kind. A certified voxel's
+    result is the scan's, bit for bit.
 
     With a ``mesh`` (``parallel/mesh.Mesh``) the chunks, and then the
     overflow batches, are dealt to its data rows in turn, each row's
@@ -304,6 +586,10 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                         > f32.ROW4_HOIST_MAX_E))
     if rotator is None:
         rotator = mfi.make_grouped_rotation_paired(ms_host, plan_host)
+    if refine and bound is None:
+        bound = certify.Bound(ms_host, plan_host)
+    if not refine:
+        bound = None
     rotate, perm = rotator
     dev, dt = tables_ys.device, tables_ys.dtype
     rows = [[dev]] if mesh is None else mesh.devices
@@ -315,20 +601,29 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
     shares, where = _deal(n_pad, batch, n_rows)
 
     def pushed(idx, j):
-        """Directions and signals of the voxels ``idx`` on row j."""
-        return (_push(pk[idx], slots[j], dt, held),
-                _push(y_all[idx], slots[j], dt, held))
+        """Directions and signals of the voxels ``idx`` on row j (and,
+        with the certificate, the directions in float64)."""
+        got = (_push(pk[idx], slots[j], dt, held),
+               _push(y_all[idx], slots[j], dt, held))
+        if bound is None:
+            return got
+        return got + (_push(pk[idx], slots[j], torch.float64, held),)
 
-    def solved(j, pk_c, yy, R, graph=True):
+    def solved(j, pk_c, yy, R, pk64_c=None, graph=True, wide=1):
         """Chunk (pk_c, yy) on row j, through ``graphs.run`` or, for an
-        overflow tier, eagerly."""
+        overflow tier and the certificate's wide pass, eagerly."""
         tables_j, csf_j, ear_j = consts[slots[j]]
+        cert = None if bound is None else _Cert(bound, pk_c, pk64_c, wide)
         if sharded:
             with stage("rotation", slots[j]):
                 D = rotate(tables_j, pk_c)
-            return _sharded_step3(rows[j], D, csf_j, yy)
+            return _sharded_step3(rows[j], D, csf_j, yy, cert)
         args = (rotate, tables_j, csf_j, ear_j, pk_c, yy)
+        if bound is not None:
+            args += (bound, pk64_c)
         kw = dict(K=K, csf_on=bool(csf_on), ear_on=bool(ear_on), R=R)
+        if wide > 1:
+            kw["wide"] = wide
         if graph:
             return graphs.run(_chunk_step, *args, **kw)
         return _chunk_step(*args, **kw)
@@ -357,23 +652,54 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
             y_all[n:] = y_all[0]
         # each row's chunks pushed at once
         pushes = [pushed(idx, j) for j, idx in enumerate(shares)]
-    # every chunk enqueued before a pull
-    outs = [solved(j, pushes[j][0][sl], pushes[j][1][sl],
-                   rows_R if twopass and not sharded else None)
-            for j, sl in where]
+    exact = None
+    if bound is not None:
+        exact = _Exact(n, batch, ms_host, plan_host, pk,
+                       np.asarray(y, dtype=np.float64), sig_csf, sig_ear, K,
+                       bool(csf_on), bool(ear_on), dev)
+
+        def wide(sel):
+            """The certificates of voxels ``sel`` over their whole grid (no
+            row pruned) and ``WIDE`` times the cells, eagerly, on a stream
+            of the card's own: the chunks queued on its stream need not
+            finish first."""
+            size = WIDE_BATCH if batch >= WIDE_BATCH else batch
+            idx = np.concatenate([sel, np.full(size - sel.size, sel[0])])
+            side = (torch.cuda.stream(torch.cuda.Stream(slots[0]))
+                    if _pinned(slots[0]) else contextlib.nullcontext())
+            with stage("certify fallback"), side:
+                got = pushed(idx, 0)
+                out = solved(0, *got[:2], n_atom if twopass else None,
+                             *got[2:], graph=False, wide=WIDE)
+                with stage("pull"):
+                    return out[5][:sel.size].cpu().numpy()
+
+        exact.wide = wide
+    # every chunk enqueued before a pull; with the certificate, each
+    # chunk's copied to the host behind it (read in ``finish``, while the
+    # card runs what was queued after it)
+    outs = []
+    for j, sl in where:
+        outs.append(solved(j, *(p[sl] for p in pushes[j][:2]),
+                           rows_R if twopass and not sharded else None,
+                           *(p[sl] for p in pushes[j][2:])))
+        if exact is not None:
+            exact.add(outs[-1][5])
 
     def finish():
         """The pull: the chunks' results joined, the overflow tiers run
         (eagerly), the index layout made canonical."""
+        if exact is not None:
+            exact.drain()
         cand, w, obj, r2, ok = (torch.cat([t.to(dev) for t in x])[:n]
-                                for x in zip(*outs))
+                                for x in list(zip(*outs))[:5])
 
+        fb = min(batch, 64)
         with stage("pull"):
             bad = torch.nonzero(~ok).flatten().cpu().numpy()
         if bad.size:
             # row-budget overflow (heavily tied voxels): re-solve at 2R,
             # then with every row and column (R = N), where ok cannot fail
-            fb = min(batch, 64)
             tiers = ([2 * rows_R] if 2 * rows_R < n_atom else []) + [n_atom]
             for R in tiers:
                 with stage("overflow N" if R == n_atom else "overflow 2R"):
@@ -383,10 +709,12 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                         idx = np.concatenate([sel, np.full(fb - sel.size,
                                                            sel[0])])
                         j = i % n_rows
-                        res.append(solved(j, *pushed(idx, j), R,
+                        got = pushed(idx, j)
+                        res.append(solved(j, *got[:2], R, *got[2:],
                                           graph=False))
                     still = []
-                    for sel, (c_f, w_f, o_f, r_f, ok_f) in zip(sels, res):
+                    for sel, (c_f, w_f, o_f, r_f, ok_f, *pack_f) in zip(
+                            sels, res):
                         m = sel.size
                         with stage("pull"):
                             good = ok_f[:m].cpu().numpy() | (R == n_atom)
@@ -397,6 +725,10 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
                         w[done] = w_f[keep].to(dev)
                         obj[done] = o_f[keep].to(dev)
                         r2[done] = r_f[keep].to(dev)
+                        if exact is not None:
+                            with stage("pull"):
+                                packs = pack_f[0][:m].cpu().numpy()
+                            exact.take(sel[good], packs[good])
                         still.extend(sel[~good])
                     bad = np.asarray(still, dtype=np.int64)
                 if not bad.size:
@@ -426,8 +758,14 @@ def run_bucket_fast(ms_host, plan_host, tables_ys, peaks, y, sig_csf,
             ind = np.concatenate([ind[:, :1], zero, ind[:, 1:]], axis=1)
         elif K == 2 and csf_on and not ear_on:  # [i1, i2] -> + csf=0
             ind = np.concatenate([ind, zero], axis=1)
+        if exact is not None:
+            exact.flush(everything=True)     # the overflow tiers' voxels
+            exact.fallback(dev)
+            exact.apply(w_b, ind, obj_b, r2_b)
         return w_b, ind, obj_b, obj_b / S, r2_b
 
+    if exact is not None:
+        finish.drain = exact.drain
     return finish if defer else finish()
 
 

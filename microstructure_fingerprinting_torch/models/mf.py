@@ -43,6 +43,7 @@ from ..utils import io as mfio
 from ..utils import nifti
 from ..utils import scheme as schm
 from ..utils.profiling import stage
+from . import certify
 from . import fit as fit_mod
 
 
@@ -243,13 +244,16 @@ class MFModel(object):
               (self.num_atom, self.num_ear))
 
     def _grouped_rotator(self, plan_h, sch_mat):
+        """The grouped rotation of ``sch_mat`` and its float32 error bound
+        (``models/certify.Bound``), each built once a scheme."""
         key = hash(np.asarray(sch_mat, dtype=np.float64).tobytes())
-        rot = self._rotators.get(key)
-        if rot is None:
-            rot = mfi.make_grouped_rotation_paired(self.ms_interpolator,
-                                                   plan_h)
-            self._rotators[key] = rot
-        return rot
+        got = self._rotators.get(key)
+        if got is None:
+            got = (mfi.make_grouped_rotation_paired(self.ms_interpolator,
+                                                    plan_h),
+                   certify.Bound(self.ms_interpolator, plan_h))
+            self._rotators[key] = got
+        return got
 
     @staticmethod
     def _mesh(dev, mesh_shape):
@@ -300,7 +304,11 @@ class MFModel(object):
         and keeps its ``topm`` best candidates per voxel for a float64
         host re-score; ``refine=None`` means ``True``, as on a float32
         accelerator in the JAX package, and ``refine=False`` takes the
-        float32 scan's winner. ``batch_size`` is the voxel chunk: 512 on
+        float32 scan's winner. On the fast path ``refine`` certifies each
+        voxel's atoms against the float64 optimum and re-scores in
+        float64 the near-ties its scans cannot resolve
+        (``models/certify.py``; ``refine=False`` keeps the scan's
+        winner). ``batch_size`` is the voxel chunk: 512 on
         the fast path and ``FitConfig.batch`` (128) on the general path
         by default. ``parallel=True`` fits on a (data, atoms) device
         mesh (``parallel/mesh.py``): ``mesh_shape=(n_data, n_atoms)``,
@@ -526,7 +534,7 @@ class MFModel(object):
             # MAX_PROG_LINES lines in all
             disp_int = int(ROI_size / min(ROI_size / MFModel.DFT_DISP_ITVL,
                                           MFModel.MAX_PROG_LINES))
-            rotator = self._grouped_rotator(plan_h, pgse_scheme)
+            rotator, bound = self._grouped_rotator(plan_h, pgse_scheme)
             marshal.close()
             # the JAX package's order: every bucket's device work is queued
             # first (the fast path's chunks enqueued, their pull deferred; the
@@ -554,7 +562,9 @@ class MFModel(object):
                             peaks_roi[idx, :3 * K], y_roi[idx], sig_csf, K,
                             has_csf, batch=fast_batch, rotator=rotator,
                             sig_ear=sig_ear, ear_on=has_ear, mesh=mesh,
-                            defer=True)
+                            defer=True, refine=refine, bound=bound)
+                    if refine:
+                        note = None   # counted at the pull
                 else:
                     before = dict(fit_mod.RESCORES)
                     with stage(name, dev):
@@ -578,12 +588,34 @@ class MFModel(object):
             if VRB >= 2:
                 print("All %d bucket(s) dispatched in %g second(s)."
                       % (len(pending), time.time() - st_est))
+            # the fast path's host re-scores first, each bucket's as its
+            # chunks land, while the card runs the buckets queued after it;
+            # the fascicle-free host solve before them, so that it runs in
+            # the card's shadow too
+            if any(hasattr(p[2], "drain") for p in pending):
+                for i, (cfg_k, idx, pend, st_b, name, note) in enumerate(
+                        pending):
+                    if cfg_k[0] == 0:
+                        with stage(name):
+                            solved = pend()
+                        pending[i] = (cfg_k, idx, lambda r=solved: r, st_b,
+                                      name, note)
+            for _cfg, _idx, pend, _st, name, _note in pending:
+                if hasattr(pend, "drain"):
+                    with stage(name, dev):
+                        pend.drain()
             vox_done = 0
             for (K, has_csf, has_ear), idx, pend, st_bucket, name, note \
                     in pending:
                 st_pull = time.time()
+                before = dict(fit_mod.CERTIFY)
                 with stage(name, dev if K else None):
                     w, ind, obj, mse, r2 = pend()
+                if note is None:
+                    note = ("; voxels certified: %d, re-scored: %d, "
+                            "fallback: %d" % tuple(
+                                fit_mod.CERTIFY[k] - before[k] for k in
+                                ("certified", "rescored", "fallback")))
                 if VRB >= 2:
                     print("Bucket K=%d csf=%d ear=%d (%d voxels%s) pulled in "
                           "%g second(s)." % (K, has_csf, has_ear, idx.size,

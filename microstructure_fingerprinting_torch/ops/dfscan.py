@@ -143,11 +143,20 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
     Returns (cand (B, M, 2) int32 [i1, i2], res (B, M) residuals of the
     normalized problem, y_sq (B,) raw ||y||^2)."""
     if M == 1 and A1.is_cuda:
-        ops, yn = df2_scan_operands(A1, A2, y, tile)
-        row_val, row_i2 = df2_rows(*ops, n1=A1.shape[2], n2=A2.shape[2])
-        cand, vals = df2_top1_from_rows(row_val, row_i2, A2.shape[2], tile)
-        return cand, vals, yn * yn
+        return df2_row_minima(A1, A2, y, tile)[:3]
     return df2_candidates_plain(A1, A2, y, M, tile)
+
+
+def df2_row_minima(A1, A2, y, tile=256):
+    """The df2 scan's top-1 by its per-row minima, on any device: kernels
+    9 and 6 on CUDA tensors (``df2_candidates`` at M = 1 there), their
+    plain versions elsewhere. Returns (cand (B, 1, 2) int32, res (B, 1),
+    y_sq (B,), row_val (B, N1p) the least residual of each row)."""
+    ops, yn = df2_scan_operands(A1, A2, y, tile)
+    rows = df2_rows if A1.is_cuda else df2_rows_twin
+    row_val, row_i2 = rows(*ops, n1=A1.shape[2], n2=A2.shape[2])
+    cand, vals = df2_top1_from_rows(row_val, row_i2, A2.shape[2], tile)
+    return cand, vals, yn * yn, row_val
 
 
 def df2_candidates_plain(A1, A2, y, M=8, tile=256):

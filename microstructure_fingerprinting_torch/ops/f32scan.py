@@ -975,12 +975,33 @@ def _gather_cols(A, sel):
     return torch.gather(A, 2, sel[:, None, :].expand(-1, A.shape[1], -1))
 
 
-def df3_twopass(A1, A2, a3, y, M=1, R=128):
+def _cells(rr, n_seg, segw, rows, cols, n2_sel, lo, lo_col):
+    """What ``models/certify.certify`` reads of a two-pass scan: the
+    re-scan's (segment, row) minima ``rr`` (B, n_seg * R), the scanned
+    rows' and columns' atoms and the least interval lower bound of every
+    row and column that the row pass pruned (+inf where it pruned
+    none)."""
+    B, N1 = lo.shape
+    out_r = torch.ones((B, N1), dtype=torch.bool, device=lo.device)
+    out_r.scatter_(1, rows, False)
+    lo_out = torch.where(out_r, lo, _INF).amin(dim=1)
+    if cols is not None:
+        out_c = torch.ones_like(lo_col, dtype=torch.bool)
+        out_c.scatter_(1, cols, False)
+        lo_out = torch.minimum(lo_out,
+                               torch.where(out_c, lo_col, _INF).amin(dim=1))
+    return dict(cellv=rr, n1p=rr.shape[1] // n_seg, segw=segw, n2=n2_sel,
+                rows=rows, cols=cols, lo_out=lo_out)
+
+
+def df3_twopass(A1, A2, a3, y, M=1, R=128, cells=False):
     """Two-pass exact top-1 for [N1, N2, 1]: f32 interval row pass ->
     double-float re-scan of the in-band rows (and, when N2 > R, columns).
     Returns (cand (B, 1, 2) int64, res (B, 1), y_sq (B,), ok (B,) bool).
     Where ``ok`` is False the caller re-solves the voxel with a larger
-    R (the selection guarantee covers in-budget voxels only)."""
+    R (the selection guarantee covers in-budget voxels only). With
+    ``cells`` a fifth item holds what ``models/certify`` reads of the
+    scan (``_cells``)."""
     if M != 1:
         raise NotImplementedError("df3_twopass computes the top-1 only")
     N2 = A2.shape[2]
@@ -1003,17 +1024,22 @@ def df3_twopass(A1, A2, a3, y, M=1, R=128):
             n2_sel = N2
     with stage("re-scan", A1.device):
         rr, ri, y_sq = rescan.row_scan_df3(A1_sel, A2_sel, a3, y)
-        cand, vals = rescan.candidates_from_rows(
-            rr, ri, segments=rescan.n_segments(n2_sel))
+        n_seg = rescan.n_segments(n2_sel)
+        cand, vals = rescan.candidates_from_rows(rr, ri, segments=n_seg)
     loc = torch.clamp(cand[:, :, 0], 0, R - 1)
     i1 = torch.gather(rows, 1, loc)
     i2 = cand[:, :, 1]
     if prune_cols:
         i2 = torch.gather(cols, 1, torch.clamp(i2, 0, R - 1))
-    return torch.stack([i1, i2], dim=2), vals, y_sq, ok
+    out = (torch.stack([i1, i2], dim=2), vals, y_sq, ok)
+    if not cells:
+        return out
+    segw = rescan.col_blocks(n2_sel)[1] // rescan._SEGMENTS
+    return out + (_cells(rr, n_seg, segw, rows, cols if prune_cols else None,
+                         n2_sel, lo, lo_col if prune_cols else None),)
 
 
-def df4_twopass(A1, A2, a3, a4, y, M=1, R=128):
+def df4_twopass(A1, A2, a3, a4, y, M=1, R=128, cells=False):
     """Two-pass exact top-1 for [N1, N2, N3, N4] (the EAR configuration):
     4-block f32 interval row pass -> double-float re-scan of the in-band
     rows (and, when N2 > R, columns). Returns (cand (B, 1, 4) int64
@@ -1024,7 +1050,10 @@ def df4_twopass(A1, A2, a3, a4, y, M=1, R=128):
     supports that pin neither index ({3}, {4}, {3,4}, empty) resolve to
     (0, 0) in first-minimum order, and index 0 is forced into both
     selections; index-ascending subsets keep the (i1, i2, i3, i4)
-    first-minimum tie order."""
+    first-minimum tie order. With ``cells`` the re-scan writes one
+    minimum a (row, ``rescan.TN4``-column tile) and a fifth item holds
+    what ``models/certify`` reads of the scan (``_cells``); the winner
+    does not depend on the tiling."""
     if M != 1:
         raise NotImplementedError("df4_twopass computes the top-1 only")
     N2, N3, N4 = A2.shape[2], a3.shape[2], a4.shape[2]
@@ -1045,15 +1074,22 @@ def df4_twopass(A1, A2, a3, a4, y, M=1, R=128):
         else:
             A2_sel = A2
             n2_sel = N2
+    segs = rescan.df4_cell_segments(n2_sel) if cells else 1
     with stage("re-scan", A1.device):
-        rr, rf, y_sq = rescan.row_scan_df4(A1_sel, A2_sel, a3, a4, y)
+        rr, rf, y_sq = rescan.row_scan_df4(A1_sel, A2_sel, a3, a4, y,
+                                           segments=segs)
+        n_seg = rescan.n_segments_df4(n2_sel, segs)
         cand, vals = rescan.candidates_from_rows_df4(
-            rr, rf, N3 * N4, N4, n2_sel,
-            segments_total=rescan.n_segments_df4(n2_sel))
+            rr, rf, N3 * N4, N4, n2_sel, segments_total=n_seg)
     loc = torch.clamp(cand[:, :, 0], 0, R - 1)
     i1 = torch.gather(rows, 1, loc)
     i2 = cand[:, :, 1]
     if prune_cols:
         i2 = torch.gather(cols, 1, torch.clamp(i2, 0, R - 1))
-    return (torch.cat([i1[:, :, None], i2[:, :, None], cand[:, :, 2:]],
-                      dim=2), vals, y_sq, ok)
+    out = (torch.cat([i1[:, :, None], i2[:, :, None], cand[:, :, 2:]],
+                     dim=2), vals, y_sq, ok)
+    if not cells:
+        return out
+    segw = rescan.col_blocks(n2_sel, 256, 16)[1] // segs
+    return out + (_cells(rr, n_seg, segw, rows, cols if prune_cols else None,
+                         n2_sel, lo, lo_col if prune_cols else None),)

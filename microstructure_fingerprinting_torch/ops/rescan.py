@@ -520,6 +520,13 @@ def n_segments_df4(N2, segments=1):
     return col_blocks(N2, 256, 16)[0] * segments
 
 
+def df4_cell_segments(N2):
+    """Segments a column block of ``row_scan_df4`` so that each is one
+    ``TN4``-column tile of its kernel: the finest (row, segment) minima
+    it writes."""
+    return col_blocks(N2, 256, 16)[1] // TN4
+
+
 def candidates_from_rows_df4(row_res, row_flat, NS, N4, N2, segments_total):
     """Top-1 from ``row_scan_df4``'s per-(row, segment) minima in the
     reference's (i1, i2, i3, i4) first-minimum product order: the

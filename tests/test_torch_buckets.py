@@ -404,9 +404,17 @@ def test_fit_verbose_lines_match_jax(mixed_fits):
     (model, estimation start, per-bucket "Config", "dispatched", "pulled"
     and "Voxel i/n" progress lines at the MAX_PROG_LINES / DFT_DISP_ITVL
     cadence, "Estimation performed", the fit object's map list), times
-    left out."""
+    left out, and the fast-path buckets' counts of certified, re-scored
+    and fallback voxels on their "pulled" lines."""
     _mix, _vol, out = mixed_fits
     lj, lt = _times_out(out["jax"][1]), _times_out(out["port"][1])
+    # the port's fast-path buckets add their exact selection's counts to
+    # the "pulled in" line (models/fit.CERTIFY), which the JAX package
+    # does not have
+    note = re.compile(r"; voxels certified: \d+, re-scored: \d+, "
+                      r"fallback: \d+")
+    assert sum(bool(note.search(line)) for line in lt) == 3
+    lt = [note.sub("", line) for line in lt]
     assert lt == lj
     assert any(line.startswith("Voxel 1/16 (") for line in lt)
     assert sum(line.startswith("Config K=") for line in lt) == 4
@@ -437,6 +445,42 @@ def test_fit_dispatches_every_bucket_before_the_host_solve(wl, mixed_fits,
         vol["data"], vol["mask"], vol["numfasc"],
         **dict(vol["kw"], verbose=0), device="cpu")
     assert events == ["dispatch"] * 3 + ["host solve"] + ["pull"] * 3
+    want = out["port"][0]
+    for p in want.param_names:
+        assert np.array_equal(getattr(fit, p), getattr(want, p)), p
+
+
+def test_fit_solves_the_host_bucket_before_the_rescores(wl, mixed_fits,
+                                                        monkeypatch):
+    """With the fast path's exact selection (each deferred bucket's
+    ``finish.drain``), MFModel.fit runs the fascicle-free host solve
+    after every bucket is queued and before the first bucket's host
+    re-score, so that it runs while the card works; then the re-scores,
+    then the pulls. The maps are the mixed fit's, bit for bit."""
+    _mix, vol, out = mixed_fits
+    events = []
+    fast, trivial = tfit.run_bucket_fast, tfit.run_bucket_trivial
+
+    def fast_spy(*a, **k):
+        events.append("dispatch")
+        finish = fast(*a, **k)
+
+        def pull():
+            events.append("pull")
+            return finish()
+        pull.drain = lambda: events.append("re-score") or finish.drain()
+        return pull
+
+    monkeypatch.setattr(tfit, "run_bucket_fast", fast_spy)
+    monkeypatch.setattr(tfit, "run_bucket_trivial", lambda *a, **k:
+                        events.append("host solve") or trivial(*a, **k))
+    monkeypatch.setitem(tconfig.DEFAULTS, "solver", dataclasses.replace(
+        tconfig.DEFAULTS["solver"], twopass_rows=16))
+    fit = mft.MFModel(_dictionary(wl)).fit(
+        vol["data"], vol["mask"], vol["numfasc"],
+        **dict(vol["kw"], verbose=0), device="cpu")
+    assert events == (["dispatch"] * 3 + ["host solve"] + ["re-score"] * 3
+                      + ["pull"] * 3)
     want = out["port"][0]
     for p in want.param_names:
         assert np.array_equal(getattr(fit, p), getattr(want, p)), p
